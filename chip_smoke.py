@@ -1,0 +1,336 @@
+"""Smoke run of the PyTorch port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure ends the run with a non-zero exit code and
+no result line:
+
+1. device: the card's name and power limit; TF32 off; build every CUDA
+   kernel from src/repro_torch/csrc.
+2. kernels: each hand-written kernel against its plain PyTorch version on
+   the card, at every shape the Sketchy training step gives it and at a few
+   ragged ones; timed with CUDA events beside the plain version, one library
+   call as a yardstick, and the least time the card could take (bound).
+3. eigh: ``torch.linalg.eigh`` over one refresh's 444 Grams (a library call
+   in both packages, timed on its own).
+4. main path: ``repro_torch.launch.train`` at full-width paper-lm-100m with
+   Sketchy at the launcher's defaults (peak lr 3e-4, see MAIN_PATH_ARGV) for
+   12 steps (refreshes at steps 0 and 10), with every kernel's launch count
+   set to 0 just before and read just after.  Every loss must be finite,
+   the last below the first, and the counts 16 Grams (8 per refresh) and 96
+   applies (8 per step).
+5. profile: ``torch.profiler`` over one plain step of the same run: device
+   time by kernel and the device's idle share.
+6. reference: the reduced model trained 4 steps on the card (kernels) and on
+   the CPU (plain versions) from the same weights gives the same losses.
+
+The last two lines are ``{"kernels": [...]}`` and
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+from repro_torch import tree  # noqa: E402
+from repro_torch.configs import registry  # noqa: E402
+from repro_torch.core import pool  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.gram import kernel as gram_kernel  # noqa: E402
+from repro_torch.kernels.gram import ref as gram_ref  # noqa: E402
+from repro_torch.kernels.lowrank import kernel as lowrank_kernel  # noqa: E402
+from repro_torch.kernels.lowrank import ref as lowrank_ref  # noqa: E402
+from repro_torch.launch import train as train_lib  # noqa: E402
+from repro_torch.models import model as model_lib  # noqa: E402
+
+# Published peaks of one H100 SXM (NVIDIA data sheet, at its 700 W limit):
+# device memory 3.35 TB/s; f32 outside the tensor cores 67 TFLOP/s.  Both
+# kernels multiply-add in f32 FFMA.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+RANK, BLOCK = 64, 1024          # the launcher's defaults
+# The launcher's defaults but a peak lr of 3e-4 (default 3e-3): with 12
+# steps the warmup-cosine schedule warms up for one step, and at full width
+# the default peak makes the loss rise over these steps, in f32 as in bf16
+# (scripts/torch_lr_probe.py; PERF.md).
+MAIN_PATH_ARGV = ["--steps", "12", "--lr", "3e-4", "--log-every", "1"]
+
+
+def fail(msg: str) -> None:
+    raise RuntimeError(msg)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple[float, float]:
+    """(ms to move ``nbytes`` through device memory, ms for ``flops`` of
+    f32 FFMA work); the bound is the larger."""
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+
+
+def main_path_shapes() -> tuple[list, list]:
+    """(gram shapes, apply shapes) of one Sketchy step at full width, from
+    the port's own pool index: per group the left and right side."""
+    cfg = registry.get_config("paper-lm-100m")
+    shapes = [tuple(s) for s in tree.flatten(model_lib.param_shapes(cfg))]
+    gram, apply = [], []
+    for g in pool.build_index(tuple(shapes), BLOCK).groups:
+        for d, other in ((g.bs_m, g.bs_n), (g.bs_n, g.bs_m)):
+            ell = min(RANK, d)
+            gram.append((g.num_blocks, d, ell + other))
+            apply.append((g.num_blocks, d, ell, other))
+    return gram, apply
+
+
+def check(name: str, got: torch.Tensor, want: torch.Tensor, d: int) -> float:
+    """f32 tolerance of the tests: |got - want| <= 1e-4 sqrt(d) + 1e-5
+    |want|; returns the largest absolute difference."""
+    diff = (got.float() - want.float()).abs()
+    if not torch.all(diff <= 1e-4 * math.sqrt(d) + 1e-5 * want.abs()):
+        fail(f"{name}: kernel disagrees with its plain version "
+             f"(max abs diff {float(diff.max()):.3e})")
+    return float(diff.max())
+
+
+def phase_kernels(dev) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(0)
+    gram_main, apply_main = main_path_shapes()
+    out = {}
+
+    rows, err = [], 0.0
+    for N, d, k in gram_main + [(3, 20, 6), (7, 33, 9), (5, 100, 30)]:
+        a = torch.randn(N, d, k, generator=gen, device=dev)
+        got = gram_kernel.batched_gram(a)
+        torch.cuda.synchronize()
+        err = max(err, check(f"batched_gram {(N, d, k)}", got,
+                             gram_ref.batched_gram_ref(a), d))
+        if (N, d, k) not in gram_main:
+            continue
+        ms = cuda_ms(lambda: gram_kernel.batched_gram(a), 3)
+        plain = cuda_ms(lambda: gram_ref.batched_gram_ref(a), 3)
+        lib = cuda_ms(lambda: torch.bmm(a.mT, a), 3)
+        # symmetric output: d * k (k + 1) / 2 multiply-adds are needed
+        t_bytes, t_ops = bound_ms(4 * (N * d * k + N * k * k),
+                                  N * d * k * (k + 1))
+        rows.append((ms, plain, lib, t_bytes, t_ops))
+        print(f"batched_gram N={N} d={d} k={k}: {ms:.3f} ms, plain "
+              f"{plain:.3f} ms, bmm {lib:.3f} ms, bound "
+              f"{max(t_bytes, t_ops):.3f} ms (bytes {t_bytes:.3f}, "
+              f"operations {t_ops:.3f})")
+    out["batched_gram"] = dict(
+        name="batched_gram", route="cuda",
+        source="src/repro_torch/csrc/gram.cu",
+        replaces="src/repro/kernels/gram/kernel.py:99",
+        max_abs_err=err, **_sums(rows))
+
+    rows, err = [], 0.0
+    for N, d, ell, n in apply_main + [(3, 24, 6, 10), (7, 123, 17, 50)]:
+        u = torch.randn(N, d, ell, generator=gen, device=dev)
+        g = torch.randn(N, d, n, generator=gen, device=dev)
+        c = torch.rand(N, ell, generator=gen, device=dev)
+        b = torch.rand(N, generator=gen, device=dev)
+        got = lowrank_kernel.batched_lowrank_apply(u, c, b, g)
+        torch.cuda.synchronize()
+        err = max(err, check(f"batched_lowrank_apply {(N, d, ell, n)}", got,
+                             lowrank_ref.batched_lowrank_apply_ref(u, c, b, g),
+                             d))
+        if (N, d, ell, n) not in apply_main:
+            continue
+        ms = cuda_ms(lambda: lowrank_kernel.batched_lowrank_apply(u, c, b, g),
+                     5)
+        plain = cuda_ms(
+            lambda: lowrank_ref.batched_lowrank_apply_ref(u, c, b, g), 5)
+        lib = cuda_ms(lambda: torch.baddbmm(
+            g * b[:, None, None], u, c[:, :, None] * torch.bmm(u.mT, g)), 5)
+        copy = cuda_ms(lambda: g.mT.contiguous(), 5)
+        t_bytes, t_ops = bound_ms(
+            4 * (N * d * ell + N * ell + N + 2 * N * d * n),
+            N * (4 * d * ell * n + 2 * d * n + ell * n))
+        rows.append((ms, plain, lib, t_bytes, t_ops))
+        print(f"batched_lowrank_apply N={N} d={d} ell={ell} n={n}: {ms:.3f} "
+              f"ms, plain {plain:.3f} ms, bmm+baddbmm {lib:.3f} ms, bound "
+              f"{max(t_bytes, t_ops):.3f} ms (bytes {t_bytes:.3f}, "
+              f"operations {t_ops:.3f}); transpose copy of G {copy:.3f} ms")
+    out["batched_lowrank_apply"] = dict(
+        name="batched_lowrank_apply", route="cuda",
+        source="src/repro_torch/csrc/lowrank.cu",
+        replaces="src/repro/kernels/lowrank/kernel.py:97",
+        max_abs_err=err, **_sums(rows))
+    return out
+
+
+def _sums(rows) -> dict:
+    """Times of the main path's calls summed: one refresh for the Gram, one
+    step for the apply.  The bound is the sum of each call's bound; it is
+    named by whichever of bytes and operations takes longer in total."""
+    ms, plain, lib, t_bytes, t_ops = (sum(col) for col in zip(*rows))
+    return dict(ms=ms, plain_ms=plain,
+                bound_ms=sum(max(r[3], r[4]) for r in rows),
+                bound_by="bytes" if t_bytes > t_ops else "operations",
+                library_ms=lib)
+
+
+def phase_eigh(dev) -> float:
+    """Seconds of ``torch.linalg.eigh`` over one refresh's Grams."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    grams = []
+    for N, d, k in main_path_shapes()[0]:
+        m = torch.randn(N, d, k, generator=gen, device=dev)
+        grams.append(gram_ref.batched_gram_ref(m))
+    torch.linalg.eigh(grams[1][:1])
+    torch.cuda.synchronize()
+    total = 0.0
+    for c in grams:
+        t0 = time.perf_counter()
+        torch.linalg.eigh(c)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        total += dt
+        print(f"eigh {c.shape[0]} x {c.shape[1]}x{c.shape[2]}: {dt:.3f} s")
+    n = sum(c.shape[0] for c in grams)
+    print(f"eigh over one refresh ({n} matrices): {total:.3f} s")
+    return total
+
+
+def phase_main_path(dev) -> tuple[list, dict]:
+    torch.cuda.reset_peak_memory_stats(dev)
+    gram_kernel.launches = 0
+    lowrank_kernel.launches = 0
+    log = train_lib.main(MAIN_PATH_ARGV)
+    launches = {"batched_gram": gram_kernel.launches,
+                "batched_lowrank_apply": lowrank_kernel.launches}
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [r["loss"] for r in log]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"loss did not fall: {losses}")
+    if launches != {"batched_gram": 16, "batched_lowrank_apply": 96}:
+        fail(f"main path launches {launches}, expected 16 Grams and 96 "
+             f"applies")
+    times = [r["time_s"] for r in log]
+    print(f"main path step times (s): {times}")
+    print(f"main path peak memory allocated: {peak} bytes")
+    print(f"main path launches: {launches}")
+    return log, launches
+
+
+def phase_profile(dev) -> None:
+    """Device time by kernel of one plain (non-refresh) step of the main
+    path's configuration, and the device's idle share of that step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    run = train_lib.start(train_lib.parse_args(MAIN_PATH_ARGV))
+    run.step(0)                                    # the refresh step
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run.step(1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    labels = ("train/forward_backward", "train/optimizer")
+    # device busy time: the union of the device events' intervals (the
+    # labels' own device-side ranges excluded)
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and e.name not in labels)
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        busy_us += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    busy_ms = busy_us / 1e3
+    print(f"profile of a plain step: wall {wall_ms:.3f} ms (profiled), "
+          f"device busy {busy_ms:.3f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}")
+    rows = [r for r in prof.key_averages() if r.key not in labels]
+    dev_us = lambda r: getattr(r, "self_device_time_total",
+                               getattr(r, "self_cuda_time_total", 0.0))
+    for r in sorted(rows, key=dev_us, reverse=True)[:12]:
+        print(f"  {dev_us(r) / 1e3:9.3f} ms  x{r.count:<5d} {r.key[:90]}")
+    for r in prof.key_averages():
+        if r.key in labels:
+            print(f"  {r.key}: host {r.cpu_time_total / 1e3:.3f} ms")
+
+
+def phase_reference(dev) -> None:
+    """Reduced model, same weights: card (kernels) vs CPU (plain)."""
+    argv = ["--reduced", "--steps", "4", "--seq", "32", "--batch", "4",
+            "--rank", "4", "--block-size", "32", "--update-every", "2"]
+    cfg = registry.get_reduced("paper-lm-100m")
+    params = model_lib.init_params(cfg, torch.Generator().manual_seed(0))
+    losses = {}
+    for device in (dev, torch.device("cpu")):
+        start = tree.unflatten(params, [p.to(device)
+                                        for p in tree.flatten(params)])
+        _, log = train_lib.train(
+            train_lib.parse_args(argv + ["--device", str(device)]), start)
+        losses[device.type] = [r["loss"] for r in log]
+    worst = max(abs(a - b) / abs(b)
+                for a, b in zip(losses["cuda"], losses["cpu"]))
+    print(f"reference: card losses {losses['cuda']}, CPU losses "
+          f"{losses['cpu']}, max rel diff {worst:.2e}")
+    # different eigh and summation orders on the two devices, over 4 steps
+    if worst > 1e-3:
+        fail("card and CPU runs of the reduced model disagree")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(smi)
+    kind = torch.cuda.get_device_name(0)
+    print(f"device: {kind}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    build.build_all()
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s")
+
+    kernels = phase_kernels(dev)
+    phase_eigh(dev)
+    _, launches = phase_main_path(dev)
+    phase_profile(dev)
+    phase_reference(dev)
+
+    for name, n in launches.items():
+        kernels[name]["launches"] = n
+    print(smi)
+    print(json.dumps({"kernels": list(kernels.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

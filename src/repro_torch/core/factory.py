@@ -1,0 +1,67 @@
+"""Optimizer factory: config -> full training transformation chain (port of
+repro/core/factory.py, Sketchy only).
+
+Chain layout (paper App. C), as a labelled ``named_chain`` inside
+``inject_hyperparams`` (lr and beta2 evaluated every step):
+  clip -> precond (sketchy) -> momentum (EMA) -> weight_decay -> lr
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from repro_torch.core import api, schedules, transform
+from repro_torch.core import sketchy as sketchy_lib
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "sketchy"              # only sketchy is ported
+    learning_rate: float = 1e-3
+    total_steps: int = 1000
+    warmup_frac: float = 0.05
+    beta1: float = 0.9
+    beta2: float = 0.999
+    weight_decay: float = 0.0
+    grad_clip: Optional[float] = 1.0
+    schedule: str = "warmup_cosine"    # warmup_cosine | constant
+    rank: int = 256
+    block_size: int = 1024
+    update_every: int = 10
+    start_preconditioning_step: int = 0
+
+    def __post_init__(self):
+        if self.name != "sketchy":
+            raise NotImplementedError(
+                f"optimizer {self.name!r} is not ported yet (ROADMAP.md "
+                f"queue 1 item 5 for adam, item 10 for shampoo)")
+        if self.schedule not in ("warmup_cosine", "constant"):
+            raise ValueError(f"unknown schedule {self.schedule!r}")
+
+
+def make_optimizer(cfg: OptimizerConfig) -> transform.GradientTransformation:
+    def build(learning_rate, beta2):
+        stages = []
+        if cfg.grad_clip:
+            stages.append(("clip",
+                           transform.clip_by_global_norm(cfg.grad_clip)))
+        direction = sketchy_lib.sketchy(sketchy_lib.SketchyConfig(
+            rank_budget=sketchy_lib.RankBudget(max_k=cfg.rank),
+            block_size=cfg.block_size, beta2=beta2,
+            update_every=cfg.update_every,
+            start_preconditioning_step=cfg.start_preconditioning_step))
+        stages.append(("precond", direction))
+        stages.append(("momentum", transform.momentum(cfg.beta1)))
+        if cfg.weight_decay:
+            stages.append(("weight_decay",
+                           transform.add_decayed_weights(cfg.weight_decay)))
+        stages.append(("lr", transform.scale(-1.0 * learning_rate)))
+        return api.named_chain(*stages)
+
+    if cfg.schedule == "warmup_cosine":
+        lr_hyper = schedules.warmup_cosine(cfg.learning_rate, cfg.total_steps,
+                                           cfg.warmup_frac)
+    else:
+        lr_hyper = cfg.learning_rate
+    return api.inject_hyperparams(build)(learning_rate=lr_hyper,
+                                         beta2=cfg.beta2)

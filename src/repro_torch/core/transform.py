@@ -1,0 +1,116 @@
+"""Gradient transformations over flat tensor lists (port of
+repro/core/transform.py).
+
+A transformation is an ``(init, update)`` pair.  ``init(params)`` builds a
+state from the flat parameter list; ``update(updates, state, params)``
+returns the transformed flat update list and the new state.  Lists are in
+the JAX canonical leaf order (repro_torch/tree.py), so the stages line up
+with the reference's one for one.  Updates are returned as new tensors; only
+``apply_updates`` writes in place, into the parameters.
+
+The dtype rules follow the reference: a scalar hyperparameter held as an
+f32 tensor promotes a bf16 update to f32 (``_promote``), as a non-weak f32
+array does in JAX, where a Python float keeps the update's dtype.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+
+class GradientTransformation(NamedTuple):
+    init: Callable
+    update: Callable
+
+
+class EmptyState(NamedTuple):
+    pass
+
+
+def _promote(u: torch.Tensor, factor) -> torch.Tensor:
+    if isinstance(factor, torch.Tensor):
+        return u.to(torch.promote_types(u.dtype, factor.dtype))
+    return u
+
+
+def chain(*transforms: GradientTransformation) -> GradientTransformation:
+    """Compose transformations; state is a tuple of member states."""
+
+    def init_fn(params):
+        return tuple(t.init(params) for t in transforms)
+
+    def update_fn(updates, state, params=None):
+        new_state = []
+        for t, s in zip(transforms, state):
+            updates, s = t.update(updates, s, params)
+            new_state.append(s)
+        return updates, tuple(new_state)
+
+    return GradientTransformation(init_fn, update_fn)
+
+
+def scale(factor) -> GradientTransformation:
+    def init_fn(params):
+        return EmptyState()
+
+    def update_fn(updates, state, params=None):
+        return [_promote(u, factor) * factor for u in updates], state
+
+    return GradientTransformation(init_fn, update_fn)
+
+
+class TraceState(NamedTuple):
+    momentum: list
+
+
+def momentum(beta1: float) -> GradientTransformation:
+    """EMA momentum in the parameter dtype (the paper's
+    ``moving_average_for_momentum``): ``beta1 * mu + (1 - beta1) * g``."""
+
+    def init_fn(params):
+        return TraceState(momentum=[torch.zeros_like(p) for p in params])
+
+    def update_fn(updates, state, params=None):
+        mu = [beta1 * m + (1.0 - beta1) * u.to(m.dtype)
+              for u, m in zip(updates, state.momentum)]
+        out = [m.to(u.dtype) for u, m in zip(updates, mu)]
+        return out, TraceState(momentum=mu)
+
+    return GradientTransformation(init_fn, update_fn)
+
+
+def add_decayed_weights(weight_decay: float) -> GradientTransformation:
+    """Decoupled weight decay."""
+
+    def init_fn(params):
+        return EmptyState()
+
+    def update_fn(updates, state, params=None):
+        if weight_decay == 0.0 or params is None:
+            return updates, state
+        return [u + weight_decay * p.to(u.dtype)
+                for u, p in zip(updates, params)], state
+
+    return GradientTransformation(init_fn, update_fn)
+
+
+def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+    def init_fn(params):
+        return EmptyState()
+
+    def update_fn(updates, state, params=None):
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(u.float()))
+                               for u in updates))
+        scale_f = torch.clamp(max_norm / (gnorm + 1e-16), max=1.0)
+        return [(_promote(u, scale_f) * scale_f).to(u.dtype)
+                for u in updates], state
+
+    return GradientTransformation(init_fn, update_fn)
+
+
+@torch.no_grad()
+def apply_updates(params: list, updates: list) -> None:
+    """params += updates, in place (updates carry the negative lr)."""
+    for p, u in zip(params, updates):
+        p.add_(u.to(p.dtype))

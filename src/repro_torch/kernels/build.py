@@ -1,0 +1,100 @@
+"""Build the hand-written CUDA kernels and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds).  All sources build at once, one ``nvcc`` each, in parallel,
+on the first call to ``library``.  Outputs go to ``build/repro_torch/`` at
+the repository root, named by a hash of the sources and flags, so an edited
+source builds anew and an unchanged one is reused.  ``nvcc -Xptxas -v``
+reports each kernel's registers, shared memory and spills; the build prints
+that summary.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points of each library: name -> (function, argtypes)
+SIGNATURES = {
+    "gram": ("repro_batched_gram", [_P, _P, _I, _I, _I, _I, _P]),
+    "lowrank": ("repro_batched_lowrank_apply",
+                [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+}
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit")
+    return nvcc
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.lru_cache(maxsize=None)
+def _build_all() -> dict:
+    """Compile every ``csrc/*.cu`` that has no library yet; return paths."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    digest = _digest()
+    outputs = {name: BUILD_DIR / f"{name}-{digest}.so" for name in SIGNATURES}
+    jobs = {}
+    for name, out in outputs.items():
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in jobs.items():
+        log, _ = proc.communicate()
+        print(f"[build] nvcc {name}.cu (exit {proc.returncode})")
+        for line in log.splitlines():
+            if proc.returncode != 0 or "ptxas" in line or "warning" in line:
+                print(f"[build]   {line.strip()}")
+        if proc.returncode != 0:
+            failed.append(name)
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}; see the log above")
+    return outputs
+
+
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library ``name`` (``"gram"`` or ``"lowrank"``), with its
+    entry point's ``argtypes``/``restype`` declared."""
+    fn_name, argtypes = SIGNATURES[name]
+    lib = ctypes.CDLL(str(_build_all()[name]))
+    fn = getattr(lib, fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def build_all() -> None:
+    """Build and load every kernel library (the chip smoke run's first
+    phase)."""
+    for name in SIGNATURES:
+        library(name)

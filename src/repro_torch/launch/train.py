@@ -1,0 +1,135 @@
+"""End-to-end training launcher (port of repro/launch/train.py: the Sketchy
+training path on one device).
+
+    python -m repro_torch.launch.train                      # on the card
+    python -m repro_torch.launch.train --reduced --device cpu
+
+Runs on ``--device cuda`` unless told otherwise, and raises if the machine
+has no card.  The reference's flags for features not ported yet
+(checkpointing, other optimizers, refresh modes, quantized storage, sharded
+statistics, gradient compression) are absent.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch import tree
+from repro_torch.configs import registry
+from repro_torch.core.factory import OptimizerConfig, make_optimizer
+from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.models import model as model_lib
+from repro_torch.train.trainer import make_train_step
+
+
+def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(prog="repro_torch.launch.train")
+    p.add_argument("--arch", default="paper-lm-100m")
+    p.add_argument("--reduced", action="store_true",
+                   help="use the reduced smoke config")
+    p.add_argument("--optimizer", default="sketchy", choices=["sketchy"])
+    p.add_argument("--steps", type=int, default=200)
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--seq", type=int, default=128)
+    p.add_argument("--lr", type=float, default=3e-3)
+    p.add_argument("--rank", type=int, default=64)
+    p.add_argument("--update-every", type=int, default=10)
+    p.add_argument("--block-size", type=int, default=1024)
+    p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--metrics-out", default=None)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="torch device; the CPU runs only when asked for")
+    return p.parse_args(argv)
+
+
+@dataclasses.dataclass
+class Run:
+    """A training run set up from the flags: model config, data, the step
+    function and the current parameters and optimizer state."""
+    cfg: Any
+    device: torch.device
+    data: Any
+    step_fn: Callable
+    params: dict
+    opt_state: Any
+
+    def step(self, step: int) -> dict:
+        """Train on batch ``step``; returns the step's metrics tensors."""
+        batch = {k: torch.from_numpy(v).to(device=self.device,
+                                           dtype=torch.long)
+                 for k, v in self.data.batch(step).items()}
+        self.params, self.opt_state, metrics = self.step_fn(
+            self.params, self.opt_state, batch)
+        return metrics
+
+
+def start(args: argparse.Namespace, params: Optional[dict] = None) -> Run:
+    """Set a run up from the flags.  ``params`` replaces the seeded
+    initialization (parity tests start both packages from the same
+    weights)."""
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the trainer runs on the card "
+                           "unless asked for --device cpu")
+
+    cfg = registry.get_reduced(args.arch) if args.reduced \
+        else registry.get_config(args.arch)
+    tx = make_optimizer(OptimizerConfig(
+        name=args.optimizer, learning_rate=args.lr, total_steps=args.steps,
+        rank=args.rank, block_size=args.block_size,
+        update_every=args.update_every, weight_decay=1e-4))
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=args.seq, global_batch=args.batch,
+                                  seed=args.seed))
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        params = model_lib.init_params(cfg, gen, device=device)
+    return Run(cfg=cfg, device=device, data=data,
+               step_fn=make_train_step(cfg, tx), params=params,
+               opt_state=tx.init(tree.flatten(params)))
+
+
+def train(args: argparse.Namespace, params: Optional[dict] = None
+          ) -> tuple[dict, list]:
+    """Run ``args.steps`` training steps; returns the final parameters and
+    one metrics record per step: step, loss, grad_norm, time_s (host clock
+    around the step, after the device finished it)."""
+    run = start(args, params)
+    n_params = sum(p.numel() for p in tree.flatten(run.params))
+    print(f"arch={run.cfg.name} params={n_params / 1e6:.1f}M "
+          f"optimizer={args.optimizer} device={run.device}")
+    log = []
+    for step in range(args.steps):
+        t0 = time.perf_counter()
+        metrics = run.step(step)
+        loss = float(metrics["loss"])
+        if run.device.type == "cuda":
+            torch.cuda.synchronize(run.device)
+        dt = time.perf_counter() - t0
+        record = {"step": step, "loss": loss,
+                  "grad_norm": float(metrics["grad_norm"]), "time_s": dt}
+        log.append(record)
+        if step % args.log_every == 0 or step == args.steps - 1:
+            print(f"step {step:5d} loss {loss:.4f} "
+                  f"gnorm {record['grad_norm']:.3f} {dt * 1e3:.0f}ms")
+    if args.metrics_out:
+        os.makedirs(os.path.dirname(args.metrics_out) or ".", exist_ok=True)
+        with open(args.metrics_out, "w") as f:
+            json.dump(log, f, indent=2)
+    return run.params, log
+
+
+def main(argv: Optional[list] = None) -> list:
+    """Command-line entry point; returns the per-step metrics records."""
+    return train(parse_args(argv))[1]
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,27 @@
+"""Helpers of the tests that hold the PyTorch port against the JAX package."""
+import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture(autouse=True)
+def torch_one_thread():
+    """Run PyTorch's CPU ops on one thread in these tests.  Their tensors
+    are tiny, and in a process that also runs XLA's CPU thread pool a
+    multi-threaded PyTorch op waits on busy cores: a 6-step reduced run
+    takes seconds instead of a quarter of one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def assert_close_scaled(got, want, rtol=1e-4, atol_frac=1e-5):
+    """``rtol`` per entry, plus an absolute slack of ``atol_frac`` times the
+    largest magnitude of ``want``: the packages use different LAPACK
+    ``eigh``s and sum in different orders, so an entry that is a difference
+    of large terms carries an error proportional to those terms."""
+    want = np.asarray(want, np.float64)
+    scale = float(np.abs(want).max(initial=0.0))
+    np.testing.assert_allclose(np.asarray(got, np.float64), want, rtol=rtol,
+                               atol=atol_frac * scale)
