@@ -9,11 +9,11 @@ for vectors and scalars, norm grafting (paper App. C) and the
 ``init_block``, ``refresh_batched`` and ``precondition_batched`` over whole
 pool stacks.
 
-Ported: synchronized inline refresh, fp32 pool storage, replicated
-statistics, static rank, RMSPROP_NORMALIZED grafting with f32 accumulators,
-and the diagonal fallback damped by ``GRAFT_EPS``.  Other ``EngineConfig``
-values raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+Ported: synchronized inline refresh, fp32/bf16/int8 second-moment storage
+(core/quantize.py) with the fused int8 path, replicated statistics, static
+rank, RMSPROP_NORMALIZED grafting with f32 accumulators, and the diagonal
+fallback damped by ``GRAFT_EPS``.  Other ``EngineConfig`` values raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 
 State is plain: the step count is a Python int (the refresh gate is a host
 branch), pools map group keys to the preconditioner's stats stacks, and the
@@ -28,17 +28,18 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from repro_torch.core import pool
+from repro_torch.core import pool, quantize
 from repro_torch.core.transform import GradientTransformation
 
 GRAFT_EPS = 1e-8        # grafting and diag-fallback damping
+QUANTIZED_EPILOGUES = ("auto", "off", "on")
+QUANTIZE_SEED = 0x0517  # root of the stochastic-rounding keys, as in JAX
 
 # non-default engine values -> the ROADMAP.md item (queue 1) that ports them
 _NOT_PORTED = {
     "refresh_schedule": ("synchronized",
                          "queue 1 item 10 (staggered refresh)"),
     "refresh_mode": ("inline", "queue 1 item 10 (async refresh)"),
-    "second_moment_dtype": ("fp32", "queue 1 item 9 (quantized storage)"),
     "stats_reduction": ("replicated", "queue 1 item 12 (distributed FD)"),
     "realloc_every": (0, "queue 1 item 10 (rank-budget reallocation)"),
 }
@@ -52,11 +53,31 @@ class EngineConfig:
     start_preconditioning_step: int = 0
     refresh_schedule: str = "synchronized"
     refresh_mode: str = "inline"
+    # storage of the second-moment state between steps (core/quantize.py):
+    # "fp32" | "bf16" | "int8"
     second_moment_dtype: str = "fp32"
+    # fused int8 compute: with int8 storage, "on" and "auto" hand the FD
+    # functions the int8 containers (quantize.compute_view), so the refresh
+    # and the apply run on int8 values through the fused kernels; "off"
+    # dequantizes the pools to f32 at the boundary.  JAX's "auto" fuses
+    # only on its Pallas backend (repro/core/api.py :588-595), which runs
+    # on the TPU; the port's counterpart of that backend is the card, and
+    # the port has no backend knob, so "auto" means fused.  (A JAX CPU run
+    # with "auto" takes the "off" path; the tests hold "auto" against JAX
+    # "on".)
+    quantized_epilogue: str = "auto"
     stats_reduction: str = "replicated"
     realloc_every: int = 0
 
     def __post_init__(self):
+        if self.second_moment_dtype not in quantize.SECOND_MOMENT_DTYPES:
+            raise ValueError(
+                f"unknown second_moment_dtype {self.second_moment_dtype!r}; "
+                f"expected one of {quantize.SECOND_MOMENT_DTYPES}")
+        if self.quantized_epilogue not in QUANTIZED_EPILOGUES:
+            raise ValueError(
+                f"unknown quantized_epilogue {self.quantized_epilogue!r}; "
+                f"expected one of {QUANTIZED_EPILOGUES}")
         for name, (ported, item) in _NOT_PORTED.items():
             if getattr(self, name) != ported:
                 raise NotImplementedError(
@@ -67,15 +88,16 @@ class EngineConfig:
 
 class LeafState(NamedTuple):
     """Per-leaf residue that is not pooled: the diagonal accumulator of a
-    vector/scalar leaf (``stats``) or the grafting accumulator of a matrix
-    leaf (``graft``)."""
-    stats: Optional[torch.Tensor]
+    vector/scalar leaf (``stats``, in its storage layout) or the grafting
+    accumulator of a matrix leaf (``graft``, f32)."""
+    stats: Any
     graft: Optional[torch.Tensor]
 
 
 class PrecondState(NamedTuple):
     count: int
-    pools: dict         # group key -> stats stack (leading dim N)
+    pools: dict         # group key -> stats stack (leading dim N), stored
+                        # in its storage layout (core/quantize.py)
     leaves: tuple       # LeafState per flat param leaf
 
 
@@ -91,6 +113,10 @@ def scale_by_preconditioner(precond, cfg: EngineConfig = EngineConfig()
                             ) -> GradientTransformation:
     """The shared direction engine over flat leaf lists (emits a descent
     direction, no lr)."""
+    qdtype = cfg.second_moment_dtype
+    fused = qdtype == "int8" and cfg.quantized_epilogue != "off"
+    pool_compute = quantize.compute_view if fused \
+        else quantize.dequantize_pool
 
     def index_of(tensors) -> pool.PoolIndex:
         return pool.build_index(tuple(tuple(t.shape) for t in tensors),
@@ -99,13 +125,18 @@ def scale_by_preconditioner(precond, cfg: EngineConfig = EngineConfig()
     def init_fn(params):
         index = index_of(params)
         device = params[0].device
-        pools = {grp.key: precond.init_block(grp, device=device)
-                 for grp in index.groups}
+        # stored in the storage layout from the start, rounded to nearest
+        # (zeros: nothing to dither)
+        pools = {grp.key: quantize.quantize_pool(
+            precond.init_block(grp, device=device), qdtype)
+            for grp in index.groups}
         leaves = []
         for p, plan in zip(params, index.leaves):
             zeros = torch.zeros(p.shape, dtype=torch.float32, device=device)
             if plan.group is None:
-                leaves.append(LeafState(stats=zeros, graft=None))
+                leaves.append(LeafState(
+                    stats=quantize.quantize_leaf_state(zeros, qdtype),
+                    graft=None))
             else:
                 leaves.append(LeafState(stats=None, graft=zeros))
         return PrecondState(count=0, pools=pools, leaves=tuple(leaves))
@@ -115,28 +146,40 @@ def scale_by_preconditioner(precond, cfg: EngineConfig = EngineConfig()
         index = index_of(updates)
         g32 = [g.float() for g in updates]
         packed = pool.pack(index, g32)
+        # stochastic requantization keyed by step (and below by group or
+        # leaf), as the reference folds its PRNG key
+        qkey = (QUANTIZE_SEED, count) if qdtype == "int8" else None
 
         # one refresh / precondition call per shape group: pass 1 refreshes
-        # every pool, pass 2 preconditions from the refreshed pools
+        # every pool, pass 2 preconditions from the refreshed pools and
+        # stores them back in their storage layout
         due = cfg.update_every <= 1 or count % cfg.update_every == 0
-        pools = {}
+        raws = {}
         for grp in index.groups:
-            stats = state.pools[grp.key]
+            raw = pool_compute(state.pools[grp.key])
             if due:
-                stats = precond.refresh_batched(stats, packed[grp.key])
-            pools[grp.key] = stats
-        pooled_dirs = {grp.key: precond.precondition_batched(
-            pools[grp.key], packed[grp.key]) for grp in index.groups}
+                raw = precond.refresh_batched(raw, packed[grp.key])
+            raws[grp.key] = raw
+        pooled_dirs, pools = {}, {}
+        for gi, grp in enumerate(index.groups):
+            pooled_dirs[grp.key] = precond.precondition_batched(
+                raws[grp.key], packed[grp.key])
+            pools[grp.key] = quantize.requantize_pool(
+                state.pools[grp.key], raws[grp.key],
+                key=quantize.fold_in(qkey, gi))
 
         out, leaves = [], []
         for i, (g, leaf, plan) in enumerate(zip(updates, state.leaves,
                                                 index.leaves)):
             gi = g32[i]
             if plan.group is None:   # diagonal (RMSProp) fallback
-                acc = cfg.beta2 * leaf.stats \
+                acc = cfg.beta2 * quantize.dequantize_pool(leaf.stats) \
                     + (1.0 - cfg.beta2) * torch.square(gi)
                 out.append((gi * torch.rsqrt(acc + GRAFT_EPS)).to(g.dtype))
-                leaves.append(LeafState(stats=acc, graft=None))
+                stats = quantize.requantize_pool(
+                    leaf.stats, acc,
+                    key=quantize.fold_in(qkey, len(index.groups) + i))
+                leaves.append(LeafState(stats=stats, graft=None))
                 continue
 
             direction = pool.unpack_leaf(index, pooled_dirs, i)
@@ -159,12 +202,13 @@ def scale_by_preconditioner(precond, cfg: EngineConfig = EngineConfig()
 def second_moment_bytes(state: Any) -> int:
     """Second-moment memory (the paper's Fig. 1 quantity): every pooled
     sketch tensor and every diagonal accumulator of each engine state found
-    in ``state`` (a bare engine state, a named chain or an injected chain);
+    in ``state`` (a bare engine state, a named chain or an injected chain),
+    as stored (int8 values and their f32 scales under int8 storage);
     grafting and momentum are excluded."""
     if isinstance(state, PrecondState):
         tensors = [t for stats in state.pools.values() for t in _leaves(stats)]
-        tensors += [leaf.stats for leaf in state.leaves
-                    if leaf.stats is not None]
+        tensors += [t for leaf in state.leaves if leaf.stats is not None
+                    for t in _leaves(leaf.stats)]
         return sum(t.numel() * t.element_size() for t in tensors)
     if isinstance(state, InjectState):
         return second_moment_bytes(state.inner)

@@ -29,6 +29,11 @@ class OptimizerConfig:
     block_size: int = 1024
     update_every: int = 10
     start_preconditioning_step: int = 0
+    # storage of the second-moment state between steps (core/quantize.py):
+    # "fp32" | "bf16" | "int8"
+    second_moment_dtype: str = "fp32"
+    # fused int8 compute (core/api.py EngineConfig): "auto" | "off" | "on"
+    quantized_epilogue: str = "auto"
 
     def __post_init__(self):
         if self.name != "sketchy":
@@ -49,7 +54,9 @@ def make_optimizer(cfg: OptimizerConfig) -> transform.GradientTransformation:
             rank_budget=sketchy_lib.RankBudget(max_k=cfg.rank),
             block_size=cfg.block_size, beta2=beta2,
             update_every=cfg.update_every,
-            start_preconditioning_step=cfg.start_preconditioning_step))
+            start_preconditioning_step=cfg.start_preconditioning_step,
+            second_moment_dtype=cfg.second_moment_dtype,
+            quantized_epilogue=cfg.quantized_epilogue))
         stages.append(("precond", direction))
         stages.append(("momentum", transform.momentum(cfg.beta1)))
         if cfg.weight_decay:

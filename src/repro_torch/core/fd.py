@@ -1,5 +1,5 @@
 """Frequent Directions sketches over packed pool stacks (port of
-repro/core/fd.py, unquantized and unmasked).
+repro/core/fd.py, unmasked).
 
 A sketch of the PSD stream ``G_t = sum_s beta2^{t-s} A_s A_s^T`` is kept in
 eigenpair form ``(U, s, rho)``: ``U (d, ell)`` orthonormal columns, ``s``
@@ -13,6 +13,11 @@ The Gram and the low-rank apply go through the device-dispatching kernel
 set of kernels/registry.py: the Hopper kernels for CUDA tensors, the plain
 versions for CPU tensors.  ``eigh`` is
 ``torch.linalg.eigh``, a library call in both packages.
+
+The eigenvector stack may arrive as an int8 ``QuantizedPool`` (the engine's
+fused int8 path, core/api.py): then the refresh Gram, the eigenvector
+write-back and the apply run on the int8 values through the fused kernel
+entries, and no f32 eigenvector stack is formed.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.quantize import QuantizedPool
 from repro_torch.kernels.registry import KERNELS
 
 
@@ -43,8 +49,14 @@ def fd_init(d: int, ell: int, dtype=torch.float32, *, num_blocks: int = 1,
 def fd_update_batched(state: FDState, new_factor: torch.Tensor,
                       beta2=1.0) -> FDState:
     """One FD step on every block of the stack: the PSD increment of block
-    n is ``new_factor[n] @ new_factor[n].T`` (new_factor (N, d, r))."""
+    n is ``new_factor[n] @ new_factor[n].T`` (new_factor (N, d, r)).
+
+    With an int8 ``QuantizedPool`` eigenvector stack the step runs on the
+    int8 values (``_fd_update_batched_quantized``) and returns a new
+    ``QuantizedPool``."""
     U, s, rho = state
+    if isinstance(U, QuantizedPool):
+        return _fd_update_batched_quantized(U, s, rho, new_factor, beta2)
     ell = U.shape[-1]
     if new_factor.ndim == 2:
         new_factor = new_factor[..., None]
@@ -56,22 +68,61 @@ def fd_update_batched(state: FDState, new_factor: torch.Tensor,
     B = U.to(compute_dtype) * torch.sqrt(s_clamped)[:, None, :]
     M = torch.cat([B, new_factor.to(compute_dtype)], dim=2)
 
-    C = KERNELS.batched_gram(M)
-    C = 0.5 * (C + C.mT)
-
-    lam, V = _eigh(C)                             # ascending, batched
-    lam = torch.clamp(lam.flip(-1), min=0.0)      # descending, clip negatives
-    V = V.flip(-1)
-
-    lam_top = lam[..., :ell]
-    rho_t = lam_top[..., ell - 1]                 # escaped eigenvalue, (N,)
-    inv_sqrt = torch.where(lam_top > 1e-30,
-                           torch.rsqrt(torch.clamp(lam_top, min=1e-30)), 0.0)
+    lam_top, rho_t, V, inv_sqrt = _top_eigenpairs(KERNELS.batched_gram(M),
+                                                  ell)
     U_new = torch.matmul(M, V[..., :ell]) * inv_sqrt[:, None, :]
     s_new = lam_top - rho_t[..., None]            # deflate: last entry 0
 
     return FDState(eigvecs=U_new.to(U.dtype), eigvals=s_new.to(s.dtype),
                    rho=(beta2 * rho + rho_t).to(rho.dtype))
+
+
+def _fd_update_batched_quantized(U: QuantizedPool, s: torch.Tensor,
+                                 rho: torch.Tensor, new_factor: torch.Tensor,
+                                 beta2) -> FDState:
+    """``fd_update_batched`` with the eigenvectors in int8 storage end to
+    end (repro/core/fd.py :211).  The block scale and the ladder weights
+    are both per column of the small factor, so they fold into one (N, ell)
+    weight: ``B = dequant(Vq) sqrt(beta2 s) = Vq diag(colw)``, ``colw =
+    scale * sqrt(beta2 s)``.  The refreshed eigenvectors come back
+    requantized, rounded to nearest."""
+    vq, scale = U                            # (N, d, ell) int8, (N, 1, 1)
+    N, d, ell = vq.shape
+    if new_factor.ndim == 2:
+        new_factor = new_factor[..., None]
+    A = new_factor.float().contiguous()      # (N, d, r)
+
+    s_clamped = torch.clamp(beta2 * s.float(), min=0.0)
+    colw = scale.reshape(N, 1) * torch.sqrt(s_clamped)   # (N, ell)
+
+    lam_top, rho_t, V, inv_sqrt = _top_eigenpairs(
+        KERNELS.batched_gram_mixed(vq, colw, A), ell)
+    # U_new = M @ W with M = [Vq diag(colw), A]: split W by row block and
+    # fold the column weights into the top half, so the projection reads
+    # the raw int8 values (row-major copies: the kernel reads them so, and
+    # eigh on the card returns V column-major)
+    W = V[..., :ell] * inv_sqrt[:, None, :]       # (N, ell + r, ell)
+    w_top = (colw[..., None] * W[..., :ell, :]).contiguous()   # (N, ell, ell)
+    w_bot = W[..., ell:, :].contiguous()          # (N, r, ell)
+    values, scale_new = KERNELS.batched_project_quantize(vq, w_top, A, w_bot)
+
+    s_new = lam_top - rho_t[..., None]            # deflate: last entry 0
+    return FDState(eigvecs=QuantizedPool(values=values, scale=scale_new),
+                   eigvals=s_new.to(s.dtype),
+                   rho=(beta2 * rho + rho_t).to(rho.dtype))
+
+
+def _top_eigenpairs(C: torch.Tensor, ell: int) -> tuple:
+    """Of the symmetrized Gram stack C: the top ``ell`` eigenvalues
+    descending (negatives clipped), the escaped eigenvalue ``lam[ell-1]``
+    (N,), all eigenvectors in descending order, and ``lam^-1/2`` of the top
+    ``ell`` (0 where lam <= 1e-30)."""
+    lam, V = _eigh(0.5 * (C + C.mT))              # ascending, batched
+    lam = torch.clamp(lam.flip(-1), min=0.0)      # descending, clip negatives
+    lam_top = lam[..., :ell]
+    inv_sqrt = torch.where(lam_top > 1e-30,
+                           torch.rsqrt(torch.clamp(lam_top, min=1e-30)), 0.0)
+    return lam_top, lam_top[..., ell - 1], V.flip(-1), inv_sqrt
 
 
 def _eigh(C: torch.Tensor):
@@ -115,8 +166,15 @@ def fd_apply_inverse_root_batched(state: FDState, G: torch.Tensor, *,
     The kernel reads G row-major.  A strided G (Sketchy's right-side apply
     gets the transpose of the left side's output) is copied first: one
     read and one write of G, against the kernel's own read of G and U and
-    write of the result."""
+    write of the result.
+
+    An int8 ``QuantizedPool`` eigenvector stack is applied as it is stored:
+    the block scale commutes out of ``U diag(c) U^T`` as ``scale^2`` and is
+    folded into the coefficients (repro/core/fd.py :515-519)."""
     base, coeffs = fd_inverse_root_coeffs(state, exponent=exponent, eps=eps)
-    return KERNELS.batched_lowrank_apply(state.eigvecs, coeffs, base,
-                                         G.contiguous())
+    U = state.eigvecs
+    if isinstance(U, QuantizedPool):
+        return KERNELS.batched_lowrank_apply_quantized(
+            U.values, U.scale, coeffs, base, G.contiguous())
+    return KERNELS.batched_lowrank_apply(U, coeffs, base, G.contiguous())
 

@@ -6,7 +6,9 @@ Per matrix block, every ``update_every`` steps:
     (rho_R, R-sketch) <- FD-update(beta2 * R-sketch, G^T G)
 and every step:
     P = (L-sketch + (rho_L+eps) I)^{-1/4} G (R-sketch + (rho_R+eps) I)^{-1/4}
-all in factored (U, s, rho) form, one call per packed pool stack.
+all in factored (U, s, rho) form, one call per packed pool stack.  Under
+int8 storage with the fused path, U arrives as an int8 ``QuantizedPool`` and
+core/fd.py runs both on the int8 values.
 """
 from __future__ import annotations
 
@@ -50,7 +52,8 @@ class SketchyConfig:
     start_preconditioning_step: int = 0
     refresh_schedule: str = "synchronized"
     refresh_mode: str = "inline"
-    second_moment_dtype: str = "fp32"
+    second_moment_dtype: str = "fp32"   # fp32 | bf16 | int8 (quantize.py)
+    quantized_epilogue: str = "auto"    # fused int8 path (api.EngineConfig)
     stats_reduction: str = "replicated"
 
 
@@ -65,7 +68,8 @@ class SketchyPreconditioner:
     cfg: SketchyConfig
 
     def init_block(self, grp: pool.PoolGroup, *, device) -> SketchyBlockStats:
-        """Zero sketch pair for every block of one pool group."""
+        """Zero f32 sketch pair for every block of one pool group (the
+        engine stores it in the configured layout)."""
         k = self.cfg.rank_budget.max_k
         kw = dict(num_blocks=grp.num_blocks, device=device)
         return SketchyBlockStats(
@@ -96,4 +100,5 @@ def sketchy(cfg: SketchyConfig = SketchyConfig()) -> GradientTransformation:
             refresh_schedule=cfg.refresh_schedule,
             refresh_mode=cfg.refresh_mode,
             second_moment_dtype=cfg.second_moment_dtype,
+            quantized_epilogue=cfg.quantized_epilogue,
             stats_reduction=cfg.stats_reduction))

@@ -1,7 +1,16 @@
-// Batched Gram C[n] = A[n]^T A[n] for a packed pool stack A (N, d, k).
+// Batched Grams C[n] = M[n]^T M[n] of a packed pool stack, for two kinds of
+// M (N, d, k):
+//   repro_batched_gram:        M = A, f32 or bf16;
+//   repro_batched_gram_mixed:  M = [V, A], V (N, d, ell) int8, A (N, d, r) f32,
+//                              k = ell + r.
 //
-// Replaces repro/kernels/gram/kernel.py::batched_gram_pallas, the FD refresh
-// Gram of M = [sqrt(beta2) B, G] (repro/core/fd.py fd_update_batched).
+// Replace repro/kernels/gram/kernel.py::batched_gram_pallas, the FD refresh
+// Gram of M = [sqrt(beta2) B, G] (repro/core/fd.py fd_update_batched), and
+// ::batched_gram_mixed_pallas, the same Gram with the eigenvectors stored in
+// int8 (repro/core/fd.py _fd_update_batched_quantized).  The mixed Gram's
+// column weights C = C0 o w w^T (block scale x sqrt(beta2 s) on V's columns)
+// are applied by the caller on the small (k, k) output, as the reference
+// applies them outside its pallas_call.
 //
 // What bounds it: f32 FFMA throughput.  A block of the main path does
 // d * 64 * 64 multiply-adds on 2 * d * 64 inputs, so the kernel sits far
@@ -12,8 +21,12 @@
 // Design: one block owns one 64x64 output tile (n, i, j) and loops over all
 // of d itself (d <= the block size, 1024 on the main path), so no reduction
 // crosses blocks.  The output is symmetric: only tiles with i <= j run, and
-// an off-diagonal tile is also written mirrored.  bf16 inputs are upcast in
-// registers as they are staged into shared memory; the result is f32.
+// an off-diagonal tile is also written mirrored.  bf16 and int8 inputs are
+// upcast in registers as they are staged into shared memory (the int8 upcast
+// is the dequantize: V never exists in f32 in device memory); the result is
+// f32.  The mixed stack's loader picks V or A per column, so a 64-wide tile
+// may straddle the two (ell = 12 on the 12x768 group), and it reads element
+// by element, so V's rows need no alignment (12 bytes there).
 #include <cstdint>
 
 #include "tile.cuh"
@@ -23,12 +36,46 @@ namespace {
 using repro::kThreads;
 using repro::kTile;
 
-constexpr int kDepth = 16;  // rows of A staged per step
+constexpr int kDepth = 16;  // rows of M staged per step
 
+// M = A: element (row, col) of block n of a row-major (N, d, k) stack.
 template <typename T>
+struct Dense {
+  const T* a;
+  int d, k;
+  __device__ __forceinline__ float operator()(long long n, int row,
+                                              int col) const {
+    return repro::to_f32(a[(n * d + row) * k + col]);
+  }
+};
+
+// M = [V, A]: columns below ell from the int8 V, the rest from the f32 A.
+struct Mixed {
+  const int8_t* v;
+  const float* a;
+  int d, ell, r;
+  __device__ __forceinline__ float operator()(long long n, int row,
+                                              int col) const {
+    if (col < ell) return repro::to_f32(v[(n * d + row) * ell + col]);
+    return a[(n * d + row) * r + (col - ell)];
+  }
+};
+
+// panel[kk][c] = M[n][r0 + kk][c0 + c], zero outside the (d, k) matrix.
+template <typename Src>
+__device__ __forceinline__ void load_panel(float (*panel)[kTile], Src m,
+                                           long long n, int d, int k, int r0,
+                                           int c0) {
+  for (int e = threadIdx.x; e < kDepth * kTile; e += kThreads) {
+    const int kk = e / kTile, c = e % kTile;
+    const int r = r0 + kk, col = c0 + c;
+    panel[kk][c] = (r < d && col < k) ? m(n, r, col) : 0.f;
+  }
+}
+
+template <typename Src>
 __global__ void __launch_bounds__(kThreads)
-    gram_kernel(const T* __restrict__ a, float* __restrict__ c, int d, int k,
-                int tiles) {
+    gram_kernel(Src m, float* __restrict__ c, int d, int k, int tiles) {
   // blockIdx.x enumerates the upper-triangular tiles row by row
   int t = blockIdx.x, ti = 0;
   while (t >= tiles - ti) {
@@ -38,7 +85,6 @@ __global__ void __launch_bounds__(kThreads)
   const int tj = ti + t;
   const int i0 = ti * kTile, j0 = tj * kTile;
   const long long n = blockIdx.y;
-  const T* an = a + n * (long long)d * k;
   float* cn = c + n * (long long)k * k;
 
   __shared__ __align__(16) float si[kDepth][kTile];
@@ -47,8 +93,8 @@ __global__ void __launch_bounds__(kThreads)
   float acc[4][4] = {};
 
   for (int r0 = 0; r0 < d; r0 += kDepth) {
-    repro::load_rows_panel<kDepth, kTile>(si, an, d, k, r0, i0);
-    repro::load_rows_panel<kDepth, kTile>(sj, an, d, k, r0, j0);
+    load_panel(si, m, n, d, k, r0, i0);
+    load_panel(sj, m, n, d, k, r0, j0);
     __syncthreads();
     repro::tile_fma<kDepth, kTile, kTile>(si, sj, acc, ty, tx);
     __syncthreads();
@@ -68,23 +114,39 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <typename Src>
+int launch(Src m, float* c, int n, int d, int k, void* stream) {
+  const int tiles = (k + kTile - 1) / kTile;
+  const dim3 grid(tiles * (tiles + 1) / 2, n);
+  gram_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      m, c, d, k, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch.
 extern "C" int repro_batched_gram(const void* a, void* c, int n, int d, int k,
                                   int dtype, void* stream) {
-  const int tiles = (k + kTile - 1) / kTile;
-  const dim3 grid(tiles * (tiles + 1) / 2, n);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* out = static_cast<float*>(c);
   if (dtype == 0) {
-    gram_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(a), static_cast<float*>(c), d, k, tiles);
-  } else if (dtype == 1) {
-    gram_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(a), static_cast<float*>(c), d, k,
-        tiles);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch(Dense<float>{static_cast<const float*>(a), d, k}, out, n, d,
+                  k, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 1) {
+    return launch(
+        Dense<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(a), d, k}, out,
+        n, d, k, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// C0 (n, ell + r, ell + r) = [V, A]^T [V, A], unweighted.  Returns the
+// cudaError_t of the launch.
+extern "C" int repro_batched_gram_mixed(const void* v, const void* a, void* c,
+                                        int n, int d, int ell, int r,
+                                        void* stream) {
+  return launch(Mixed{static_cast<const int8_t*>(v),
+                      static_cast<const float*>(a), d, ell, r},
+                static_cast<float*>(c), n, d, ell + r, stream);
 }

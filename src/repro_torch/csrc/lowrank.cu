@@ -1,8 +1,11 @@
 // Batched low-rank inverse-root apply over a packed pool stack:
 //   Y[n] = base[n] * G[n] + U[n] diag(c[n]) U[n]^T G[n]
-// U (N, d, ell), c (N, ell), base (N,), G (N, d, m) -> Y (N, d, m), all f32:
-// Sketchy keeps its sketches in f32 and applies them to the f32 packed
-// gradient, so no other dtype is compiled.
+// U (N, d, ell) f32 or int8, c (N, ell), base (N,), G (N, d, m) f32 ->
+// Y (N, d, m) f32.  U is f32 under fp32 and bf16 second-moment storage (the
+// engine hands over the f32 compute copy) and int8 under int8 storage: the
+// fused int8 path (repro/kernels/registry.py _fold_quantized_apply) passes
+// the raw int8 eigenvectors with the block scale^2 folded into c, and the
+// kernel's upcast in registers is the dequantize.
 //
 // Replaces repro/kernels/lowrank/kernel.py::batched_lowrank_apply_pallas,
 // the Sketchy preconditioner apply (repro/core/fd.py
@@ -12,7 +15,8 @@
 // What bounds it: f32 FFMA throughput, narrowly over memory.  Per pool block
 // it does 4 * d * ell * m flops while reading G and writing Y (8 * d * m
 // bytes in f32): ell / 2 = 32 flops per byte at ell = 64, above the card's
-// 20 f32 FFMA flops per byte of device memory.
+// 20 f32 FFMA flops per byte of device memory.  An int8 U reads a quarter of
+// the bytes of an f32 one but does the same f32 work.
 //
 // Design: the Pallas kernel keeps the whole U (d, ell) and a (d, bn) tile of
 // G in VMEM.  At d = 1024, ell = 64 that is 256 KB of f32 U alone, more than
@@ -33,13 +37,14 @@ using repro::kTile;
 constexpr int kDepth = 16;             // reduction rows staged per step
 constexpr int kPadStride = kTile + 4;  // transposed U panel: fewer conflicts
 
+template <typename TU>
 __global__ void __launch_bounds__(kThreads)
-    proj_kernel(const float* __restrict__ u, const float* __restrict__ coeffs,
+    proj_kernel(const TU* __restrict__ u, const float* __restrict__ coeffs,
                 const float* __restrict__ g, float* __restrict__ p, int d,
                 int ell, int m) {
   const int e0 = blockIdx.x * kTile, j0 = blockIdx.y * kTile;
   const long long n = blockIdx.z;
-  const float* un = u + n * (long long)d * ell;
+  const TU* un = u + n * (long long)d * ell;
   const float* gn = g + n * (long long)d * m;
   float* pn = p + n * (long long)ell * m;
 
@@ -69,13 +74,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <typename TU>
 __global__ void __launch_bounds__(kThreads)
-    expand_kernel(const float* __restrict__ u, const float* __restrict__ base,
+    expand_kernel(const TU* __restrict__ u, const float* __restrict__ base,
                   const float* __restrict__ g, const float* __restrict__ p,
                   float* __restrict__ y, int d, int ell, int m) {
   const int r0 = blockIdx.x * kTile, j0 = blockIdx.y * kTile;
   const long long n = blockIdx.z;
-  const float* un = u + n * (long long)d * ell;
+  const TU* un = u + n * (long long)d * ell;
   const float* gn = g + n * (long long)d * m;
   const float* pn = p + n * (long long)ell * m;
   float* yn = y + n * (long long)d * m;
@@ -90,7 +96,9 @@ __global__ void __launch_bounds__(kThreads)
       const int rr = idx / kDepth, kk = idx % kDepth;
       const int r = r0 + rr, e = e0 + kk;
       float v = 0.f;
-      if (r < d && e < ell) v = un[(long long)r * ell + e];
+      if (r < d && e < ell) {
+        v = repro::to_f32(un[(long long)r * ell + e]);
+      }
       su[kk][rr] = v;
     }
     repro::load_rows_panel<kDepth, kTile>(sp, pn, ell, m, e0, j0);
@@ -115,14 +123,9 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-}  // namespace
-
-// p is f32 scratch of (n, ell, m) elements.  Returns the cudaError_t of the
-// launches.
-extern "C" int repro_batched_lowrank_apply(const float* u, const float* coeffs,
-                                           const float* base, const float* g,
-                                           float* p, float* y, int n, int d,
-                                           int ell, int m, void* stream) {
+template <typename TU>
+int launch(const TU* u, const float* coeffs, const float* base, const float* g,
+           float* p, float* y, int n, int d, int ell, int m, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m_tiles = (m + kTile - 1) / kTile;
   proj_kernel<<<dim3((ell + kTile - 1) / kTile, m_tiles, n), kThreads, 0, s>>>(
@@ -132,4 +135,24 @@ extern "C" int repro_batched_lowrank_apply(const float* u, const float* coeffs,
   expand_kernel<<<dim3((d + kTile - 1) / kTile, m_tiles, n), kThreads, 0, s>>>(
       u, base, g, p, y, d, ell, m);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// u_dtype: 0 = float32, 2 = int8.  p is f32 scratch of (n, ell, m) elements.
+// Returns the cudaError_t of the launches.
+extern "C" int repro_batched_lowrank_apply(const void* u, int u_dtype,
+                                           const float* coeffs,
+                                           const float* base, const float* g,
+                                           float* p, float* y, int n, int d,
+                                           int ell, int m, void* stream) {
+  if (u_dtype == 0) {
+    return launch(static_cast<const float*>(u), coeffs, base, g, p, y, n, d,
+                  ell, m, stream);
+  }
+  if (u_dtype == 2) {
+    return launch(static_cast<const int8_t*>(u), coeffs, base, g, p, y, n, d,
+                  ell, m, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

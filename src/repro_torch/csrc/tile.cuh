@@ -12,6 +12,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace repro {
 
 constexpr int kTile = 64;      // output tile edge
@@ -20,6 +22,9 @@ constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
 }
 
 // acc[u][v] += sum_kk xs[kk][4*ty+u] * ys[kk][4*tx+v] over kk < DEPTH.

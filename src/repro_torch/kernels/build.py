@@ -19,6 +19,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -26,11 +28,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points of each library: name -> (function, argtypes)
+# C entry points of each library: library -> {function: argtypes}
 SIGNATURES = {
-    "gram": ("repro_batched_gram", [_P, _P, _I, _I, _I, _I, _P]),
-    "lowrank": ("repro_batched_lowrank_apply",
-                [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "gram": {
+        "repro_batched_gram": [_P, _P, _I, _I, _I, _I, _P],
+        "repro_batched_gram_mixed": [_P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "lowrank": {
+        "repro_batched_lowrank_apply":
+            [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "project_quantize": {
+        "repro_batched_project_quantize":
+            [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
 }
 
 
@@ -83,14 +94,22 @@ def _build_all() -> dict:
 
 @functools.lru_cache(maxsize=None)
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library ``name`` (``"gram"`` or ``"lowrank"``), with its
-    entry point's ``argtypes``/``restype`` declared."""
-    fn_name, argtypes = SIGNATURES[name]
+    """The loaded library ``name`` (a key of ``SIGNATURES``), with its
+    entry points' ``argtypes``/``restype`` declared."""
     lib = ctypes.CDLL(str(_build_all()[name]))
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
+
+
+def launch(fn, device: torch.device, *args) -> int:
+    """Call the C entry point ``fn`` with ``args`` and the current stream of
+    ``device`` last, with ``device`` current; returns its CUDA error code."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        return fn(*args, ctypes.c_void_p(stream))
 
 
 def build_all() -> None:

@@ -1,51 +1,92 @@
-"""Wrapper of the hand-written Hopper Gram kernel (csrc/gram.cu).
+"""Wrappers of the hand-written Hopper Gram kernels (csrc/gram.cu).
 
-Replaces repro/kernels/gram/kernel.py::batched_gram_pallas.  The wrapper
-takes CUDA tensors only (the registry sends CPU tensors to ``ref.py``),
-checks what the kernel accepts, allocates the output, launches on the
-current stream and raises on a launch error.  ``launches`` counts the
-launches, so a run can show that its Grams went through the kernel.
+``batched_gram`` replaces repro/kernels/gram/kernel.py::batched_gram_pallas
+and ``batched_gram_mixed`` replaces ::batched_gram_mixed_pallas.  The
+wrappers take CUDA tensors only (the registry sends CPU tensors to
+``ref.py``), check what the kernel accepts, allocate the output, launch on
+the current stream and raise on a launch error.  ``launches`` and
+``mixed_launches`` count each wrapper's launches, so a run can show that its
+Grams went through the kernels.
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_BLOCKS = 65535      # the grid's y dimension
 launches = 0
+mixed_launches = 0
+
+
+def _check_stack(name: str, t: torch.Tensor, device) -> None:
+    if t.device.type != "cuda" or t.device != device:
+        raise ValueError(f"{name} needs CUDA tensors on one device, got "
+                         f"{t.device}")
+    if t.ndim != 3 or not t.is_contiguous():
+        raise ValueError(f"{name} needs a contiguous (N, d, k) stack, got "
+                         f"shape {tuple(t.shape)} strides {t.stride()}")
+    if t.shape[0] > MAX_BLOCKS:
+        raise ValueError(f"{name} takes at most {MAX_BLOCKS} blocks, got "
+                         f"{t.shape[0]}")
 
 
 def batched_gram(a: torch.Tensor) -> torch.Tensor:
     """C[n] = A[n]^T A[n] for a contiguous CUDA (N, d, k) f32/bf16 stack;
     the result is (N, k, k) f32.  N = 0 returns an empty result unlaunched."""
     global launches
-    if a.device.type != "cuda":
-        raise ValueError(f"batched_gram kernel needs a CUDA tensor, got "
-                         f"{a.device}")
     if a.dtype not in DTYPES:
         raise TypeError(f"batched_gram kernel takes float32 or bfloat16, got "
                         f"{a.dtype}")
-    if a.ndim != 3 or not a.is_contiguous():
-        raise ValueError(f"batched_gram kernel needs a contiguous (N, d, k) "
-                         f"stack, got shape {tuple(a.shape)} strides "
-                         f"{a.stride()}")
+    _check_stack("batched_gram kernel", a, a.device)
     N, d, k = a.shape
-    if N > 65535:
-        raise ValueError(f"batched_gram kernel takes at most 65535 blocks, "
-                         f"got {N}")
     out = torch.empty((N, k, k), dtype=torch.float32, device=a.device)
     if N == 0 or k == 0:
         return out
-    fn = build.library("gram").repro_batched_gram
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(a.data_ptr(), out.data_ptr(), N, d, k, DTYPES[a.dtype],
-                 ctypes.c_void_p(stream))
+    err = build.launch(build.library("gram").repro_batched_gram, a.device,
+                       a.data_ptr(), out.data_ptr(), N, d, k, DTYPES[a.dtype])
     if err != 0:
         raise RuntimeError(f"batched_gram kernel launch failed: CUDA error "
                            f"{err} at shape {tuple(a.shape)}")
     launches += 1
     return out
+
+
+def batched_gram_mixed(vq: torch.Tensor, colw: torch.Tensor,
+                       a: torch.Tensor) -> torch.Tensor:
+    """Gram of ``[vq * colw, a]`` for contiguous CUDA tensors: vq (N, d, k)
+    int8, colw (N, k) f32, a (N, d, r) f32 -> (N, k+r, k+r) f32.
+
+    The kernel forms the unweighted ``C0 = [V, A]^T [V, A]``; the column
+    weights ``C = C0 o w w^T``, ``w = [colw, 1]``, are applied here on the
+    small output, as the reference applies them outside its kernel.  N = 0
+    returns an empty result unlaunched."""
+    global mixed_launches
+    if vq.dtype != torch.int8 or a.dtype != torch.float32 \
+            or colw.dtype != torch.float32:
+        raise TypeError(f"batched_gram_mixed kernel takes int8 vq and float32 "
+                        f"colw and a, got {vq.dtype}, {colw.dtype}, "
+                        f"{a.dtype}")
+    for name, t in (("vq", vq), ("a", a)):
+        _check_stack(f"batched_gram_mixed kernel ({name})", t, a.device)
+    N, d, k = vq.shape
+    r = a.shape[2]
+    if a.shape[:2] != (N, d) or colw.shape != (N, k) \
+            or colw.device != a.device:
+        raise ValueError(f"shape mismatch: vq {tuple(vq.shape)}, colw "
+                         f"{tuple(colw.shape)}, a {tuple(a.shape)}")
+    out = torch.empty((N, k + r, k + r), dtype=torch.float32, device=a.device)
+    if N == 0:
+        return out
+    err = build.launch(build.library("gram").repro_batched_gram_mixed,
+                       a.device, vq.data_ptr(), a.data_ptr(), out.data_ptr(),
+                       N, d, k, r)
+    if err != 0:
+        raise RuntimeError(f"batched_gram_mixed kernel launch failed: CUDA "
+                           f"error {err} at vq {tuple(vq.shape)}, a "
+                           f"{tuple(a.shape)}")
+    mixed_launches += 1
+    w = torch.cat([colw, torch.ones((N, r), dtype=torch.float32,
+                                    device=a.device)], dim=1)
+    return out * w[:, :, None] * w[:, None, :]

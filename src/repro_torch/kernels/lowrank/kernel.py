@@ -1,47 +1,62 @@
-"""Wrapper of the hand-written Hopper low-rank apply (csrc/lowrank.cu).
+"""Wrappers of the hand-written Hopper low-rank apply (csrc/lowrank.cu) and
+of the int8 FD write-back (csrc/project_quantize.cu).
 
-Replaces repro/kernels/lowrank/kernel.py::batched_lowrank_apply_pallas.  The
-wrapper takes CUDA tensors only (the registry sends CPU tensors to
-``ref.py``), checks what the kernel accepts, allocates the output and the
-f32 ``P = c o U^T G`` scratch of the kernel's two passes, launches on the
-current stream and raises on a launch error.  ``launches`` counts the calls
-that launched (one per call, for both passes).
+``batched_lowrank_apply`` replaces
+repro/kernels/lowrank/kernel.py::batched_lowrank_apply_pallas and
+``batched_project_quantize`` replaces ::batched_project_quantize_pallas.
+The wrappers take CUDA tensors only (the registry sends CPU tensors to
+``ref.py``), check what the kernels accept, allocate the outputs and the
+f32 scratch of the kernels' two passes, launch on the current stream and
+raise on a launch error.  Each counts the calls that launched (one per call,
+for both passes): ``launches`` the apply with an f32 U, ``int8_launches``
+the apply with an int8 U (the fused int8 path), and
+``project_quantize_launches`` the write-back.
 
 G must be contiguous.  The right-side apply of Sketchy sees a transposed
 view; its caller makes the copy (core/fd.py fd_apply_inverse_root_batched).
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import build
 
+U_DTYPES = {torch.float32: 0, torch.int8: 2}
+MAX_BLOCKS = 65535      # the grid's z / y dimension
 launches = 0
+int8_launches = 0
+project_quantize_launches = 0
+
+
+def _check(name: str, tensors: dict, device) -> None:
+    for arg, t in tensors.items():
+        if t.device.type != "cuda" or t.device != device:
+            raise ValueError(f"{name} kernel needs CUDA tensors on one "
+                             f"device; {arg} is on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} kernel needs contiguous tensors; {arg} "
+                             f"has strides {t.stride()}")
 
 
 def batched_lowrank_apply(u: torch.Tensor, coeffs: torch.Tensor,
                           base: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Y[n] = base[n] G[n] + U[n] diag(coeffs[n]) U[n]^T G[n] on the card.
 
-    u (N, d, ell), coeffs (N, ell), base (N,) and g (N, d, n) are f32
-    contiguous CUDA tensors on one device (Sketchy's sketches and packed
-    gradients are f32; no caller needs another dtype).  N = 0 returns an
-    empty result unlaunched."""
-    global launches
-    tensors = {"u": u, "coeffs": coeffs, "base": base, "g": g}
-    for name, t in tensors.items():
-        if t.device.type != "cuda" or t.device != g.device:
-            raise ValueError(f"batched_lowrank_apply kernel needs CUDA "
-                             f"tensors on one device; {name} is on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"batched_lowrank_apply kernel needs contiguous "
-                             f"tensors; {name} has strides {t.stride()}")
-    for name, t in tensors.items():
+    u (N, d, ell) is f32, or int8 for the fused int8 path (the registry's
+    ``batched_lowrank_apply_quantized`` folds the block scale^2 into
+    coeffs); coeffs (N, ell), base (N,) and g (N, d, n) are f32.  All are
+    contiguous CUDA tensors on one device.  N = 0 returns an empty result
+    unlaunched."""
+    global launches, int8_launches
+    _check("batched_lowrank_apply",
+           {"u": u, "coeffs": coeffs, "base": base, "g": g}, g.device)
+    if u.dtype not in U_DTYPES:
+        raise TypeError(f"batched_lowrank_apply kernel takes a float32 or "
+                        f"int8 u; u is {u.dtype}")
+    for name, t in (("coeffs", coeffs), ("base", base), ("g", g)):
         if t.dtype != torch.float32:
             raise TypeError(f"batched_lowrank_apply kernel takes float32 "
-                            f"only; {name} is {t.dtype}")
+                            f"{name}; it is {t.dtype}")
     if u.ndim != 3 or g.ndim != 3:
         raise ValueError(f"u and g must be 3-D, got {tuple(u.shape)}, "
                          f"{tuple(g.shape)}")
@@ -52,22 +67,72 @@ def batched_lowrank_apply(u: torch.Tensor, coeffs: torch.Tensor,
         raise ValueError(f"shape mismatch: u {tuple(u.shape)}, coeffs "
                          f"{tuple(coeffs.shape)}, base {tuple(base.shape)}, "
                          f"g {tuple(g.shape)}")
-    if N > 65535:
-        raise ValueError(f"batched_lowrank_apply kernel takes at most 65535 "
-                         f"blocks, got {N}")
+    if N > MAX_BLOCKS:
+        raise ValueError(f"batched_lowrank_apply kernel takes at most "
+                         f"{MAX_BLOCKS} blocks, got {N}")
     out = torch.empty_like(g)
     if out.numel() == 0:
         return out
     scratch = torch.empty((N, ell, m), dtype=torch.float32, device=g.device)
-    fn = build.library("lowrank").repro_batched_lowrank_apply
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(u.data_ptr(), coeffs.data_ptr(), base.data_ptr(),
-                 g.data_ptr(), scratch.data_ptr(), out.data_ptr(), N, d, ell,
-                 m, ctypes.c_void_p(stream))
+    err = build.launch(build.library("lowrank").repro_batched_lowrank_apply,
+                       g.device, u.data_ptr(), U_DTYPES[u.dtype],
+                       coeffs.data_ptr(), base.data_ptr(), g.data_ptr(),
+                       scratch.data_ptr(), out.data_ptr(), N, d, ell, m)
     if err != 0:
         raise RuntimeError(f"batched_lowrank_apply kernel launch failed: CUDA "
-                           f"error {err} at u {tuple(u.shape)}, g "
+                           f"error {err} at u {tuple(u.shape)} {u.dtype}, g "
                            f"{tuple(g.shape)}")
-    launches += 1
+    if u.dtype == torch.int8:
+        int8_launches += 1
+    else:
+        launches += 1
     return out
+
+
+def batched_project_quantize(vq: torch.Tensor, w_top: torch.Tensor,
+                             a: torch.Tensor, w_bot: torch.Tensor
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``U_new = f32(vq) @ w_top + a @ w_bot`` requantized per block, on the
+    card: vq (N, d, k) int8, w_top (N, k, e), a (N, d, r), w_bot (N, r, e)
+    f32, contiguous, on one device -> (values (N, d, e) int8, scale
+    (N, 1, 1) f32), rounding to nearest as ``quantize.quantize_stack``.
+    N = 0 returns empty results unlaunched."""
+    global project_quantize_launches
+    _check("batched_project_quantize",
+           {"vq": vq, "w_top": w_top, "a": a, "w_bot": w_bot}, a.device)
+    if vq.dtype != torch.int8 or any(
+            t.dtype != torch.float32 for t in (w_top, a, w_bot)):
+        raise TypeError(f"batched_project_quantize kernel takes int8 vq and "
+                        f"float32 w_top, a, w_bot; got {vq.dtype}, "
+                        f"{w_top.dtype}, {a.dtype}, {w_bot.dtype}")
+    if vq.ndim != 3 or a.ndim != 3 or w_top.ndim != 3:
+        raise ValueError(f"vq, a and w_top must be 3-D, got "
+                         f"{tuple(vq.shape)}, {tuple(a.shape)}, "
+                         f"{tuple(w_top.shape)}")
+    N, d, k = vq.shape
+    r, e = a.shape[2], w_top.shape[2]
+    if w_top.shape != (N, k, e) or a.shape[:2] != (N, d) \
+            or w_bot.shape != (N, r, e):
+        raise ValueError(f"shape mismatch: vq {tuple(vq.shape)}, w_top "
+                         f"{tuple(w_top.shape)}, a {tuple(a.shape)}, w_bot "
+                         f"{tuple(w_bot.shape)}")
+    if N > MAX_BLOCKS:
+        raise ValueError(f"batched_project_quantize kernel takes at most "
+                         f"{MAX_BLOCKS} blocks, got {N}")
+    values = torch.empty((N, d, e), dtype=torch.int8, device=a.device)
+    scale = torch.ones((N, 1, 1), dtype=torch.float32, device=a.device)
+    if values.numel() == 0:
+        return values, scale
+    scratch = torch.empty((N, d, e), dtype=torch.float32, device=a.device)
+    absmax = torch.zeros((N,), dtype=torch.int32, device=a.device)
+    err = build.launch(
+        build.library("project_quantize").repro_batched_project_quantize,
+        a.device, vq.data_ptr(), w_top.data_ptr(), a.data_ptr(),
+        w_bot.data_ptr(), scratch.data_ptr(), absmax.data_ptr(),
+        values.data_ptr(), scale.data_ptr(), N, d, k, r, e)
+    if err != 0:
+        raise RuntimeError(f"batched_project_quantize kernel launch failed: "
+                           f"CUDA error {err} at vq {tuple(vq.shape)}, a "
+                           f"{tuple(a.shape)}, e {e}")
+    project_quantize_launches += 1
+    return values, scale

@@ -1,7 +1,7 @@
 """The optimizer hot path's kernel set, dispatched on the tensor's device.
 
-Port of repro/kernels/registry.py (``KernelSet`` :52) with the two entries
-the Sketchy training step uses.  There is no backend choice: a CUDA tensor
+Port of repro/kernels/registry.py (``KernelSet`` :52) with the entries the
+Sketchy training step uses.  There is no backend choice: a CUDA tensor
 launches the hand-written Hopper kernel (which raises if it cannot build or
 launch), a CPU tensor takes the plain PyTorch version, and any other device
 raises.  Nothing falls back from the kernel to the plain version.
@@ -9,7 +9,19 @@ raises.  Nothing falls back from the kernel to the plain version.
     batched_gram(a):                      (N, d, k) -> (N, k, k) f32
     batched_lowrank_apply(u, c, b, g):    (N, d, ell), (N, ell), (N,),
                                           (N, d, n) -> (N, d, n), g's dtype
-                                          (the card's kernel takes f32 only)
+                                          (the card takes an f32 or int8 u)
+
+Fused entries of int8 second-moment storage (core/quantize.py):
+
+    batched_gram_mixed(vq, colw, a):      (N, d, k) int8, (N, k) f32,
+                                          (N, d, r) f32 -> (N, k+r, k+r) f32,
+                                          the Gram of [vq * colw, a]
+    batched_lowrank_apply_quantized(values, scale, c, b, g):
+                                          the apply with an int8 U; the block
+                                          scale^2 is folded into c
+    batched_project_quantize(vq, w_top, a, w_bot):
+                                          f32(vq) w_top + a w_bot, requantized
+                                          per block -> (int8 values, scale)
 """
 from __future__ import annotations
 
@@ -26,6 +38,9 @@ from repro_torch.kernels.lowrank import ref as lowrank_ref
 class KernelSet(NamedTuple):
     batched_gram: Callable
     batched_lowrank_apply: Callable
+    batched_gram_mixed: Callable
+    batched_lowrank_apply_quantized: Callable
+    batched_project_quantize: Callable
 
 
 def _route(t: torch.Tensor, on_card: Callable, on_cpu: Callable) -> Callable:
@@ -47,5 +62,43 @@ def batched_lowrank_apply(u: torch.Tensor, coeffs: torch.Tensor,
     return fn(u, coeffs, base, g)
 
 
-KERNELS = KernelSet(batched_gram=batched_gram,
-                    batched_lowrank_apply=batched_lowrank_apply)
+def batched_gram_mixed(vq: torch.Tensor, colw: torch.Tensor,
+                       a: torch.Tensor) -> torch.Tensor:
+    fn = _route(a, gram_kernel.batched_gram_mixed,
+                gram_ref.batched_gram_mixed_ref)
+    return fn(vq, colw, a)
+
+
+def _fold_quantized_apply(values: torch.Tensor, scale: torch.Tensor,
+                          coeffs: torch.Tensor, base: torch.Tensor,
+                          g: torch.Tensor) -> torch.Tensor:
+    """The int8 apply on the card (port of ``_fold_quantized_apply``,
+    repro/kernels/registry.py:133): the block scale commutes out of
+    ``U diag(c) U^T`` as ``scale^2``, so the apply kernel runs on the raw
+    int8 values with ``c * scale^2``; its upcast in registers is the
+    dequantize."""
+    s2 = torch.square(scale.reshape(scale.shape[0], 1).float())
+    return lowrank_kernel.batched_lowrank_apply(values, coeffs * s2, base, g)
+
+
+def batched_lowrank_apply_quantized(values: torch.Tensor, scale: torch.Tensor,
+                                    coeffs: torch.Tensor, base: torch.Tensor,
+                                    g: torch.Tensor) -> torch.Tensor:
+    fn = _route(g, _fold_quantized_apply,
+                lowrank_ref.batched_lowrank_apply_quantized_ref)
+    return fn(values, scale, coeffs, base, g)
+
+
+def batched_project_quantize(vq: torch.Tensor, w_top: torch.Tensor,
+                             a: torch.Tensor, w_bot: torch.Tensor) -> tuple:
+    fn = _route(a, lowrank_kernel.batched_project_quantize,
+                lowrank_ref.batched_project_quantize_ref)
+    return fn(vq, w_top, a, w_bot)
+
+
+KERNELS = KernelSet(
+    batched_gram=batched_gram,
+    batched_lowrank_apply=batched_lowrank_apply,
+    batched_gram_mixed=batched_gram_mixed,
+    batched_lowrank_apply_quantized=batched_lowrank_apply_quantized,
+    batched_project_quantize=batched_project_quantize)

@@ -6,8 +6,8 @@ training path on one device).
 
 Runs on ``--device cuda`` unless told otherwise, and raises if the machine
 has no card.  The reference's flags for features not ported yet
-(checkpointing, other optimizers, refresh modes, quantized storage, sharded
-statistics, gradient compression) are absent.
+(checkpointing, other optimizers, refresh modes, sharded statistics,
+gradient compression) are absent.
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.configs import registry
+from repro_torch.core import api
 from repro_torch.core.factory import OptimizerConfig, make_optimizer
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.models import model as model_lib
@@ -41,6 +42,19 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
     p.add_argument("--rank", type=int, default=64)
     p.add_argument("--update-every", type=int, default=10)
     p.add_argument("--block-size", type=int, default=1024)
+    p.add_argument("--second-moment-dtype", default="fp32",
+                   choices=["fp32", "bf16", "int8"],
+                   help="storage dtype for pooled second-moment stacks "
+                        "between steps (core/quantize.py): fp32 = bitwise "
+                        "parity, bf16 = 2x smaller, int8 = per-block "
+                        "quantized matrix factors (~4x); compute stays f32")
+    p.add_argument("--quantized-epilogue", default="auto",
+                   choices=["auto", "off", "on"],
+                   help="fused int8 compute (core/api.py): with "
+                        "--second-moment-dtype int8, auto and on run the "
+                        "refresh and the apply on the int8 factors through "
+                        "the fused kernels (no f32 factor stack at the pool "
+                        "boundary); off = always dequantize at the boundary")
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--metrics-out", default=None)
     p.add_argument("--seed", type=int, default=0)
@@ -84,7 +98,9 @@ def start(args: argparse.Namespace, params: Optional[dict] = None) -> Run:
     tx = make_optimizer(OptimizerConfig(
         name=args.optimizer, learning_rate=args.lr, total_steps=args.steps,
         rank=args.rank, block_size=args.block_size,
-        update_every=args.update_every, weight_decay=1e-4))
+        update_every=args.update_every, weight_decay=1e-4,
+        second_moment_dtype=args.second_moment_dtype,
+        quantized_epilogue=args.quantized_epilogue))
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                   seq_len=args.seq, global_batch=args.batch,
                                   seed=args.seed))
@@ -97,14 +113,17 @@ def start(args: argparse.Namespace, params: Optional[dict] = None) -> Run:
 
 
 def train(args: argparse.Namespace, params: Optional[dict] = None
-          ) -> tuple[dict, list]:
-    """Run ``args.steps`` training steps; returns the final parameters and
-    one metrics record per step: step, loss, grad_norm, time_s (host clock
-    around the step, after the device finished it)."""
+          ) -> tuple[Run, list]:
+    """Run ``args.steps`` training steps; returns the run (final parameters
+    and optimizer state) and one metrics record per step: step, loss,
+    grad_norm, time_s (host clock around the step, after the device
+    finished it)."""
     run = start(args, params)
     n_params = sum(p.numel() for p in tree.flatten(run.params))
     print(f"arch={run.cfg.name} params={n_params / 1e6:.1f}M "
-          f"optimizer={args.optimizer} device={run.device}")
+          f"optimizer={args.optimizer} device={run.device} "
+          f"second_moment={args.second_moment_dtype} "
+          f"({api.second_moment_bytes(run.opt_state)} bytes)")
     log = []
     for step in range(args.steps):
         t0 = time.perf_counter()
@@ -123,7 +142,7 @@ def train(args: argparse.Namespace, params: Optional[dict] = None
         os.makedirs(os.path.dirname(args.metrics_out) or ".", exist_ok=True)
         with open(args.metrics_out, "w") as f:
             json.dump(log, f, indent=2)
-    return run.params, log
+    return run, log
 
 
 def main(argv: Optional[list] = None) -> list:

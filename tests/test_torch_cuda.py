@@ -5,7 +5,12 @@ one; the file imports no JAX, so it runs where only PyTorch is installed:
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerances as in tests/test_torch_kernels.py: f32 ``atol = 1e-4 * sqrt(d)``,
-``rtol = 1e-5``; bf16 inputs (Gram only) 10x that.
+``rtol = 1e-5``; bf16 inputs (Gram only) 10x that.  The int8 write-back's
+scales agree to ``rtol = 1e-5`` (the absmax of U_new summed in another
+order), and a value may differ by 1, only where the plain version's
+U_new / scale lies within 1e-3 of a step of a .5 boundary (a few hundred
+ulp at the int8 range's top: the kernel sums the k + r products in another
+order).
 """
 import numpy as np
 import pytest
@@ -85,3 +90,95 @@ def test_kernel_wrappers_reject_what_they_do_not_take(card):
     with pytest.raises(TypeError, match="float32"):
         lowrank_kernel.batched_lowrank_apply(u.bfloat16(), c, b,
                                              g.bfloat16())
+
+
+# (N, d, ell, r): ragged, then the main path's shapes (left and right side
+# of each full-width pool group at rank 64)
+INT8_CASES = [(1, 16, 4, 1), (3, 20, 12, 5), (2, 12, 12, 30), (5, 100, 30, 2),
+              (4, 70, 12, 1), (2, 12, 12, 768), (2, 768, 64, 12),
+              (48, 768, 64, 768), (68, 1024, 64, 768), (104, 768, 64, 1024)]
+
+
+def _int8(n, d, k, gen, card):
+    return torch.randint(-127, 128, (n, d, k), generator=gen, device=card,
+                         dtype=torch.int8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,d,ell,r", INT8_CASES)
+def test_gram_mixed_kernel_matches_plain_on_card(card, N, d, ell, r):
+    from repro_torch.kernels.gram import kernel
+    gen = torch.Generator(device=card).manual_seed(d + ell)
+    vq = _int8(N, d, ell, gen, card)
+    colw = torch.rand(N, ell, generator=gen, device=card) / 127
+    a = torch.randn(N, d, r, generator=gen, device=card)
+    before = kernel.mixed_launches
+    got = kernel.batched_gram_mixed(vq, colw, a)
+    torch.cuda.synchronize()
+    assert kernel.mixed_launches == before + 1
+    torch.testing.assert_close(got, gram_ref.batched_gram_mixed_ref(vq, colw,
+                                                                    a),
+                               **_tol(d, "float32"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,d,k,r", INT8_CASES)
+def test_project_quantize_kernel_matches_plain_on_card(card, N, d, k, r):
+    from repro_torch.kernels.lowrank import kernel
+    gen = torch.Generator(device=card).manual_seed(d + k)
+    vq = _int8(N, d, k, gen, card)
+    w_top = torch.randn(N, k, k, generator=gen, device=card) / 127
+    a = torch.randn(N, d, r, generator=gen, device=card)
+    w_bot = torch.randn(N, r, k, generator=gen, device=card)
+    before = kernel.project_quantize_launches
+    got = kernel.batched_project_quantize(vq, w_top, a, w_bot)
+    torch.cuda.synchronize()
+    assert kernel.project_quantize_launches == before + 1
+    lowrank_ref.project_quantize_differences(got, vq, w_top, a, w_bot)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,d,ell,n", [(1, 32, 4, 8), (7, 123, 17, 50),
+                                       (2, 12, 12, 768), (2, 768, 64, 12),
+                                       (48, 768, 64, 768)])
+def test_int8_apply_kernel_matches_plain_on_card(card, N, d, ell, n):
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.lowrank import kernel
+    gen = torch.Generator(device=card).manual_seed(d + 1)
+    vq = _int8(N, d, ell, gen, card)
+    scale = torch.rand(N, 1, 1, generator=gen, device=card) / 127
+    coeffs = torch.rand(N, ell, generator=gen, device=card)
+    base = torch.rand(N, generator=gen, device=card)
+    g = torch.randn(N, d, n, generator=gen, device=card)
+    before = (kernel.launches, kernel.int8_launches)
+    got = registry.batched_lowrank_apply_quantized(vq, scale, coeffs, base, g)
+    torch.cuda.synchronize()
+    assert (kernel.launches, kernel.int8_launches) == \
+        (before[0], before[1] + 1)
+    torch.testing.assert_close(
+        got, lowrank_ref.batched_lowrank_apply_quantized_ref(
+            vq, scale, coeffs, base, g), **_tol(d, "float32"))
+
+
+@pytest.mark.cuda
+def test_int8_wrappers_reject_what_they_do_not_take(card):
+    from repro_torch.kernels.gram import kernel as gram_kernel
+    from repro_torch.kernels.lowrank import kernel as lowrank_kernel
+    vq = torch.zeros(2, 8, 3, dtype=torch.int8, device=card)
+    a = torch.zeros(2, 8, 4, device=card)
+    with pytest.raises(TypeError, match="int8"):
+        gram_kernel.batched_gram_mixed(vq.float(), torch.zeros(2, 3,
+                                                               device=card), a)
+    with pytest.raises(ValueError, match="contiguous"):
+        gram_kernel.batched_gram_mixed(vq, torch.zeros(2, 3, device=card),
+                                       a.mT.contiguous().mT)
+    w_top = torch.zeros(2, 3, 3, device=card)
+    w_bot = torch.zeros(2, 4, 3, device=card)
+    with pytest.raises(TypeError, match="float32"):
+        lowrank_kernel.batched_project_quantize(vq, w_top.double(), a, w_bot)
+    with pytest.raises(ValueError, match="shape"):
+        lowrank_kernel.batched_project_quantize(vq, w_top, a,
+                                                w_bot[:, :2].contiguous())
+    v, s = lowrank_kernel.batched_project_quantize(vq[:0], w_top[:0], a[:0],
+                                                   w_bot[:0])
+    assert v.shape == (0, 8, 3) and s.shape == (0, 1, 1)

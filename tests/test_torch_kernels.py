@@ -3,14 +3,24 @@
 On the CPU the port's entries are the plain PyTorch versions; they are held
 against ``batched_gram_pallas`` / ``batched_lowrank_apply_pallas`` run in
 interpret mode, over the ragged shapes of tests/test_kernels.py, in f32 and
-bf16, with empty pools.  tests/test_torch_cuda.py holds the hand-written
-Hopper kernels against the plain versions on the card.
+bf16, with empty pools; and the int8 entries against
+``batched_gram_mixed_pallas``, ``batched_project_quantize_pallas`` and the
+reference registry's scale-folded apply over ragged shapes with ell = 12
+(a 64-wide tile straddles the int8/f32 boundary), r = 1, d not a multiple
+of 64, and N = 0.  tests/test_torch_cuda.py holds the hand-written Hopper
+kernels against the plain versions on the card.
 
 Tolerances: f32 ``atol = 1e-4 * sqrt(d)``, ``rtol = 1e-5`` (the two sides
 sum d products in different orders); bf16 inputs 10x that.  A bf16 output
 (the low-rank apply keeps G's dtype) is also allowed one bf16 rounding step,
 at most 2^-7 of the value: both sides compute in f32 and round once, and f32
-results a few ulps apart can round to neighbouring bf16 values.
+results a few ulps apart can round to neighbouring bf16 values.  The int8
+write-back's values are bit for bit on inputs whose products and sums are
+exact in f32 (any summation order gives the same U_new), and so are its
+scales against the reference's oracle (``quantize_stack``); the
+interpret-mode Pallas kernel's scale may be one ulp off IEEE division.  On
+general inputs a value may differ by 1 where the two sides' U_new/scale
+straddle a .5 boundary, and the scales by ``rtol = 1e-6``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -18,8 +28,12 @@ import pytest
 import torch
 from torch_parity import torch_one_thread  # noqa: F401
 
-from repro.kernels.gram.kernel import batched_gram_pallas
-from repro.kernels.lowrank.kernel import batched_lowrank_apply_pallas
+from repro.kernels import registry as jregistry
+from repro.kernels.gram.kernel import (batched_gram_mixed_pallas,
+                                       batched_gram_pallas)
+from repro.kernels.lowrank import ref as jlowrank_ref
+from repro.kernels.lowrank.kernel import (batched_lowrank_apply_pallas,
+                                          batched_project_quantize_pallas)
 from repro_torch.kernels import registry
 from repro_torch.kernels.gram import ref as gram_ref
 
@@ -94,3 +108,120 @@ def test_registry_dispatches_on_device():
                                gram_ref.batched_gram_ref(a), rtol=0, atol=0)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         registry.batched_gram(a.to("meta"))
+
+
+# (N, d, ell, r): ell = 12 straddles the int8/f32 boundary inside one tile
+MIXED_CASES = [(1, 16, 4, 1), (3, 20, 12, 5), (2, 12, 12, 30),
+               (5, 100, 30, 2), (4, 70, 12, 1), (2, 130, 64, 12)]
+
+
+def _int8(rng, shape, bound=127):
+    return rng.integers(-bound, bound + 1, size=shape).astype(np.int8)
+
+
+@pytest.mark.parametrize("N,d,ell,r", MIXED_CASES)
+def test_batched_gram_mixed_matches_pallas(N, d, ell, r):
+    rng = np.random.default_rng(N * 1000 + d + ell)
+    vq = _int8(rng, (N, d, ell))
+    colw = (rng.random((N, ell)) / 127).astype(np.float32)
+    a = rng.normal(size=(N, d, r)).astype(np.float32)
+    want = batched_gram_mixed_pallas(jnp.asarray(vq), jnp.asarray(colw),
+                                     jnp.asarray(a), bd=32)
+    got = registry.batched_gram_mixed(torch.from_numpy(vq),
+                                      torch.from_numpy(colw),
+                                      torch.from_numpy(a))
+    assert got.dtype == torch.float32 and got.shape == (N, ell + r, ell + r)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **_tol(d, "float32"))
+
+
+def _project_inputs(rng, N, d, k, r, exact):
+    """(vq, w_top, a, w_bot).  ``exact``: small integers and multiples of
+    2^-4 / 2^-3, so every product is a multiple of 2^-7 and every sum of
+    k + r of them stays below 2^17: exact in f32 in any order."""
+    e = k
+    if exact:
+        vq = _int8(rng, (N, d, k), bound=8)
+        w_top = rng.integers(-8, 9, size=(N, k, e)) / 16.0
+        a = rng.integers(-16, 17, size=(N, d, r)) / 8.0
+        w_bot = rng.integers(-8, 9, size=(N, r, e)) / 16.0
+    else:
+        vq = _int8(rng, (N, d, k))
+        w_top = rng.normal(size=(N, k, e)) / 127
+        a = rng.normal(size=(N, d, r))
+        w_bot = rng.normal(size=(N, r, e))
+    return (vq, w_top.astype(np.float32), a.astype(np.float32),
+            w_bot.astype(np.float32))
+
+
+@pytest.mark.parametrize("N,d,k,r", MIXED_CASES)
+@pytest.mark.parametrize("exact", [True, False])
+def test_batched_project_quantize_matches_pallas(N, d, k, r, exact):
+    rng = np.random.default_rng(N * 1000 + d + k + int(exact))
+    args = _project_inputs(rng, N, d, k, r, exact)
+    want_v, want_s = batched_project_quantize_pallas(
+        *(jnp.asarray(x) for x in args))
+    got_v, got_s = registry.batched_project_quantize(
+        *(torch.from_numpy(x) for x in args))
+    assert got_v.dtype == torch.int8 and got_v.shape == (N, d, k)
+    assert got_s.dtype == torch.float32 and got_s.shape == (N, 1, 1)
+    want_v, want_s = np.asarray(want_v), np.asarray(want_s)
+    if exact:
+        np.testing.assert_array_equal(got_v.numpy(), want_v)
+        # the scale is IEEE absmax / 127, as quantize.int8_scale and the
+        # reference's own oracle compute it; the interpret-mode Pallas
+        # kernel, compiled by XLA on the CPU, rounds that quotient one ulp
+        # off on some blocks
+        ref_v, ref_s = jlowrank_ref.batched_project_quantize_ref(
+            *(jnp.asarray(x) for x in args))
+        np.testing.assert_array_equal(got_v.numpy(), np.asarray(ref_v))
+        np.testing.assert_array_equal(got_s.numpy(), np.asarray(ref_s))
+        ulps = np.abs(got_s.numpy().view(np.int32).astype(np.int64)
+                      - want_s.view(np.int32))
+        assert ulps.max() <= 1
+        return
+    diff = np.abs(got_v.numpy().astype(np.int32) - want_v.astype(np.int32))
+    assert diff.max() <= 1, f"{int((diff > 0).sum())} of {diff.size} differ"
+    np.testing.assert_allclose(got_s.numpy(), want_s, rtol=1e-6)
+
+
+@pytest.mark.parametrize("N,d,ell,n,bn_stack", LOWRANK_CASES)
+def test_batched_lowrank_apply_quantized_matches_pallas(N, d, ell, n,
+                                                        bn_stack):
+    """The int8 apply: the reference's scale-folded Pallas apply."""
+    rng = np.random.default_rng(N * 1000 + d + 7)
+    vq = _int8(rng, (N, d, ell))
+    scale = (rng.random((N, 1, 1)) / 127).astype(np.float32)
+    coeffs = rng.random((N, ell)).astype(np.float32)
+    base = rng.random(N).astype(np.float32)
+    g = rng.normal(size=(N, d, n)).astype(np.float32)
+    apply = jregistry._fold_quantized_apply(
+        lambda u, c, b, x, config=None: batched_lowrank_apply_pallas(
+            u, c, b, x, bn=16, bn_stack=bn_stack))
+    want = apply(*(jnp.asarray(x) for x in (vq, scale, coeffs, base, g)))
+    got = registry.batched_lowrank_apply_quantized(
+        *(torch.from_numpy(x) for x in (vq, scale, coeffs, base, g)))
+    assert got.dtype == torch.float32 and got.shape == (N, d, n)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **_tol(d, "float32"))
+
+
+def test_int8_entries_on_empty_pool():
+    """N = 0 gives empty results of the shapes JAX gives."""
+    vq = torch.zeros((0, 8, 3), dtype=torch.int8)
+    a = torch.zeros((0, 8, 2))
+    c = registry.batched_gram_mixed(vq, torch.zeros((0, 3)), a)
+    assert c.shape == (0, 5, 5) == batched_gram_mixed_pallas(
+        jnp.zeros((0, 8, 3), jnp.int8), jnp.zeros((0, 3)),
+        jnp.zeros((0, 8, 2))).shape
+    v, s = registry.batched_project_quantize(vq, torch.zeros((0, 3, 3)), a,
+                                             torch.zeros((0, 2, 3)))
+    jv, js = batched_project_quantize_pallas(
+        jnp.zeros((0, 8, 3), jnp.int8), jnp.zeros((0, 3, 3)),
+        jnp.zeros((0, 8, 2)), jnp.zeros((0, 2, 3)))
+    assert v.shape == jv.shape and v.dtype == torch.int8
+    assert s.shape == js.shape
+    y = registry.batched_lowrank_apply_quantized(
+        vq, torch.ones((0, 1, 1)), torch.zeros((0, 3)), torch.zeros((0,)),
+        torch.zeros((0, 8, 4)))
+    assert y.shape == (0, 8, 4)
