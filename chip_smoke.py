@@ -29,6 +29,27 @@ no result line:
 6. reference: the reduced model trained 4 steps on the card (kernels) and on
    the CPU (plain versions) from the same weights gives the same losses,
    with fp32 and with int8 storage.
+7. serve: ``repro_torch.launch.serve`` at full-width paper-lm-100m
+   (SERVE_ARGV: step traffic over 24 ticks, the FD gradient monitor over
+   the flattened lm_head, d = 25,165,824, and S-AdaGrad head adaptation
+   when it says "adapt"), then a shorter run that adapts every tick
+   (ADAPT_ARGV), each with every launch count set to 0 just before and read
+   just after.  The single-block Gram (kernel 3) must launch once per
+   monitor observation and adaptation step, and at least once in the first
+   run; the single-block apply (kernel 4) once per adaptation step, and at
+   least once in the second; no other kernel.  Every request must be served
+   in full.  Prints the inter-token latency p50/p99, tokens served, the
+   monitor's readings, adaptation steps, the monitor's ``observe`` and the
+   adaptation step times, and peak memory; then profiles one full-width
+   ``observe`` and one adaptation step (device time by kernel, idle share).
+8. serve reference: the reduced serve run with monitor and adaptation on
+   the card (kernels) and on the CPU (plain versions) from the same weights
+   gives the same greedy tokens and monitor decisions, and the same adapted
+   head within SERVE_HEAD_RTOL.
+
+Phase 2 also holds the single-block Gram and apply (kernels 3 and 4) at the
+serving shapes against their plain versions computed in float64 on the
+card, and checks that two runs give the same bits.
 
 The last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
@@ -42,6 +63,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -56,6 +78,7 @@ from repro_torch.kernels.gram import kernel as gram_kernel  # noqa: E402
 from repro_torch.kernels.gram import ref as gram_ref  # noqa: E402
 from repro_torch.kernels.lowrank import kernel as lowrank_kernel  # noqa: E402
 from repro_torch.kernels.lowrank import ref as lowrank_ref  # noqa: E402
+from repro_torch.launch import serve as serve_lib  # noqa: E402
 from repro_torch.launch import train as train_lib  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 
@@ -74,6 +97,22 @@ INT8_ARGV = ["--second-moment-dtype", "int8"]
 # second_moment_bytes of the JAX reference at full width with the
 # launcher's defaults and int8 storage (tests/test_torch_quantize.py)
 INT8_SECOND_MOMENT_BYTES = 24_661_092
+# the serving path's FD sketches: the flattened full-width lm_head (768 x
+# 32768) at the monitor's and the adapter's default rank
+SERVE_D, SERVE_ELL = 768 * 32768, 8
+SERVE_ARGV = ["--no-reduced", "--traffic",
+              "shape=step,rate=1.0,ticks=24,step_at=12",
+              "--monitor", "window=4,ell=8", "--adapt", "lr=0.1,beta2=0.95"]
+ADAPT_ARGV = ["--no-reduced", "--traffic", "shape=constant,rate=1.0,ticks=4",
+              "--adapt", "lr=0.1,beta2=0.95"]
+REDUCED_SERVE_ARGV = ["--traffic", "shape=step,rate=1.0,ticks=12,step_at=6",
+                      "--monitor", "window=3,ell=8,top_k=3",
+                      "--adapt", "lr=0.1,beta2=0.95"]
+# the adapted reduced head on the card against the CPU, relative to its
+# largest magnitude: f32 sums of d = 16,384 products in other orders in the
+# Gram and the projection, and each device's eigh, over the run's
+# adaptation steps (measured 1.2e-7 on an H100)
+SERVE_HEAD_RTOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -118,9 +157,11 @@ def main_path_shapes() -> tuple[list, list]:
 
 def check(name: str, got: torch.Tensor, want: torch.Tensor, d: int) -> float:
     """f32 tolerance of the tests: |got - want| <= 1e-4 sqrt(d) + 1e-5
-    |want|; returns the largest absolute difference."""
-    diff = (got.float() - want.float()).abs()
-    if not torch.all(diff <= 1e-4 * math.sqrt(d) + 1e-5 * want.abs()):
+    |want| (sums of d products in another order); returns the largest
+    absolute difference."""
+    diff = (got.double() - want.double()).abs()
+    tol = 1e-4 * math.sqrt(d) + 1e-5 * want.double().abs()
+    if not torch.all(diff <= tol):
         fail(f"{name}: kernel disagrees with its plain version "
              f"(max abs diff {float(diff.max()):.3e})")
     return float(diff.max())
@@ -192,6 +233,78 @@ def phase_kernels(dev) -> dict:
         replaces="src/repro/kernels/lowrank/kernel.py:97",
         max_abs_err=err, **_sums(rows))
     out.update(phase_int8_kernels(dev, gen, refresh_main, apply_main))
+    out.update(phase_single_kernels(dev, gen))
+    return out
+
+
+def _same_bits(name: str, fn) -> torch.Tensor:
+    """``fn()`` twice; fails unless both give the same bits."""
+    got, again = fn(), fn()
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        fail(f"{name}: two runs on the same inputs differ")
+    return got
+
+
+def phase_single_kernels(dev, gen) -> dict:
+    """Phase 2's rows of the single-block kernels of the serving path, at
+    its shape (the flattened lm_head: d = SERVE_D, ell = 8, one gradient
+    column) and a few ragged ones, against the plain versions in float64."""
+    out = {}
+    rows, err = [], 0.0
+    for d, k in [(SERVE_D, SERVE_ELL + 1), (33, 9), (100, 30), (4097, 17)]:
+        a = torch.randn(d, k, generator=gen, device=dev)
+        got = _same_bits(f"gram {(d, k)}", lambda: gram_kernel.gram(a))
+        err = max(err, check(f"gram {(d, k)}", got,
+                             gram_ref.gram_ref(a.double()), d))
+        if d != SERVE_D:
+            continue
+        ms = cuda_ms(lambda: gram_kernel.gram(a), 10)
+        plain = cuda_ms(lambda: gram_ref.gram_ref(a), 10)
+        lib = cuda_ms(lambda: torch.matmul(a.T, a), 10)
+        t_bytes, t_ops = bound_ms(4 * (d * k + k * k), d * k * (k + 1))
+        rows.append((ms, plain, lib, t_bytes, t_ops))
+        print(f"gram d={d} k={k}: {ms:.3f} ms, plain {plain:.3f} ms, "
+              f"matmul {lib:.3f} ms, bound {max(t_bytes, t_ops):.3f} ms "
+              f"(bytes {t_bytes:.3f}, operations {t_ops:.3f})")
+    out["gram"] = dict(
+        name="gram", route="cuda", source="src/repro_torch/csrc/gram_tall.cu",
+        replaces="src/repro/kernels/gram/kernel.py:53", max_abs_err=err,
+        **_sums(rows))
+
+    rows, err = [], 0.0
+    for d, ell, n in [(SERVE_D, SERVE_ELL, 1), (24, 6, 1), (123, 17, 5),
+                      (1000, 300, 3)]:
+        u = torch.randn(d, ell, generator=gen, device=dev)
+        g = torch.randn(d, n, generator=gen, device=dev)
+        c = torch.rand(ell, generator=gen, device=dev)
+        b = torch.rand((), generator=gen, device=dev)
+        got = _same_bits(f"lowrank_apply {(d, ell, n)}",
+                         lambda: lowrank_kernel.lowrank_apply(u, c, b, g))
+        err = max(err, check(
+            f"lowrank_apply {(d, ell, n)}", got,
+            lowrank_ref.lowrank_apply_ref(u.double(), c.double(), b.double(),
+                                          g.double()), d))
+        if d != SERVE_D:
+            continue
+        ms = cuda_ms(lambda: lowrank_kernel.lowrank_apply(u, c, b, g), 10)
+        plain = cuda_ms(lambda: lowrank_ref.lowrank_apply_ref(u, c, b, g),
+                        10)
+        lib = cuda_ms(lambda: b * g + u @ (c[:, None] * (u.T @ g)), 10)
+        t_bytes, t_ops = bound_ms(4 * (d * ell + ell + 1 + 2 * d * n),
+                                  4 * d * ell * n + 2 * d * n + ell * n)
+        two_pass, _ = bound_ms(4 * (2 * d * ell + 3 * d * n), 0)
+        rows.append((ms, plain, lib, t_bytes, t_ops))
+        print(f"lowrank_apply d={d} ell={ell} n={n}: {ms:.3f} ms, plain "
+              f"{plain:.3f} ms, matmuls {lib:.3f} ms, bound "
+              f"{max(t_bytes, t_ops):.3f} ms (bytes {t_bytes:.3f}, "
+              f"operations {t_ops:.3f}); the two passes' own bytes "
+              f"(U read twice) {two_pass:.3f} ms")
+    out["lowrank_apply"] = dict(
+        name="lowrank_apply", route="cuda",
+        source="src/repro_torch/csrc/lowrank_tall.cu",
+        replaces="src/repro/kernels/lowrank/kernel.py:51", max_abs_err=err,
+        **_sums(rows))
     return out
 
 
@@ -358,7 +471,19 @@ COUNTERS = {   # launch counter -> (wrapper module, attribute)
     "batched_project_quantize": (lowrank_kernel,
                                  "project_quantize_launches"),
     "batched_lowrank_apply_int8": (lowrank_kernel, "int8_launches"),
+    "gram": (gram_kernel, "single_launches"),
+    "lowrank_apply": (lowrank_kernel, "single_launches"),
 }
+
+
+def _zero_counts() -> None:
+    for module, attr in COUNTERS.values():
+        setattr(module, attr, 0)
+
+
+def _counts() -> dict:
+    return {name: getattr(module, attr)
+            for name, (module, attr) in COUNTERS.items()}
 
 
 def phase_main_path(dev, argv: list, expected: dict,
@@ -366,11 +491,9 @@ def phase_main_path(dev, argv: list, expected: dict,
     """Train with ``argv`` with every launch count set to 0 just before and
     read just after; ``expected`` gives each count's value."""
     torch.cuda.reset_peak_memory_stats(dev)
-    for module, attr in COUNTERS.values():
-        setattr(module, attr, 0)
+    _zero_counts()
     run, log = train_lib.train(train_lib.parse_args(argv))
-    launches = {name: getattr(module, attr)
-                for name, (module, attr) in COUNTERS.items()}
+    launches = _counts()
     peak = torch.cuda.max_memory_allocated(dev)
     nbytes = api.second_moment_bytes(run.opt_state)
     del run
@@ -393,25 +516,20 @@ def phase_main_path(dev, argv: list, expected: dict,
     return launches
 
 
-def phase_profile(dev, argv: list) -> None:
-    """Device time by kernel of one plain (non-refresh) step of the main
-    path's configuration ``argv``, and the device's idle share of that
-    step."""
+def _profiled(fn, title: str, labels: tuple = ()) -> None:
+    """Run ``fn()`` under ``torch.profiler``; print its wall time, the
+    device's busy time and idle share over it, and the device time by
+    kernel (``labels``: the caller's own ranges, left out of both)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    print(f"profile of {' '.join(argv)}")
-    run = train_lib.start(train_lib.parse_args(argv))
-    run.step(0)                                    # the refresh step
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run.step(1)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    labels = ("train/forward_backward", "train/optimizer")
-    # device busy time: the union of the device events' intervals (the
-    # labels' own device-side ranges excluded)
+    # device busy time: the union of the device events' intervals
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
                    if e.device_type == DeviceType.CUDA
@@ -421,7 +539,7 @@ def phase_profile(dev, argv: list) -> None:
         busy_us += max(0.0, hi - max(lo, end))
         end = max(end, hi)
     busy_ms = busy_us / 1e3
-    print(f"profile of a plain step: wall {wall_ms:.3f} ms (profiled), "
+    print(f"profile of {title}: wall {wall_ms:.3f} ms (profiled), "
           f"device busy {busy_ms:.3f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.3f}")
     rows = [r for r in prof.key_averages() if r.key not in labels]
@@ -432,6 +550,39 @@ def phase_profile(dev, argv: list) -> None:
     for r in prof.key_averages():
         if r.key in labels:
             print(f"  {r.key}: host {r.cpu_time_total / 1e3:.3f} ms")
+
+
+def phase_profile(dev, argv: list) -> None:
+    """Device time by kernel of one plain (non-refresh) step of the main
+    path's configuration ``argv``, and the device's idle share of that
+    step."""
+    print(f"profile of {' '.join(argv)}")
+    run = train_lib.start(train_lib.parse_args(argv))
+    run.step(0)                                    # the refresh step
+    _profiled(lambda: run.step(1), "a plain step",
+              ("train/forward_backward", "train/optimizer"))
+
+
+def phase_serve_profile(dev) -> None:
+    """Device time by kernel of one full-width monitor observation and one
+    adaptation step (SERVE_ARGV's monitor and adapter, the seeded weights,
+    a feedback batch), each after one warm-up call."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.serve import (AdaptConfig, GradientMonitor,
+                                   MonitorConfig, OnlineAdapter)
+    cfg = registry.get_config("paper-lm-100m")
+    params = model_lib.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    adapter = OnlineAdapter(cfg, params, AdaptConfig(lr=0.1, beta2=0.95))
+    monitor = GradientMonitor(adapter.d, MonitorConfig(window=4, ell=8))
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                                  global_batch=4, seed=1))
+    _, g = adapter.grad(params, data.batch(0))
+    monitor.observe(g)
+    _profiled(lambda: monitor.observe(g), "a full-width monitor observe")
+    params, _ = adapter.step(params, data.batch(0))
+    _profiled(lambda: adapter.step(params, data.batch(1)),
+              "a full-width adaptation step")
 
 
 def phase_reference(dev, storage: str) -> None:
@@ -459,6 +610,83 @@ def phase_reference(dev, storage: str) -> None:
     # ~6e-6 relative on the CPU
     if worst > 1e-3:
         fail(f"card and CPU runs of the reduced model disagree ({storage})")
+
+
+def phase_serve(dev, argv: list) -> tuple[dict, dict]:
+    """Serve with ``argv`` with every launch count set to 0 just before and
+    read just after; returns (launches, the launcher's report)."""
+    label = " ".join(argv)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    report = serve_lib.serve(serve_lib.parse_args(argv))
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    handles = report["handles"]
+    if not handles or not all(h.done and len(h.tokens)
+                              == h.request.max_new_tokens for h in handles):
+        fail(f"serve ({label}): not every request was served in full")
+    head = report["params"]["lm_head"]
+    if not bool(torch.isfinite(head).all()):
+        fail(f"serve ({label}): the adapted head is not finite")
+    steps = report["adapt_steps"]
+    expected = dict(dict.fromkeys(COUNTERS, 0),
+                    gram=len(report["observe_s"]) + steps,
+                    lowrank_apply=steps)
+    if launches != expected:
+        fail(f"serve ({label}): launches {launches}, expected {expected}")
+    observe = sorted(report["observe_s"])
+    adapt = sorted(report["adapt_step_s"])
+    tokens = sum(len(h.tokens) for h in handles)
+    print(f"serve ({label}): {len(handles)} requests, {tokens} tokens, "
+          f"{steps} adaptation steps, peak memory allocated {peak} bytes")
+    for what, times in (("monitor observe", observe),
+                        ("adaptation step", adapt)):
+        if times:
+            print(f"serve {what} (s): median {times[len(times) // 2]:.6f}, "
+                  f"min {times[0]:.6f}, max {times[-1]:.6f}, "
+                  f"{len(times)} calls")
+    lat = report["latencies_s"]
+    print(f"serve inter-token latency (ms): p50 "
+          f"{float(np.percentile(lat, 50)) * 1e3:.3f}, p99 "
+          f"{float(np.percentile(lat, 99)) * 1e3:.3f} over {len(lat)} gaps")
+    print(f"serve launches: {launches}")
+    return launches, report
+
+
+def phase_serve_reference(dev) -> None:
+    """Reduced serve run with monitor and adaptation, same weights: card
+    (kernels) vs CPU (plain)."""
+    cfg = registry.get_reduced("paper-lm-100m")
+    params = model_lib.init_params(cfg, torch.Generator().manual_seed(0))
+    runs = {}
+    for device in (dev, torch.device("cpu")):
+        start = tree.unflatten(params, [p.to(device)
+                                        for p in tree.flatten(params)])
+        runs[device.type] = serve_lib.serve(serve_lib.parse_args(
+            REDUCED_SERVE_ARGV + ["--device", str(device)]), start)
+    card, cpu = runs["cuda"], runs["cpu"]
+    steps = card["adapt_steps"]
+    expected = dict(gram=len(card["observe_s"]) + steps,
+                    lowrank_apply=steps)
+    if steps == 0 or card["launches"] != expected:
+        fail(f"serve reference: the card run launched {card['launches']}, "
+             f"expected {expected} with at least one adaptation step")
+    if [h.tokens for h in card["handles"]] != \
+            [h.tokens for h in cpu["handles"]]:
+        fail("serve reference: card and CPU greedy tokens differ")
+    decisions = [[r.decision for r in run["readings"]]
+                 for run in (card, cpu)]
+    if decisions[0] != decisions[1]:
+        fail(f"serve reference: monitor decisions differ: {decisions}")
+    got = card["params"]["lm_head"].cpu()
+    want = cpu["params"]["lm_head"]
+    worst = float(((got - want).abs() / want.abs().max()).max())
+    print(f"serve reference: {card['adapt_steps']} adaptation steps, "
+          f"decisions {decisions[0]}, head max diff {worst:.2e} of its "
+          f"largest magnitude")
+    if not torch.allclose(got, want, rtol=SERVE_HEAD_RTOL,
+                          atol=SERVE_HEAD_RTOL * float(want.abs().max())):
+        fail("serve reference: card and CPU adapted heads disagree")
 
 
 def main() -> int:
@@ -492,9 +720,19 @@ def main() -> int:
     phase_profile(dev, MAIN_PATH_ARGV + INT8_ARGV)
     phase_reference(dev, "fp32")
     phase_reference(dev, "int8")
+    served, _ = phase_serve(dev, SERVE_ARGV)
+    adapted, _ = phase_serve(dev, ADAPT_ARGV)
+    if served["gram"] == 0:
+        fail("serve: the monitored run launched no single-block Gram")
+    if adapted["lowrank_apply"] == 0:
+        fail("serve: the adapting run launched no single-block apply")
+    phase_serve_profile(dev)
+    phase_serve_reference(dev)
 
     for name in kernels:
         kernels[name]["launches"] = fp32[name] or int8[name]
+    kernels["gram"]["launches"] = served["gram"]
+    kernels["lowrank_apply"]["launches"] = adapted["lowrank_apply"]
     print(smi)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

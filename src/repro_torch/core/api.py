@@ -6,14 +6,18 @@ shares: blocking, pooling of same-shaped blocks (core/pool.py), the gated
 refresh on ``count % update_every == 0``, the diagonal (RMSProp) fallback
 for vectors and scalars, norm grafting (paper App. C) and the
 ``start_preconditioning_step`` gate.  The preconditioner supplies
-``init_block``, ``refresh_batched`` and ``precondition_batched`` over whole
-pool stacks.
+``init_block`` (the stats stack of a pool group), and ``refresh_batched``
+and ``precondition_batched`` over whole pool stacks, or the per-block
+``refresh`` and ``precondition``, which the engine loops over the pool dim
+(the reference vmaps them).
 
 Ported: synchronized inline refresh, fp32/bf16/int8 second-moment storage
 (core/quantize.py) with the fused int8 path, replicated statistics, static
-rank, RMSPROP_NORMALIZED grafting with f32 accumulators, and the diagonal
-fallback damped by ``GRAFT_EPS``.  Other ``EngineConfig`` values raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+rank, RMSPROP_NORMALIZED grafting with f32 accumulators or none, 1-D leaves
+as (d, 1) blocks for the OCO learners (``treat_vectors_as_columns``), and
+the diagonal fallback damped by ``GRAFT_EPS``.  Other ``EngineConfig``
+values raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.
 
 State is plain: the step count is a Python int (the refresh gate is a host
 branch), pools map group keys to the preconditioner's stats stacks, and the
@@ -32,6 +36,7 @@ from repro_torch.core import pool, quantize
 from repro_torch.core.transform import GradientTransformation
 
 GRAFT_EPS = 1e-8        # grafting and diag-fallback damping
+GRAFTS = ("rmsprop_normalized", "none")
 QUANTIZED_EPILOGUES = ("auto", "off", "on")
 QUANTIZE_SEED = 0x0517  # root of the stochastic-rounding keys, as in JAX
 
@@ -51,6 +56,7 @@ class EngineConfig:
     beta2: Any = 0.999              # diag-fallback / grafting EMA decay
     update_every: int = 10          # refresh cadence (paper §6)
     start_preconditioning_step: int = 0
+    graft: str = "rmsprop_normalized"   # rmsprop_normalized | none
     refresh_schedule: str = "synchronized"
     refresh_mode: str = "inline"
     # storage of the second-moment state between steps (core/quantize.py):
@@ -68,8 +74,16 @@ class EngineConfig:
     quantized_epilogue: str = "auto"
     stats_reduction: str = "replicated"
     realloc_every: int = 0
+    # OCO learners (S-AdaGrad, paper Alg. 2) precondition a d-vector with
+    # one d x d sketch: 1-D leaves become a single (d, 1) matrix block
+    # instead of taking the diagonal fallback
+    treat_vectors_as_columns: bool = False
 
     def __post_init__(self):
+        if self.graft not in GRAFTS:
+            raise NotImplementedError(
+                f"EngineConfig.graft={self.graft!r} is not ported yet "
+                f"(ROADMAP.md queue 1 item 4); the port runs one of {GRAFTS}")
         if self.second_moment_dtype not in quantize.SECOND_MOMENT_DTYPES:
             raise ValueError(
                 f"unknown second_moment_dtype {self.second_moment_dtype!r}; "
@@ -101,12 +115,49 @@ class PrecondState(NamedTuple):
     leaves: tuple       # LeafState per flat param leaf
 
 
-def graft_direction(g: torch.Tensor, acc: torch.Tensor, *, beta2):
+def graft_direction(g: torch.Tensor, acc: torch.Tensor, *, graft: str,
+                    beta2):
     """Grafting direction + updated accumulator (paper App. C,
-    RMSPROP_NORMALIZED); f32 tensors."""
+    RMSPROP_NORMALIZED); f32 tensors.  ``graft="none"`` returns the
+    gradient and the accumulator unchanged."""
+    if graft == "none":
+        return g, acc
     gn = g / (torch.linalg.norm(g) + 1e-16)
     acc = beta2 * acc + (1.0 - beta2) * torch.square(gn)
     return gn * torch.rsqrt(acc + GRAFT_EPS), acc
+
+
+def _batched_method(precond, name: str) -> Callable:
+    """``fn(stats_stack, G_stack)`` for one preconditioner method: its
+    ``<name>_batched`` when it has one (one call over the whole pool stack,
+    the kernel-backed hot path), else its per-block ``<name>`` over each
+    block of the pool dim, restacked (the reference's ``jax.vmap``)."""
+    batched = getattr(precond, name + "_batched", None)
+    if batched is not None:
+        return batched
+    per_block = getattr(precond, name)
+
+    def loop(stats, G):
+        outs = [per_block(_block(stats, n), G[n]) for n in range(G.shape[0])]
+        return _stack(outs)
+
+    return loop
+
+
+def _block(stats, n: int):
+    """Block ``n`` of a stats stack (a tensor or a tuple of them)."""
+    if isinstance(stats, torch.Tensor):
+        return stats[n]
+    return type(stats)(*(_block(x, n) for x in stats))
+
+
+def _stack(items: list):
+    """Per-block results back into a stack; one block becomes a view."""
+    first = items[0]
+    if isinstance(first, torch.Tensor):
+        return first[None] if len(items) == 1 else torch.stack(items)
+    return type(first)(*(_stack([it[i] for it in items])
+                         for i in range(len(first))))
 
 
 def scale_by_preconditioner(precond, cfg: EngineConfig = EngineConfig()
@@ -117,10 +168,13 @@ def scale_by_preconditioner(precond, cfg: EngineConfig = EngineConfig()
     fused = qdtype == "int8" and cfg.quantized_epilogue != "off"
     pool_compute = quantize.compute_view if fused \
         else quantize.dequantize_pool
+    refresh_b = _batched_method(precond, "refresh")
+    precondition_b = _batched_method(precond, "precondition")
 
     def index_of(tensors) -> pool.PoolIndex:
-        return pool.build_index(tuple(tuple(t.shape) for t in tensors),
-                                cfg.block_size)
+        return pool.build_index(
+            tuple(tuple(t.shape) for t in tensors), cfg.block_size,
+            vectors_as_columns=cfg.treat_vectors_as_columns)
 
     def init_fn(params):
         index = index_of(params)
@@ -138,7 +192,8 @@ def scale_by_preconditioner(precond, cfg: EngineConfig = EngineConfig()
                     stats=quantize.quantize_leaf_state(zeros, qdtype),
                     graft=None))
             else:
-                leaves.append(LeafState(stats=None, graft=zeros))
+                leaves.append(LeafState(
+                    stats=None, graft=None if cfg.graft == "none" else zeros))
         return PrecondState(count=0, pools=pools, leaves=tuple(leaves))
 
     def update_fn(updates, state, params=None):
@@ -158,12 +213,12 @@ def scale_by_preconditioner(precond, cfg: EngineConfig = EngineConfig()
         for grp in index.groups:
             raw = pool_compute(state.pools[grp.key])
             if due:
-                raw = precond.refresh_batched(raw, packed[grp.key])
+                raw = refresh_b(raw, packed[grp.key])
             raws[grp.key] = raw
         pooled_dirs, pools = {}, {}
         for gi, grp in enumerate(index.groups):
-            pooled_dirs[grp.key] = precond.precondition_batched(
-                raws[grp.key], packed[grp.key])
+            pooled_dirs[grp.key] = precondition_b(raws[grp.key],
+                                                  packed[grp.key])
             pools[grp.key] = quantize.requantize_pool(
                 state.pools[grp.key], raws[grp.key],
                 key=quantize.fold_in(qkey, gi))
@@ -184,10 +239,11 @@ def scale_by_preconditioner(precond, cfg: EngineConfig = EngineConfig()
 
             direction = pool.unpack_leaf(index, pooled_dirs, i)
             graft_dir, new_graft = graft_direction(
-                gi, leaf.graft, beta2=cfg.beta2)
-            pnorm = torch.linalg.norm(direction)
-            gnorm = torch.linalg.norm(graft_dir)
-            direction = direction * (gnorm / (pnorm + 1e-16))
+                gi, leaf.graft, graft=cfg.graft, beta2=cfg.beta2)
+            if cfg.graft != "none":
+                pnorm = torch.linalg.norm(direction)
+                gnorm = torch.linalg.norm(graft_dir)
+                direction = direction * (gnorm / (pnorm + 1e-16))
             if count < cfg.start_preconditioning_step:
                 direction = graft_dir
             out.append(direction.to(g.dtype))
@@ -197,6 +253,17 @@ def scale_by_preconditioner(precond, cfg: EngineConfig = EngineConfig()
                                  leaves=tuple(leaves))
 
     return GradientTransformation(init_fn, update_fn)
+
+
+def pool_stats(state: PrecondState, key: Optional[str] = None) -> Any:
+    """The f32 stats stack of one pool group (default: the only group),
+    dequantized from its storage layout."""
+    if key is None:
+        if len(state.pools) != 1:
+            raise ValueError(f"state has {len(state.pools)} pools "
+                             f"{sorted(state.pools)}; pass an explicit key")
+        key = next(iter(state.pools))
+    return quantize.dequantize_pool(state.pools[key])
 
 
 def second_moment_bytes(state: Any) -> int:
@@ -275,3 +342,20 @@ def inject_hyperparams(inner_factory: Callable[..., GradientTransformation]):
         return GradientTransformation(init_fn, update_fn)
 
     return make
+
+
+def set_hyperparams(state: InjectState, **overrides) -> InjectState:
+    """The state with stored hyperparameter values replaced (serve-time
+    lr/beta2 changes without rebuilding the chain): they take effect on the
+    next update.  Schedule-driven values are recomputed from the step count
+    each update.  KeyError on an unknown name."""
+    hp = dict(state.hyperparams)
+    for k, v in overrides.items():
+        if k not in hp:
+            raise KeyError(f"unknown hyperparameter {k!r}; have {list(hp)}")
+        hp[k] = torch.as_tensor(v, dtype=hp[k].dtype)
+    return state._replace(hyperparams=hp)
+
+
+def get_hyperparams(state: InjectState) -> dict:
+    return dict(state.hyperparams)

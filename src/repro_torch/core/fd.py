@@ -1,18 +1,21 @@
-"""Frequent Directions sketches over packed pool stacks (port of
-repro/core/fd.py, unmasked).
+"""Frequent Directions sketches (port of repro/core/fd.py, unmasked).
 
 A sketch of the PSD stream ``G_t = sum_s beta2^{t-s} A_s A_s^T`` is kept in
 eigenpair form ``(U, s, rho)``: ``U (d, ell)`` orthonormal columns, ``s``
 descending eigenvalues with ``s[-1] == 0`` after deflation, and ``rho`` the
 escaped mass behind the ``rho * I`` compensation.  Each update
 eigendecomposes the small (ell+r) x (ell+r) Gram of ``M = [sqrt(beta2) B, A]``
-instead of anything d x d.  Every function here works on a whole pool
-stack: leaves carry a leading pool dim N.
+instead of anything d x d.  The ``*_batched`` functions work on a whole pool
+stack (leaves carry a leading pool dim N); ``fd_update`` and
+``fd_apply_inverse_root`` on one unbatched sketch, the serving path's
+monitor and S-AdaGrad over a flattened head.  The read-outs
+(``fd_pressure``, ``fd_leading_eigval``, ``fd_subspace_angle``) take either.
 
 The Gram and the low-rank apply go through the device-dispatching kernel
 set of kernels/registry.py: the Hopper kernels for CUDA tensors, the plain
-versions for CPU tensors.  ``eigh`` is
-``torch.linalg.eigh``, a library call in both packages.
+versions for CPU tensors; the single-block entries use the kernels that
+split over d.  ``eigh`` is ``torch.linalg.eigh`` and ``svdvals``
+``torch.linalg.svdvals``, library calls in both packages.
 
 The eigenvector stack may arrive as an int8 ``QuantizedPool`` (the engine's
 fused int8 path, core/api.py): then the refresh Gram, the eigenvector
@@ -21,7 +24,7 @@ entries, and no f32 eigenvector stack is formed.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -30,20 +33,43 @@ from repro_torch.kernels.registry import KERNELS
 
 
 class FDState(NamedTuple):
-    eigvecs: torch.Tensor  # (N, d, ell) approximate top eigenvectors U
-    eigvals: torch.Tensor  # (N, ell) deflated eigenvalues, descending
-    rho: torch.Tensor      # (N,) accumulated escaped mass
+    eigvecs: torch.Tensor  # ([N,] d, ell) approximate top eigenvectors U
+    eigvals: torch.Tensor  # ([N,] ell) deflated eigenvalues, descending
+    rho: torch.Tensor      # ([N]) accumulated escaped mass
 
 
-def fd_init(d: int, ell: int, dtype=torch.float32, *, num_blocks: int = 1,
-            device="cpu") -> FDState:
-    """Zero sketch stack of ``num_blocks`` blocks of dim ``d``, rank
-    ``min(ell, d)``."""
+def fd_init(d: int, ell: int, dtype=torch.float32, *,
+            num_blocks: Optional[int] = None, device="cpu") -> FDState:
+    """Zero sketch of dim ``d`` and rank ``min(ell, d)``: one unbatched
+    sketch, or a stack of ``num_blocks``."""
     ell = min(ell, d)
+    lead = () if num_blocks is None else (num_blocks,)
     return FDState(
-        eigvecs=torch.zeros((num_blocks, d, ell), dtype=dtype, device=device),
-        eigvals=torch.zeros((num_blocks, ell), dtype=dtype, device=device),
-        rho=torch.zeros((num_blocks,), dtype=dtype, device=device))
+        eigvecs=torch.zeros(lead + (d, ell), dtype=dtype, device=device),
+        eigvals=torch.zeros(lead + (ell,), dtype=dtype, device=device),
+        rho=torch.zeros(lead, dtype=dtype, device=device))
+
+
+def fd_update(state: FDState, new_factor: torch.Tensor,
+              beta2=1.0) -> FDState:
+    """One FD step of an unbatched sketch on the PSD increment
+    ``new_factor @ new_factor.T`` (new_factor (d, r), or (d,) for r = 1).
+    The Gram of ``M`` (d, ell + r) goes through ``KERNELS.gram``."""
+    U, s, rho = state
+    ell = U.shape[-1]
+    if new_factor.ndim == 1:
+        new_factor = new_factor[:, None]
+    compute_dtype = torch.promote_types(U.dtype, torch.float32)
+
+    s_clamped = torch.clamp(beta2 * s.to(compute_dtype), min=0.0)
+    B = U.to(compute_dtype) * torch.sqrt(s_clamped)[None, :]
+    M = torch.cat([B, new_factor.to(compute_dtype)], dim=1)
+
+    lam_top, rho_t, V, inv_sqrt = _top_eigenpairs(KERNELS.gram(M), ell)
+    U_new = torch.matmul(M, V[:, :ell]) * inv_sqrt[None, :]
+    return FDState(eigvecs=U_new.to(U.dtype),
+                   eigvals=(lam_top - rho_t).to(s.dtype),   # last entry 0
+                   rho=(beta2 * rho + rho_t).to(rho.dtype))
 
 
 def fd_update_batched(state: FDState, new_factor: torch.Tensor,
@@ -138,10 +164,57 @@ def _eigh(C: torch.Tensor):
         torch.set_flush_denormal(False)
 
 
+def fd_pressure(state: FDState) -> torch.Tensor:
+    """Escaped-mass ratio ``rho / (trace + rho)`` in [0, 1]: near 0 the
+    leading-``ell`` subspace holds the stream, near 1 the mass escapes past
+    the sketch rank.  A stack gives one ratio per block."""
+    trace = torch.sum(state.eigvals.float(), dim=-1)
+    rho = state.rho.float()
+    return rho / torch.clamp(trace + rho, min=1e-30)
+
+
+def fd_leading_eigval(state: FDState, *, compensated: bool = True
+                      ) -> torch.Tensor:
+    """Top eigenvalue of the sketched covariance: ``s[0] + rho`` (the
+    rho-compensated estimate the preconditioner applies), or the raw ladder
+    top ``s[0]`` without ``compensated``."""
+    top = state.eigvals[..., 0].float()
+    if compensated:
+        top = top + state.rho.float()
+    return top
+
+
+def fd_subspace_angle(a, b, k: Optional[int] = None) -> torch.Tensor:
+    """Largest principal angle (radians) between the leading-``k`` sketch
+    subspaces of ``a`` and ``b`` (FDState or (d, ell) eigenvector
+    tensors): ``arccos(sigma_min(Ua^T Ub))``, 0 when they coincide, pi/2
+    when a direction of one is orthogonal to all of the other.  ``k``
+    defaults to ``ell - 1`` (the deflated last column is zero)."""
+    Ua = a.eigvecs if isinstance(a, FDState) else a
+    Ub = b.eigvecs if isinstance(b, FDState) else b
+    if k is None:
+        k = max(Ua.shape[-1] - 1, 1)
+    k = min(k, Ua.shape[-1], Ub.shape[-1])
+    C = Ua[..., :k].float().mT @ Ub[..., :k].float()
+    sv = torch.linalg.svdvals(C)
+    return torch.arccos(torch.clamp(torch.min(sv, dim=-1).values, 0.0, 1.0))
+
+
+def fd_covariance(state: FDState, include_rho: bool = False) -> torch.Tensor:
+    """The sketched covariance ``U diag(s) U^T`` (+ ``rho I``) of an
+    unbatched sketch, d x d (testing and analysis only)."""
+    U, s, rho = state
+    cov = (U * s[None, :]) @ U.T
+    if include_rho:
+        cov = cov + rho * torch.eye(U.shape[0], dtype=cov.dtype,
+                                    device=cov.device)
+    return cov
+
+
 def fd_inverse_root_coeffs(state: FDState, *, exponent: float, eps: float
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """(base, coeffs) with ``(U diag(s) U^T + (rho+eps) I)^exponent G =
-    base G + U diag(coeffs) U^T G``: base (N,), coeffs (N, ell).
+    base G + U diag(coeffs) U^T G``: base ([N]), coeffs ([N,] ell).
 
     Moore-Penrose semantics (paper Alg. 2): with no diagonal mass,
     directions outside span(U) map to 0."""
@@ -155,6 +228,15 @@ def fd_inverse_root_coeffs(state: FDState, *, exponent: float, eps: float
                          torch.pow(torch.clamp(lam, min=tol), exponent),
                          0.0) - base[..., None]
     return base, coeffs
+
+
+def fd_apply_inverse_root(state: FDState, G: torch.Tensor, *,
+                          exponent: float, eps: float) -> torch.Tensor:
+    """``(sketch + (rho+eps) I)^exponent @ G`` for an unbatched sketch,
+    without forming d x d: G (d, n) -> (d, n), through
+    ``KERNELS.lowrank_apply`` (which reads G row-major)."""
+    base, coeffs = fd_inverse_root_coeffs(state, exponent=exponent, eps=eps)
+    return KERNELS.lowrank_apply(state.eigvecs, coeffs, base, G.contiguous())
 
 
 def fd_apply_inverse_root_batched(state: FDState, G: torch.Tensor, *,

@@ -50,12 +50,16 @@ class PoolIndex:
 
 
 @functools.lru_cache(maxsize=None)
-def build_index(shapes: tuple, block_size: int = 1024) -> PoolIndex:
+def build_index(shapes: tuple, block_size: int = 1024, *,
+                vectors_as_columns: bool = False) -> PoolIndex:
     """Group every matrix leaf's blocks by block shape.  ``shapes`` are the
     flat parameter shapes in canonical order; 'diag' leaves get a plan with
-    ``group=None``."""
+    ``group=None``.  ``vectors_as_columns`` makes 1-D leaves (d, 1) blocks
+    (``blocking.analyze_leaf``)."""
     members: dict = {}               # key -> list[(leaf_id, num_blocks)]
-    infos = [blocking.analyze_leaf(tuple(s), block_size) for s in shapes]
+    infos = [blocking.analyze_leaf(tuple(s), block_size,
+                                   vectors_as_columns=vectors_as_columns)
+             for s in shapes]
     for i, info in enumerate(infos):
         if info.kind == "matrix":
             members.setdefault(group_key(info.bs_m, info.bs_n), []).append(

@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 # C entry points of each library: library -> {function: argtypes}
 SIGNATURES = {
     "gram": {
@@ -37,6 +38,13 @@ SIGNATURES = {
     "lowrank": {
         "repro_batched_lowrank_apply":
             [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "gram_tall": {
+        "repro_gram_tall": [_P, _P, _P, _LL, _I, _I, _I, _LL, _P],
+    },
+    "lowrank_tall": {
+        "repro_lowrank_tall":
+            [_P, _P, _P, _P, _I, _P, _P, _P, _LL, _I, _I, _I, _LL, _P],
     },
     "project_quantize": {
         "repro_batched_project_quantize":

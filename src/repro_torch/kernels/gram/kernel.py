@@ -1,23 +1,31 @@
-"""Wrappers of the hand-written Hopper Gram kernels (csrc/gram.cu).
+"""Wrappers of the hand-written Hopper Gram kernels (csrc/gram.cu,
+csrc/gram_tall.cu).
 
-``batched_gram`` replaces repro/kernels/gram/kernel.py::batched_gram_pallas
-and ``batched_gram_mixed`` replaces ::batched_gram_mixed_pallas.  The
-wrappers take CUDA tensors only (the registry sends CPU tensors to
-``ref.py``), check what the kernel accepts, allocate the output, launch on
-the current stream and raise on a launch error.  ``launches`` and
-``mixed_launches`` count each wrapper's launches, so a run can show that its
-Grams went through the kernels.
+``batched_gram`` replaces repro/kernels/gram/kernel.py::batched_gram_pallas,
+``batched_gram_mixed`` replaces ::batched_gram_mixed_pallas and ``gram``
+(the single-block Gram of one tall matrix, split over d) replaces
+::gram_pallas.  The wrappers take CUDA tensors only (the registry sends CPU
+tensors to ``ref.py``), check what the kernel accepts, allocate the output
+and the kernel's scratch, launch on the current stream and raise on a
+launch error.  ``launches``, ``mixed_launches`` and ``single_launches``
+count each wrapper's launches, so a run can show that its Grams went
+through the kernels.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, split_d
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SINGLE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_BLOCKS = 65535      # the grid's y dimension
+ROWS_MAX_K = 16         # csrc/gram_tall.cu kRowsMaxK: whole rows per thread
 launches = 0
 mixed_launches = 0
+single_launches = 0
 
 
 def _check_stack(name: str, t: torch.Tensor, device) -> None:
@@ -90,3 +98,35 @@ def batched_gram_mixed(vq: torch.Tensor, colw: torch.Tensor,
     w = torch.cat([colw, torch.ones((N, r), dtype=torch.float32,
                                     device=a.device)], dim=1)
     return out * w[:, :, None] * w[:, None, :]
+
+
+def gram(a: torch.Tensor) -> torch.Tensor:
+    """C = A^T A for a contiguous CUDA (d, k) f32, bf16 or fp16 matrix; the
+    result is (k, k) f32, summed over slabs of d in a fixed order (the same
+    bits on every run).  An empty A returns zeros unlaunched."""
+    global single_launches
+    if a.dtype not in SINGLE_DTYPES:
+        raise TypeError(f"gram kernel takes float32, bfloat16 or float16, "
+                        f"got {a.dtype}")
+    if a.device.type != "cuda":
+        raise ValueError(f"gram kernel needs a CUDA tensor, got {a.device}")
+    if a.ndim != 2 or not a.is_contiguous():
+        raise ValueError(f"gram kernel needs a contiguous (d, k) matrix, got "
+                         f"shape {tuple(a.shape)} strides {a.stride()}")
+    d, k = a.shape
+    out = torch.zeros((k, k), dtype=torch.float32, device=a.device)
+    if d == 0 or k == 0:
+        return out
+    # blocks per slab: one, or the cross product's (k / 8) x (k / 256) tiles
+    tiles = 1 if k <= ROWS_MAX_K else math.ceil(k / 8) * math.ceil(k / 256)
+    slabs, slab_rows = split_d.slabs(d, tiles, k * k)
+    partial = torch.empty((slabs, k, k), dtype=torch.float32,
+                          device=a.device)
+    err = build.launch(build.library("gram_tall").repro_gram_tall, a.device,
+                       a.data_ptr(), partial.data_ptr(), out.data_ptr(), d, k,
+                       SINGLE_DTYPES[a.dtype], slabs, slab_rows)
+    if err != 0:
+        raise RuntimeError(f"gram kernel launch failed: CUDA error {err} at "
+                           f"shape {tuple(a.shape)} {a.dtype}")
+    single_launches += 1
+    return out

@@ -1,7 +1,14 @@
-"""Plain PyTorch versions of the batched Grams (mirror of
+"""Plain PyTorch versions of the Grams (mirror of
 repro/kernels/gram/ref.py): the CPU path of the registry and the references
 the CUDA kernels are held against on the card."""
 import torch
+
+
+def gram_ref(a: torch.Tensor) -> torch.Tensor:
+    """C = A^T A for a (d, k) matrix; f32 accumulation (float64 inputs stay
+    float64: the card holds the kernel against that)."""
+    a32 = a.to(torch.promote_types(a.dtype, torch.float32))
+    return a32.T @ a32
 
 
 def batched_gram_ref(a: torch.Tensor) -> torch.Tensor:

@@ -1,30 +1,39 @@
-"""Wrappers of the hand-written Hopper low-rank apply (csrc/lowrank.cu) and
-of the int8 FD write-back (csrc/project_quantize.cu).
+"""Wrappers of the hand-written Hopper low-rank applies (csrc/lowrank.cu,
+csrc/lowrank_tall.cu) and of the int8 FD write-back
+(csrc/project_quantize.cu).
 
 ``batched_lowrank_apply`` replaces
-repro/kernels/lowrank/kernel.py::batched_lowrank_apply_pallas and
-``batched_project_quantize`` replaces ::batched_project_quantize_pallas.
+repro/kernels/lowrank/kernel.py::batched_lowrank_apply_pallas,
+``lowrank_apply`` (the apply of one tall factor, split over d) replaces
+::lowrank_apply_pallas and ``batched_project_quantize`` replaces
+::batched_project_quantize_pallas.
 The wrappers take CUDA tensors only (the registry sends CPU tensors to
 ``ref.py``), check what the kernels accept, allocate the outputs and the
 f32 scratch of the kernels' two passes, launch on the current stream and
 raise on a launch error.  Each counts the calls that launched (one per call,
 for both passes): ``launches`` the apply with an f32 U, ``int8_launches``
-the apply with an int8 U (the fused int8 path), and
-``project_quantize_launches`` the write-back.
+the apply with an int8 U (the fused int8 path), ``single_launches`` the
+single-block apply, and ``project_quantize_launches`` the write-back.
 
 G must be contiguous.  The right-side apply of Sketchy sees a transposed
 view; its caller makes the copy (core/fd.py fd_apply_inverse_root_batched).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, split_d
 
 U_DTYPES = {torch.float32: 0, torch.int8: 2}
+G_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_BLOCKS = 65535      # the grid's z / y dimension
+MAX_ELL = 1024          # the single-block expand pass holds P's tile in
+                        # shared memory: ell * 8 f32
 launches = 0
 int8_launches = 0
+single_launches = 0
 project_quantize_launches = 0
 
 
@@ -86,6 +95,57 @@ def batched_lowrank_apply(u: torch.Tensor, coeffs: torch.Tensor,
         int8_launches += 1
     else:
         launches += 1
+    return out
+
+
+def lowrank_apply(u: torch.Tensor, coeffs: torch.Tensor, base,
+                  g: torch.Tensor) -> torch.Tensor:
+    """Y = base G + U diag(coeffs) U^T G for one tall factor on the card:
+    u (d, ell) and coeffs (ell,) f32, base an f32 scalar (a tensor on the
+    card or a number), g (d, n) f32, bf16 or fp16 -> (d, n) in g's dtype.
+    The projection is summed over slabs of d in a fixed order (the same
+    bits on every run).  An empty result returns unlaunched."""
+    global single_launches
+    base = torch.as_tensor(base, dtype=torch.float32,
+                           device=g.device).reshape(())
+    _check("lowrank_apply", {"u": u, "coeffs": coeffs, "base": base, "g": g},
+           g.device)
+    if u.dtype != torch.float32 or coeffs.dtype != torch.float32:
+        raise TypeError(f"lowrank_apply kernel takes float32 u and coeffs; "
+                        f"got {u.dtype}, {coeffs.dtype}")
+    if g.dtype not in G_DTYPES:
+        raise TypeError(f"lowrank_apply kernel takes a float32, bfloat16 or "
+                        f"float16 g; g is {g.dtype}")
+    if u.ndim != 2 or g.ndim != 2:
+        raise ValueError(f"u and g must be 2-D, got {tuple(u.shape)}, "
+                         f"{tuple(g.shape)}")
+    d, ell = u.shape
+    n = g.shape[1]
+    if g.shape[0] != d or coeffs.shape != (ell,):
+        raise ValueError(f"shape mismatch: u {tuple(u.shape)}, coeffs "
+                         f"{tuple(coeffs.shape)}, g {tuple(g.shape)}")
+    if not 0 < ell <= MAX_ELL:
+        raise ValueError(f"lowrank_apply kernel takes 0 < ell <= {MAX_ELL}, "
+                         f"got {ell}")
+    out = torch.empty_like(g)
+    if out.numel() == 0:
+        return out
+    # blocks per slab: the cross product's (n / 8) x (ell / 256) tiles
+    slabs, slab_rows = split_d.slabs(
+        d, math.ceil(n / 8) * math.ceil(ell / 256), ell * n)
+    partial = torch.empty((slabs, ell, n), dtype=torch.float32,
+                          device=g.device)
+    p = torch.empty((ell, n), dtype=torch.float32, device=g.device)
+    err = build.launch(build.library("lowrank_tall").repro_lowrank_tall,
+                       g.device, u.data_ptr(), coeffs.data_ptr(),
+                       base.data_ptr(), g.data_ptr(), G_DTYPES[g.dtype],
+                       partial.data_ptr(), p.data_ptr(), out.data_ptr(), d,
+                       ell, n, slabs, slab_rows)
+    if err != 0:
+        raise RuntimeError(f"lowrank_apply kernel launch failed: CUDA error "
+                           f"{err} at u {tuple(u.shape)}, g {tuple(g.shape)} "
+                           f"{g.dtype}")
+    single_launches += 1
     return out
 
 

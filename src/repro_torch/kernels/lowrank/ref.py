@@ -7,6 +7,20 @@ import torch
 from repro_torch.core import quantize
 
 
+def lowrank_apply_ref(u: torch.Tensor, coeffs: torch.Tensor, base,
+                      g: torch.Tensor) -> torch.Tensor:
+    """Y = base G + U diag(coeffs) U^T G for one block: u (d, ell), coeffs
+    (ell,), base a scalar, g (d, n) -> (d, n) in g's dtype.  Both products
+    accumulate in f32, as the kernel does (float64 inputs stay float64: the
+    card holds the kernel against that)."""
+    dt = torch.promote_types(torch.promote_types(u.dtype, g.dtype),
+                             torch.float32)
+    u32, g32 = u.to(dt), g.to(dt)
+    proj = u32.T @ g32
+    out = base * g32 + u32 @ (coeffs.to(dt)[:, None] * proj)
+    return out.to(g.dtype)
+
+
 def batched_lowrank_apply_ref(u: torch.Tensor, coeffs: torch.Tensor,
                               base: torch.Tensor,
                               g: torch.Tensor) -> torch.Tensor:

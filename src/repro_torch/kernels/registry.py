@@ -1,15 +1,23 @@
 """The optimizer hot path's kernel set, dispatched on the tensor's device.
 
 Port of repro/kernels/registry.py (``KernelSet`` :52) with the entries the
-Sketchy training step uses.  There is no backend choice: a CUDA tensor
-launches the hand-written Hopper kernel (which raises if it cannot build or
-launch), a CPU tensor takes the plain PyTorch version, and any other device
-raises.  Nothing falls back from the kernel to the plain version.
+Sketchy training step and the serving path use.  There is no backend
+choice: a CUDA tensor launches the hand-written Hopper kernel (which raises
+if it cannot build or launch), a CPU tensor takes the plain PyTorch
+version, and any other device raises.  Nothing falls back from the kernel
+to the plain version.
 
+    gram(a):                              (d, k) -> (k, k) f32
     batched_gram(a):                      (N, d, k) -> (N, k, k) f32
     batched_lowrank_apply(u, c, b, g):    (N, d, ell), (N, ell), (N,),
                                           (N, d, n) -> (N, d, n), g's dtype
                                           (the card takes an f32 or int8 u)
+    lowrank_apply(u, c, b, g):            (d, ell), (ell,), (), (d, n)
+                                          -> (d, n), g's dtype
+
+The single-block entries serve one tall matrix (the FD sketches of the
+serving path: the gradient monitor and S-AdaGrad over the flattened head);
+their kernels split the reduction over d.
 
 Fused entries of int8 second-moment storage (core/quantize.py):
 
@@ -36,6 +44,8 @@ from repro_torch.kernels.lowrank import ref as lowrank_ref
 
 
 class KernelSet(NamedTuple):
+    gram: Callable
+    lowrank_apply: Callable
     batched_gram: Callable
     batched_lowrank_apply: Callable
     batched_gram_mixed: Callable
@@ -49,6 +59,16 @@ def _route(t: torch.Tensor, on_card: Callable, on_cpu: Callable) -> Callable:
     if t.device.type == "cpu":
         return on_cpu
     raise ValueError(f"no kernel for device {t.device}")
+
+
+def gram(a: torch.Tensor) -> torch.Tensor:
+    return _route(a, gram_kernel.gram, gram_ref.gram_ref)(a)
+
+
+def lowrank_apply(u: torch.Tensor, coeffs: torch.Tensor, base,
+                  g: torch.Tensor) -> torch.Tensor:
+    fn = _route(g, lowrank_kernel.lowrank_apply, lowrank_ref.lowrank_apply_ref)
+    return fn(u, coeffs, base, g)
 
 
 def batched_gram(a: torch.Tensor) -> torch.Tensor:
@@ -97,6 +117,8 @@ def batched_project_quantize(vq: torch.Tensor, w_top: torch.Tensor,
 
 
 KERNELS = KernelSet(
+    gram=gram,
+    lowrank_apply=lowrank_apply,
     batched_gram=batched_gram,
     batched_lowrank_apply=batched_lowrank_apply,
     batched_gram_mixed=batched_gram_mixed,

@@ -1,7 +1,8 @@
-"""Training-path attention: GQA with q-chunked causal softmax in f32 (port
-of repro/models/attention.py ``causal_attention`` :167, in plain tensor ops
-as the reference writes it).  Queries are grouped (B, S, KV, G, hd), so KV
-heads are never repeated in memory."""
+"""Attention: GQA with q-chunked causal softmax in f32 for training (port
+of repro/models/attention.py ``causal_attention`` :167) and one-token
+decode against a cache for serving (``attention_decode`` :207), in plain
+tensor ops as the reference writes them.  Queries are grouped
+(B, S, KV, G, hd), so KV heads are never repeated in memory."""
 from __future__ import annotations
 
 import torch
@@ -30,15 +31,21 @@ def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions):
 
 
 def _attend(q_chunk: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            q_start: int) -> torch.Tensor:
+            q_start) -> torch.Tensor:
     """One q chunk (B, cq, KV, G, hd) against the causal prefix of k, v
-    (B, S, KV, hd), with an f32 softmax."""
+    (B, S, KV, hd), with an f32 softmax.  ``q_start`` is an int, or a (B,)
+    tensor of per-lane positions (continuous-batching decode)."""
     cq, hd = q_chunk.shape[1], q_chunk.shape[-1]
     S = k.shape[1]
     s = torch.einsum("bqkgd,bskd->bkgqs", q_chunk.float() * hd ** -0.5,
                      k.float())
-    q_pos = q_start + torch.arange(cq, device=k.device)
-    mask = q_pos[:, None] >= torch.arange(S, device=k.device)[None, :]
+    k_pos = torch.arange(S, device=k.device)
+    if isinstance(q_start, torch.Tensor):          # per-lane positions
+        q_pos = q_start[:, None] + torch.arange(cq, device=k.device)
+        mask = (q_pos[:, :, None] >= k_pos)[:, None, None]  # (B,1,1,cq,S)
+    else:
+        q_pos = q_start + torch.arange(cq, device=k.device)
+        mask = q_pos[:, None] >= k_pos[None, :]
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
@@ -68,3 +75,25 @@ def attention_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
     q, k, v = _project_qkv(cfg, p, x, positions)
     out = causal_attention(cfg, q, k, v)
     return torch.matmul(out.reshape(B, S, -1), p["wo"])
+
+
+def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor,
+                     pos) -> torch.Tensor:
+    """One-token decode: x (B, 1, D), cache_k/v (B, Smax, KV, hd), ``pos``
+    an int shared by every lane or a (B,) long tensor of per-lane positions
+    (each lane's cache write, RoPE phase and causal mask follow its own
+    position).  Writes this token's k, v into the caches in place (the
+    reference returns new caches) and returns the sublayer output
+    (B, 1, D)."""
+    B = x.shape[0]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.full((B,), pos, dtype=torch.long, device=x.device)
+    q, k, v = _project_qkv(cfg, p, x, pos[:, None])
+    lanes = torch.arange(B, device=x.device)
+    cache_k[lanes, pos] = k[:, 0].to(cache_k.dtype)
+    cache_v[lanes, pos] = v[:, 0].to(cache_v.dtype)
+    qg = q.reshape(B, 1, KV, H // KV, hd)
+    out = _attend(qg, cache_k, cache_v, pos)
+    return torch.matmul(out.reshape(B, 1, H * hd), p["wo"])

@@ -1,6 +1,6 @@
 """The dense LM: embeddings -> layer stack -> head (port of the dense family
-of repro/models/model.py: ``forward`` :250, ``project_logits`` :281,
-``loss_fn`` :292).
+of repro/models/model.py: ``embed_tokens`` :225, ``forward`` :250,
+``project_logits`` :281, ``loss_fn`` :292).
 
 Parameters are a nested dict of tensors in the reference's layout, layer
 weights stacked on a leading (L, ...) dim, so blocking and pooling see the
@@ -83,19 +83,26 @@ def _dense_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return x + gated_mlp(cfg, p["mlp"], h)
 
 
-def _layer(stacked: dict, i: int) -> dict:
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+def layer(stacked: dict, i: int) -> dict:
+    """Layer ``i``'s parameters out of the stacked (L, ...) layer tree."""
+    return {k: layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in stacked.items()}
+
+
+def embed_tokens(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
+    """Embeddings (B, S, D) of ``batch["tokens"]`` (B, S), in the model's
+    dtype."""
+    return params["embed"][batch["tokens"]].to(DTYPES[cfg.dtype])
 
 
 def forward(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     """Logits (B, S, V) for ``batch["tokens"]`` (B, S)."""
     check_supported(cfg)
-    x = params["embed"][batch["tokens"]].to(DTYPES[cfg.dtype])
+    x = embed_tokens(cfg, params, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     for i in range(cfg.num_layers):
-        p_i = _layer(params["layers"], i)
+        p_i = layer(params["layers"], i)
         if cfg.remat and torch.is_grad_enabled():
             x = torch.utils.checkpoint.checkpoint(
                 _dense_block, cfg, p_i, x, positions, use_reentrant=False)

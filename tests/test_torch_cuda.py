@@ -5,7 +5,11 @@ one; the file imports no JAX, so it runs where only PyTorch is installed:
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerances as in tests/test_torch_kernels.py: f32 ``atol = 1e-4 * sqrt(d)``,
-``rtol = 1e-5``; bf16 inputs (Gram only) 10x that.  The int8 write-back's
+``rtol = 1e-5``; bf16 inputs (Gram only) 10x that.  The single-block Gram
+and apply (split over d) take f32, bf16 and fp16 and are held to the same
+tolerances (a half-precision apply result also one rounding step of its
+dtype), and two runs on the same inputs must give the same bits: their
+partial sums are added in a fixed order.  The int8 write-back's
 scales agree to ``rtol = 1e-5`` (the absmax of U_new summed in another
 order), and a value may differ by 1, only where the plain version's
 U_new / scale lies within 1e-3 of a step of a .5 boundary (a few hundred
@@ -182,3 +186,85 @@ def test_int8_wrappers_reject_what_they_do_not_take(card):
     v, s = lowrank_kernel.batched_project_quantize(vq[:0], w_top[:0], a[:0],
                                                    w_bot[:0])
     assert v.shape == (0, 8, 3) and s.shape == (0, 1, 1)
+
+
+SINGLE = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+
+
+def _single_tol(d: int, dtype: str) -> dict:
+    return _tol(d, "float32" if dtype == "float32" else "bfloat16")
+
+
+# (d, k): ragged, the rows path's bounds (k = 1, 16), the tiled path
+# (k = 17, 30, 300), and tall ones (the serving shape's k = 9)
+GRAM_SINGLE = [(1, 1), (33, 9), (100, 16), (100, 17), (70, 30), (513, 300),
+               (4096, 9), (1_000_003, 9), (25_165_824, 9)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,k", GRAM_SINGLE)
+@pytest.mark.parametrize("dtype", list(SINGLE))
+def test_single_gram_kernel_matches_plain_on_card(card, d, k, dtype):
+    from repro_torch.kernels.gram import kernel
+    gen = torch.Generator(device=card).manual_seed(d + k)
+    a = torch.randn(d, k, generator=gen, device=card).to(SINGLE[dtype])
+    before = kernel.single_launches
+    got = kernel.gram(a)
+    again = kernel.gram(a)
+    torch.cuda.synchronize()
+    assert kernel.single_launches == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, gram_ref.gram_ref(a),
+                               **_single_tol(d, dtype))
+
+
+LOWRANK_SINGLE = [(1, 1, 1), (24, 6, 1), (123, 17, 5), (70, 8, 9),
+                  (1000, 300, 3), (4096, 8, 1), (25_165_824, 8, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,ell,n", LOWRANK_SINGLE)
+@pytest.mark.parametrize("dtype", list(SINGLE))
+def test_single_lowrank_kernel_matches_plain_on_card(card, d, ell, n, dtype):
+    from repro_torch.kernels.lowrank import kernel
+    gen = torch.Generator(device=card).manual_seed(d + ell + n)
+    u = torch.randn(d, ell, generator=gen, device=card)
+    g = torch.randn(d, n, generator=gen, device=card).to(SINGLE[dtype])
+    coeffs = torch.rand(ell, generator=gen, device=card)
+    base = torch.rand((), generator=gen, device=card)
+    before = kernel.single_launches
+    got = kernel.lowrank_apply(u, coeffs, base, g)
+    again = kernel.lowrank_apply(u, coeffs, base, g)
+    torch.cuda.synchronize()
+    assert kernel.single_launches == before + 2
+    assert got.dtype == g.dtype and torch.equal(got, again)
+    tol = _single_tol(d, dtype)
+    if dtype != "float32":
+        tol["rtol"] = max(tol["rtol"], torch.finfo(g.dtype).eps)
+    torch.testing.assert_close(
+        got.float(),
+        lowrank_ref.lowrank_apply_ref(u, coeffs, base, g).float(), **tol)
+
+
+@pytest.mark.cuda
+def test_single_wrappers_reject_what_they_do_not_take(card):
+    from repro_torch.kernels.gram import kernel as gram_kernel
+    from repro_torch.kernels.lowrank import kernel as lowrank_kernel
+    a = torch.zeros(8, 4, device=card)
+    with pytest.raises(TypeError):
+        gram_kernel.gram(a.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        gram_kernel.gram(a.T)
+    with pytest.raises(ValueError, match="CUDA"):
+        gram_kernel.gram(a.cpu())
+    assert torch.equal(gram_kernel.gram(a[:0]), torch.zeros(4, 4,
+                                                            device=card))
+    u, g = torch.zeros(8, 3, device=card), torch.zeros(8, 2, device=card)
+    c = torch.zeros(3, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        lowrank_kernel.lowrank_apply(u, c, 1.0, g.T.contiguous().T)
+    with pytest.raises(TypeError, match="float32"):
+        lowrank_kernel.lowrank_apply(u.bfloat16(), c, 1.0, g)
+    with pytest.raises(ValueError, match="shape"):
+        lowrank_kernel.lowrank_apply(u, c[:2], 1.0, g)

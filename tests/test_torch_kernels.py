@@ -1,9 +1,11 @@
 """The port's kernel entries against the JAX Pallas kernels.
 
 On the CPU the port's entries are the plain PyTorch versions; they are held
-against ``batched_gram_pallas`` / ``batched_lowrank_apply_pallas`` run in
-interpret mode, over the ragged shapes of tests/test_kernels.py, in f32 and
-bf16, with empty pools; and the int8 entries against
+against ``batched_gram_pallas`` / ``batched_lowrank_apply_pallas`` (and the
+single-block ``gram_pallas`` / ``lowrank_apply_pallas``, at ragged and tall
+(d, k) and (d, ell, n), in f32, bf16 and fp16) run in interpret mode, over
+the ragged shapes of tests/test_kernels.py, in f32 and bf16, with empty
+pools; and the int8 entries against
 ``batched_gram_mixed_pallas``, ``batched_project_quantize_pallas`` and the
 reference registry's scale-folded apply over ragged shapes with ell = 12
 (a 64-wide tile straddles the int8/f32 boundary), r = 1, d not a multiple
@@ -30,10 +32,11 @@ from torch_parity import torch_one_thread  # noqa: F401
 
 from repro.kernels import registry as jregistry
 from repro.kernels.gram.kernel import (batched_gram_mixed_pallas,
-                                       batched_gram_pallas)
+                                       batched_gram_pallas, gram_pallas)
 from repro.kernels.lowrank import ref as jlowrank_ref
 from repro.kernels.lowrank.kernel import (batched_lowrank_apply_pallas,
-                                          batched_project_quantize_pallas)
+                                          batched_project_quantize_pallas,
+                                          lowrank_apply_pallas)
 from repro_torch.kernels import registry
 from repro_torch.kernels.gram import ref as gram_ref
 
@@ -87,6 +90,53 @@ def test_batched_lowrank_matches_pallas(N, d, ell, n, bn_stack, dtype):
                                np.asarray(want, np.float32), **tol)
 
 
+SINGLE_DTYPES = dict(DTYPES, float16=(jnp.float16, torch.float16))
+
+
+@pytest.mark.parametrize("d,k", [(16, 4), (33, 9), (100, 30), (4096, 9),
+                                 (70, 1)])
+@pytest.mark.parametrize("dtype", list(SINGLE_DTYPES))
+def test_gram_matches_pallas(d, k, dtype):
+    """The single-block Gram (the monitor's and S-AdaGrad's refresh)."""
+    rng = np.random.default_rng(d * 10 + k)
+    x = rng.normal(size=(d, k)).astype(np.float32)
+    jdt, tdt = SINGLE_DTYPES[dtype]
+    want = gram_pallas(jnp.asarray(x, jdt), bk=16, bd=64)
+    got = registry.gram(torch.from_numpy(x).to(tdt))
+    assert got.dtype == torch.float32 and got.shape == (k, k)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **_tol(d, "float32" if dtype == "float32"
+                                      else "bfloat16"))
+
+
+@pytest.mark.parametrize("d,ell,n", [(32, 4, 8), (24, 6, 1), (123, 17, 5),
+                                     (4096, 8, 1)])
+@pytest.mark.parametrize("dtype", list(SINGLE_DTYPES))
+def test_lowrank_apply_matches_pallas(d, ell, n, dtype):
+    """The single-block apply (S-AdaGrad's precondition): f32 U and
+    coefficients, G and the result in ``dtype``.  A half-precision result
+    is also allowed one rounding step of its dtype (see the module
+    docstring)."""
+    rng = np.random.default_rng(d + ell + n)
+    u = rng.normal(size=(d, ell)).astype(np.float32)
+    g = rng.normal(size=(d, n)).astype(np.float32)
+    coeffs = rng.random(ell).astype(np.float32)
+    base = np.float32(rng.random())
+    jdt, tdt = SINGLE_DTYPES[dtype]
+    want = lowrank_apply_pallas(jnp.asarray(u), jnp.asarray(coeffs),
+                                jnp.asarray(base), jnp.asarray(g, jdt), bn=4)
+    got = registry.lowrank_apply(torch.from_numpy(u),
+                                 torch.from_numpy(coeffs),
+                                 torch.tensor(base),
+                                 torch.from_numpy(g).to(tdt))
+    assert got.dtype == tdt and got.shape == (d, n)
+    tol = _tol(d, "float32" if dtype == "float32" else "bfloat16")
+    if dtype != "float32":
+        tol["rtol"] = max(tol["rtol"], float(torch.finfo(tdt).eps))
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **tol)
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_empty_pool(dtype):
     """N = 0 gives empty results of the right shape, as in JAX."""
@@ -106,8 +156,15 @@ def test_registry_dispatches_on_device():
     a = torch.randn(2, 6, 3, generator=torch.Generator().manual_seed(0))
     torch.testing.assert_close(registry.batched_gram(a),
                                gram_ref.batched_gram_ref(a), rtol=0, atol=0)
+    torch.testing.assert_close(registry.gram(a[0]), gram_ref.gram_ref(a[0]),
+                               rtol=0, atol=0)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         registry.batched_gram(a.to("meta"))
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        registry.gram(a[0].to("meta"))
+    m = a[0].to("meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        registry.lowrank_apply(m, m[0], 1.0, m)
 
 
 # (N, d, ell, r): ell = 12 straddles the int8/f32 boundary inside one tile

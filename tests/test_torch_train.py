@@ -12,12 +12,14 @@ second-moment storage on the fused path it tracks the reference's fused
 run: loss ``rtol=1e-4`` and, per parameter, a difference under 0.02 of the
 change (stochastic rounding of the diagonal accumulators draws differently).
 (d) Importing every ``repro_torch`` module, and ``chip_smoke.py``, loads no
-JAX and nothing of ``repro``.  (e) The launcher raises without a card unless
+JAX and nothing of ``repro``, and no import statement in their sources
+names either.  (e) The launcher raises without a card unless
 asked for the CPU.
 """
 import dataclasses
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 
@@ -152,7 +154,22 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "repro_torch.launch.train" in modules
+    assert "repro_torch.launch.serve" in modules
     assert "repro_torch.kernels.build" in modules
+
+
+def test_port_sources_import_no_jax_and_nothing_of_repro():
+    """A grep of the sources, which also sees imports inside functions that
+    the import test above never runs."""
+    pkg = os.path.join(ROOT, "src", "repro_torch")
+    files = [os.path.join(dirpath, f) for dirpath, _, names in os.walk(pkg)
+             for f in names if f.endswith(".py")]
+    files.append(os.path.join(ROOT, "chip_smoke.py"))
+    bad_import = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
+    offenders = {f: bad_import.findall(open(f).read()) for f in files}
+    assert len(files) > 30
+    assert not {f: hits for f, hits in offenders.items() if hits}
 
 
 def test_launcher_needs_a_card_unless_asked_for_cpu():

@@ -16,12 +16,22 @@ def torch_one_thread():
     torch.set_num_threads(n)
 
 
-def assert_close_scaled(got, want, rtol=1e-4, atol_frac=1e-5):
-    """``rtol`` per entry, plus an absolute slack of ``atol_frac`` times the
-    largest magnitude of ``want``: the packages use different LAPACK
-    ``eigh``s and sum in different orders, so an entry that is a difference
-    of large terms carries an error proportional to those terms."""
+def ladder(state) -> float:
+    """The magnitude of a reference sketch's eigenvalue ladder: the larger
+    of max|eigvals| and max|rho| (the slack scale of ``rho``)."""
+    return max(float(np.abs(np.asarray(state.eigvals)).max()),
+               float(np.abs(np.asarray(state.rho)).max()))
+
+
+def assert_close_scaled(got, want, rtol=1e-4, atol_frac=1e-5, scale=None):
+    """``rtol`` per entry, plus an absolute slack of ``atol_frac`` times
+    ``scale``, by default the largest magnitude of ``want``: the packages
+    use different LAPACK ``eigh``s and sum in different orders, so an entry
+    that is a difference of large terms carries an error proportional to
+    those terms.  Pass ``scale`` where those terms are not in ``want``
+    itself (``rho`` is an eigenvalue of the ladder's Gram)."""
     want = np.asarray(want, np.float64)
-    scale = float(np.abs(want).max(initial=0.0))
+    if scale is None:
+        scale = float(np.abs(want).max(initial=0.0))
     np.testing.assert_allclose(np.asarray(got, np.float64), want, rtol=rtol,
                                atol=atol_frac * scale)
