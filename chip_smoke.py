@@ -12,7 +12,16 @@ no result line:
    storage for the Gram and the f32 apply, int8 storage for the mixed Gram,
    the int8 write-back and the int8 apply) and at a few ragged ones; timed
    with CUDA events beside the plain version, one library call as a
-   yardstick, and the least time the card could take (bound).
+   yardstick, and the least time the card could take (bound).  The
+   single-block Gram and apply (kernels 3 and 4) at the serving shapes
+   against their plain versions computed in float64, two runs giving the
+   same bits.  Flash attention (kernel 7) and the SSD chunk scan (kernel
+   8) at the dense training, zamba2-7b feedback and S = 4096 shapes
+   (FLASH_MAIN, SSD_MAIN; mamba2-370m's too for the scan) and the
+   reference's ragged sweeps, in f32 and bf16, at the reference's
+   tolerances and a relative error of the whole output (MODEL_RTOL), two
+   runs giving the same bits; attention timed beside
+   ``scaled_dot_product_attention`` (the scan has no single PyTorch call).
 3. eigh: ``torch.linalg.eigh`` over one refresh's 444 Grams (a library call
    in both packages, timed on its own).
 4. main paths: ``repro_torch.launch.train`` at full-width paper-lm-100m with
@@ -23,12 +32,15 @@ no result line:
    be finite and the last below the first.  fp32: 16 Grams (8 per refresh)
    and 96 f32 applies (8 per step), no int8 kernel.  int8: 16 mixed Grams,
    16 write-backs, 96 int8 applies, no f32 Gram or apply, and the
-   second-moment bytes of the JAX reference (24,661,092).
+   second-moment bytes of the JAX reference (24,661,092).  Both: 288 flash
+   attentions (TRAIN_FLASH_PER_STEP: 12 layers, each once in the forward
+   and once in the remat recompute of the backward, over 12 steps).
 5. profile: ``torch.profiler`` over one plain step of each run: device time
    by kernel and the device's idle share.
 6. reference: the reduced model trained 4 steps on the card (kernels) and on
    the CPU (plain versions) from the same weights gives the same losses,
-   with fp32 and with int8 storage.
+   with fp32 and with int8 storage; the card run launches the flash kernel
+   4 x 3 times (3 layers, no remat in the reduced config).
 7. serve: ``repro_torch.launch.serve`` at full-width paper-lm-100m
    (SERVE_ARGV: step traffic over 24 ticks, the FD gradient monitor over
    the flattened lm_head, d = 25,165,824, and S-AdaGrad head adaptation
@@ -37,19 +49,29 @@ no result line:
    just after.  The single-block Gram (kernel 3) must launch once per
    monitor observation and adaptation step, and at least once in the first
    run; the single-block apply (kernel 4) once per adaptation step, and at
-   least once in the second; no other kernel.  Every request must be served
-   in full.  Prints the inter-token latency p50/p99, tokens served, the
-   monitor's readings, adaptation steps, the monitor's ``observe`` and the
-   adaptation step times, and peak memory; then profiles one full-width
-   ``observe`` and one adaptation step (device time by kernel, idle share).
+   least once in the second; the flash kernel 12 times per feedback
+   gradient (one per tick and one per adaptation step; the untied head's
+   gradient stops at the head, so no recompute: ``per_gradient``); no other
+   kernel.  Every request must be served in full.  Prints the inter-token
+   latency p50/p99, tokens served, the monitor's readings, adaptation
+   steps, the monitor's ``observe`` and the adaptation step times, and
+   peak memory; then profiles one full-width ``observe`` and one
+   adaptation step (device time by kernel, idle share).
 8. serve reference: the reduced serve run with monitor and adaptation on
    the card (kernels) and on the CPU (plain versions) from the same weights
    gives the same greedy tokens and monitor decisions, and the same adapted
    head within SERVE_HEAD_RTOL.
-
-Phase 2 also holds the single-block Gram and apply (kernels 3 and 4) at the
-serving shapes against their plain versions computed in float64 on the
-card, and checks that two runs give the same bits.
+7b. serve zamba2-7b: ZAMBA_SERVE_ARGV at full width (81 Mamba2 layers, the
+   shared attention+MLP block at 14 sites, 6,636,442,832 bf16 parameters;
+   step traffic over 16 ticks; the monitor and the adapter over the
+   flattened tied embed, d = 114,688,000), counts as in phase 7.  Per
+   feedback gradient the flash kernel launches 28 times and the scan 162
+   (14 sites and 81 mamba layers, each in the forward and again in the
+   remat recompute: the tied embed's gradient flows back through every
+   layer); kernels 3, 4, 7 and 8 each at least once, no training kernel.
+   Then profiles one full-width feedback gradient.
+8b. serve reference of the reduced zamba2-7b and mamba2-370m, as phase 8,
+   the adapted leaf their tied embed.
 
 The last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
@@ -74,19 +96,29 @@ from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core import api, pool  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import registry as kernel_registry  # noqa: E402
+from repro_torch.kernels.flash import kernel as flash_kernel  # noqa: E402
+from repro_torch.kernels.flash import ref as flash_ref  # noqa: E402
 from repro_torch.kernels.gram import kernel as gram_kernel  # noqa: E402
 from repro_torch.kernels.gram import ref as gram_ref  # noqa: E402
 from repro_torch.kernels.lowrank import kernel as lowrank_kernel  # noqa: E402
 from repro_torch.kernels.lowrank import ref as lowrank_ref  # noqa: E402
+from repro_torch.kernels.ssd import kernel as ssd_kernel  # noqa: E402
+from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
 from repro_torch.launch import serve as serve_lib  # noqa: E402
 from repro_torch.launch import train as train_lib  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 
-# Published peaks of one H100 SXM (NVIDIA data sheet, at its 700 W limit):
-# device memory 3.35 TB/s; f32 outside the tensor cores 67 TFLOP/s.  Every
-# kernel multiply-adds in f32 FFMA (int8 inputs are upcast first).
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense, at its 700 W
+# limit): device memory 3.35 TB/s; f32 outside the tensor cores 67 TFLOP/s;
+# bf16 on the tensor cores 989 TFLOP/s.  A bound takes the operations at the
+# rate of the type the function multiplies in: f32 for the FD kernels (int8
+# factors meet f32 operands) and the SSD scan (the reference upcasts every
+# input to f32 before its products), bf16 for bf16 attention (the reference
+# multiplies q k^T and p v in the inputs' type, accumulating in f32),
+# whatever unit the hand-written kernel itself uses.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 RANK, BLOCK = 64, 1024          # the launcher's defaults
 # The launcher's defaults but a peak lr of 3e-4 (default 3e-3): with 12
 # steps the warmup-cosine schedule warms up for one step, and at full width
@@ -108,10 +140,22 @@ ADAPT_ARGV = ["--no-reduced", "--traffic", "shape=constant,rate=1.0,ticks=4",
 REDUCED_SERVE_ARGV = ["--traffic", "shape=step,rate=1.0,ticks=12,step_at=6",
                       "--monitor", "window=3,ell=8,top_k=3",
                       "--adapt", "lr=0.1,beta2=0.95"]
-# the adapted reduced head on the card against the CPU, relative to its
+# the hybrid family at full width: zamba2-7b's tied embed (32,000 x 3,584)
+# is the monitored and adapted leaf
+ZAMBA_SERVE_ARGV = ["--arch", "zamba2-7b", "--no-reduced", "--traffic",
+                    "shape=step,rate=1.0,ticks=16,step_at=8",
+                    "--monitor", "window=4,ell=8", "--adapt",
+                    "lr=0.1,beta2=0.95"]
+# launches of the flash attention kernel in one training step of
+# MAIN_PATH_ARGV: each of the 12 layers' attention once in the forward and
+# once more in the backward's recompute (remat; every parameter needs a
+# gradient, so the backward passes through every layer)
+TRAIN_FLASH_PER_STEP = 12 * 2
+# the adapted reduced head (paper-lm-100m's lm_head, the ssm and hybrid
+# families' tied embed) on the card against the CPU, relative to its
 # largest magnitude: f32 sums of d = 16,384 products in other orders in the
 # Gram and the projection, and each device's eigh, over the run's
-# adaptation steps (measured 1.2e-7 on an H100)
+# adaptation steps (measured 1.2e-7 for the lm_head on an H100)
 SERVE_HEAD_RTOL = 1e-5
 
 
@@ -133,10 +177,12 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, float]:
-    """(ms to move ``nbytes`` through device memory, ms for ``flops`` of
-    f32 FFMA work); the bound is the larger."""
-    return nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+def bound_ms(nbytes: float, flops: float,
+             flops_per_s: float = F32_FLOPS_PER_S) -> tuple[float, float]:
+    """(ms to move ``nbytes`` through device memory, ms for ``flops`` at
+    ``flops_per_s``, by default f32 outside the tensor cores); the bound is
+    the larger."""
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
 
 
 def main_path_shapes() -> tuple[list, list]:
@@ -234,6 +280,7 @@ def phase_kernels(dev) -> dict:
         max_abs_err=err, **_sums(rows))
     out.update(phase_int8_kernels(dev, gen, refresh_main, apply_main))
     out.update(phase_single_kernels(dev, gen))
+    out.update(phase_model_kernels(dev, gen))
     return out
 
 
@@ -306,6 +353,155 @@ def phase_single_kernels(dev, gen) -> dict:
         replaces="src/repro/kernels/lowrank/kernel.py:51", max_abs_err=err,
         **_sums(rows))
     return out
+
+
+# kernel 7 at the main paths' shapes (B, Hq, Hkv, S, hd, causal): the dense
+# training step, zamba2-7b's feedback gradient (the serving main path, the
+# JSON row) and a long sequence; then tests/test_kernels.py:196-201's sweep
+FLASH_MAIN = [(8, 12, 12, 128, 64, True), (4, 32, 32, 16, 112, True),
+              (1, 32, 32, 4096, 112, True)]
+FLASH_SWEEP = [(1, 2, 2, 64, 16, True), (2, 4, 2, 96, 32, True),
+               (1, 8, 1, 128, 64, True), (2, 2, 2, 80, 16, False)]
+# kernel 8 (B, S, H, P, N, chunk): zamba2-7b's feedback gradient (the JSON
+# row), zamba2-7b and mamba2-370m at S = 4096 with their chunk of 256; then
+# tests/test_kernels.py:215-219's sweep
+SSD_MAIN = [(4, 16, 112, 64, 64, 16), (1, 4096, 112, 64, 64, 256),
+            (1, 4096, 32, 64, 128, 256)]
+# tests/test_kernels.py:215-219's sweep, and S and H that are no multiple
+# of the chunk or the head tile (the kernel masks them; models/ssm.py does
+# not pad)
+SSD_SWEEP = [(1, 32, 4, 16, 16, 8), (2, 64, 8, 16, 32, 16),
+             (1, 48, 6, 32, 64, 16), (2, 70, 5, 32, 48, 32)]
+# the reference's tolerances (tests/test_kernels.py:210 and :230) against
+# the plain version on the f32 upcast inputs
+FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 0.05}
+
+
+def _ssd_atol(dtype, S: int) -> float:
+    return 5e-6 * S if dtype == torch.float32 else 0.15
+
+
+# Beside the atol, the error of the whole output relative to its size,
+# ||got - want|| / ||want||: at S 4096 attention's outputs are softmax
+# averages over ~2k keys, ~0.03 each, so an atol of 0.05 alone would pass
+# a kernel that dropped the later key tiles.  bf16 rounds p before P V and
+# the output once (unit roundoff 2^-8 each: ~3e-3 expected); f32 only sums
+# in another order.
+MODEL_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _agree(label: str, got, want, atol: float) -> float:
+    """Fails unless ``got`` is within ``atol`` of ``want`` everywhere and
+    within ``MODEL_RTOL`` of it in norm; returns the largest absolute
+    difference."""
+    err = got.float() - want
+    diff = float(err.abs().max())
+    rel = float(err.norm() / want.norm())
+    rtol = MODEL_RTOL[got.dtype]
+    if diff > atol or rel > rtol:
+        fail(f"{label}: kernel disagrees with its plain version (max abs "
+             f"diff {diff:.3e}, tolerance {atol}; relative error {rel:.3e}, "
+             f"tolerance {rtol})")
+    return diff
+
+
+def phase_model_kernels(dev, gen) -> dict:
+    """Phase 2's rows of the model's kernels: flash attention (kernel 7)
+    and the SSD chunk scan (kernel 8), each against its plain version on
+    the f32 upcast inputs at the reference's tolerance and ``MODEL_RTOL``,
+    the main shapes timed in bf16 beside the plain version (and, for
+    attention, PyTorch's ``scaled_dot_product_attention`` as a yardstick,
+    never called by the port).  Bounds: bytes of the inputs and the output
+    over 3.35 TB/s, or the operations at the rate of the type the function
+    multiplies in (bf16 on the tensor cores, 989 TFLOP/s, for attention;
+    f32, 67 TFLOP/s, for the scan), whichever is larger; the JSON row is
+    the serving main path's shape, one call."""
+    out = {}
+    rows, err = [], 0.0
+    cases = [(c, torch.bfloat16) for c in FLASH_MAIN] + \
+        [(c, dt) for c in FLASH_SWEEP for dt in (torch.float32,
+                                                  torch.bfloat16)]
+    for (B, Hq, Hkv, S, hd, causal), dt in cases:
+        q, k, v = (torch.randn(B, S, h, hd, generator=gen, device=dev)
+                   .to(dt).transpose(1, 2) for h in (Hq, Hkv, Hkv))
+        label = f"flash_attention {(B, Hq, Hkv, S, hd, causal)} {dt}"
+        got = _same_bits(label, lambda: flash_kernel.flash_attention(
+            q, k, v, causal=causal))
+        want = flash_ref.attention_ref(q.float(), k.float(), v.float(),
+                                       causal=causal)
+        err = max(err, _agree(label, got, want, FLASH_ATOL[dt]))
+        del want
+        if (B, Hq, Hkv, S, hd, causal) not in FLASH_MAIN:
+            continue
+        reps = 3 if S > 1024 else 20
+        ms = cuda_ms(lambda: flash_kernel.flash_attention(q, k, v,
+                                                          causal=causal),
+                     reps)
+        plain = cuda_ms(lambda: flash_ref.attention_ref(q, k, v,
+                                                        causal=causal), reps)
+        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=causal), reps)
+        pairs = S * (S + 1) // 2 if causal else S * S
+        t_bytes, t_ops = bound_ms(2 * (2 * B * Hq * S * hd
+                                       + 2 * B * Hkv * S * hd),
+                                  4 * B * Hq * pairs * hd, BF16_FLOPS_PER_S)
+        rows.append(((B, Hq, S, hd), ms, plain, lib, t_bytes, t_ops))
+        print(f"flash_attention B={B} H={Hq} S={S} hd={hd} bf16: {ms:.3f} "
+              f"ms, plain {plain:.3f} ms, sdpa {lib:.3f} ms, bound "
+              f"{max(t_bytes, t_ops):.3f} ms (bytes {t_bytes:.3f}, "
+              f"operations {t_ops:.3f})")
+    out["flash_attention"] = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash.cu",
+        replaces="src/repro/kernels/flash/kernel.py:80",
+        max_abs_err=err, **_row(rows[1]))
+
+    rows, err = [], 0.0
+    cases = [(c, torch.bfloat16) for c in SSD_MAIN] + \
+        [(c, dt) for c in SSD_SWEEP for dt in (torch.float32,
+                                                torch.bfloat16)]
+    for (B, S, H, P, N, chunk), dt in cases:
+        u = (torch.randn(B, S, H, P, generator=gen, device=dev) * 0.5).to(dt)
+        dlog = -torch.randn(B, S, H, generator=gen, device=dev).abs() * 0.1
+        Bm, Cm = ((torch.randn(B, S, N, generator=gen, device=dev) * 0.3)
+                  .to(dt) for _ in "BC")
+        label = f"ssd_scan {(B, S, H, P, N, chunk)} {dt}"
+        got = _same_bits(label, lambda: ssd_kernel.ssd_scan(u, dlog, Bm, Cm,
+                                                           chunk))
+        want = ssd_ref.ssd_ref(u.float(), dlog, Bm.float(), Cm.float(),
+                               chunk)
+        err = max(err, _agree(label, got, want, _ssd_atol(dt, S)))
+        if (B, S, H, P, N, chunk) not in SSD_MAIN:
+            continue
+        reps = 3 if S > 1024 else 20
+        ms = cuda_ms(lambda: ssd_kernel.ssd_scan(u, dlog, Bm, Cm, chunk),
+                     reps)
+        plain = cuda_ms(lambda: ssd_ref.ssd_ref(u, dlog, Bm, Cm, chunk),
+                        reps)
+        Q = min(chunk, S)
+        tri = Q * (Q + 1) // 2
+        macs = B * (S // Q) * (tri * N + H * (tri * P + 2 * Q * N * P))
+        t_bytes, t_ops = bound_ms(2 * 2 * B * S * H * P + 4 * B * S * H
+                                  + 2 * 2 * B * S * N, 2 * macs)
+        rows.append(((B, S, H, P, N, chunk), ms, plain, None, t_bytes,
+                     t_ops))
+        print(f"ssd_scan B={B} S={S} H={H} P={P} N={N} chunk={chunk} bf16: "
+              f"{ms:.3f} ms, plain {plain:.3f} ms, no library call, bound "
+              f"{max(t_bytes, t_ops):.3f} ms (bytes {t_bytes:.3f}, "
+              f"operations {t_ops:.3f})")
+    out["ssd_scan"] = dict(
+        name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd.cu",
+        replaces="src/repro/kernels/ssd/kernel.py:68", max_abs_err=err,
+        **_row(rows[0]))
+    return out
+
+
+def _row(row) -> dict:
+    """The JSON numbers of one timed call."""
+    _, ms, plain, lib, t_bytes, t_ops = row
+    return dict(ms=ms, plain_ms=plain, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes > t_ops else "operations",
+                library_ms=lib)
 
 
 def _int8(shape, gen, dev) -> torch.Tensor:
@@ -473,7 +669,24 @@ COUNTERS = {   # launch counter -> (wrapper module, attribute)
     "batched_lowrank_apply_int8": (lowrank_kernel, "int8_launches"),
     "gram": (gram_kernel, "single_launches"),
     "lowrank_apply": (lowrank_kernel, "single_launches"),
+    "flash_attention": (flash_kernel, "launches"),
+    "ssd_scan": (ssd_kernel, "launches"),
 }
+
+
+def per_gradient(cfg) -> dict:
+    """Launches of kernels 7 and 8 in one serving feedback gradient of
+    ``cfg``: one per attention (each dense layer, or each site of the
+    hybrid family's shared block) and one per mamba layer in the forward,
+    and as many again in the backward's recompute when ``cfg.remat`` is on
+    and the gradient flows back through the layers, which it does when the
+    adapted leaf is the tied embedding (an untied head's gradient stops at
+    the head)."""
+    passes = 2 if cfg.remat and cfg.tie_embeddings else 1
+    if cfg.family == "dense":
+        return dict(flash_attention=cfg.num_layers * passes, ssd_scan=0)
+    return dict(flash_attention=len(cfg.shared_attn_layers()) * passes,
+                ssd_scan=cfg.num_layers * passes)
 
 
 def _zero_counts() -> None:
@@ -585,6 +798,21 @@ def phase_serve_profile(dev) -> None:
               "a full-width adaptation step")
 
 
+def phase_zamba_gradient_profile(dev, params: dict) -> None:
+    """Device time by kernel of one full-width zamba2-7b feedback gradient
+    (the adapter's gradient through the tied embed, ``params`` the served
+    weights, one SyntheticLM feedback batch), after one warm-up call."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.serve import OnlineAdapter
+    cfg = registry.get_config("zamba2-7b")
+    adapter = OnlineAdapter(cfg, params)
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                                   global_batch=4, seed=1)).batch(0)
+    adapter.grad(params, batch)
+    _profiled(lambda: adapter.grad(params, batch),
+              "a full-width zamba2-7b feedback gradient")
+
+
 def phase_reference(dev, storage: str) -> None:
     """Reduced model, same weights: card (kernels) vs CPU (plain), with
     ``storage`` second-moment storage."""
@@ -597,9 +825,17 @@ def phase_reference(dev, storage: str) -> None:
     for device in (dev, torch.device("cpu")):
         start = tree.unflatten(params, [p.to(device)
                                         for p in tree.flatten(params)])
+        _zero_counts()
         _, log = train_lib.train(
             train_lib.parse_args(argv + ["--device", str(device)]), start)
         losses[device.type] = [r["loss"] for r in log]
+        if device.type == "cuda":
+            # no remat in the reduced config: each layer's attention once
+            # per step
+            flash = _counts()["flash_attention"]
+            if flash != 4 * cfg.num_layers:
+                fail(f"reference ({storage}): {flash} flash_attention "
+                     f"launches, expected {4 * cfg.num_layers}")
     worst = max(abs(a - b) / abs(b)
                 for a, b in zip(losses["cuda"], losses["cpu"]))
     print(f"reference ({storage}): card losses {losses['cuda']}, CPU losses "
@@ -616,29 +852,39 @@ def phase_serve(dev, argv: list) -> tuple[dict, dict]:
     """Serve with ``argv`` with every launch count set to 0 just before and
     read just after; returns (launches, the launcher's report)."""
     label = " ".join(argv)
+    args = serve_lib.parse_args(argv)
+    cfg = registry.get_reduced(args.arch) if args.reduced \
+        else registry.get_config(args.arch)
     torch.cuda.reset_peak_memory_stats(dev)
     _zero_counts()
-    report = serve_lib.serve(serve_lib.parse_args(argv))
+    t0 = time.perf_counter()
+    report = serve_lib.serve(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     launches = _counts()
     peak = torch.cuda.max_memory_allocated(dev)
     handles = report["handles"]
     if not handles or not all(h.done and len(h.tokens)
                               == h.request.max_new_tokens for h in handles):
         fail(f"serve ({label}): not every request was served in full")
-    head = report["params"]["lm_head"]
+    head = report["params"][report["leaf"]]
     if not bool(torch.isfinite(head).all()):
-        fail(f"serve ({label}): the adapted head is not finite")
+        fail(f"serve ({label}): the adapted {report['leaf']} is not finite")
     steps = report["adapt_steps"]
     expected = dict(dict.fromkeys(COUNTERS, 0),
                     gram=len(report["observe_s"]) + steps,
-                    lowrank_apply=steps)
+                    lowrank_apply=steps,
+                    **{k: report["gradients"] * v
+                       for k, v in per_gradient(cfg).items()})
     if launches != expected:
         fail(f"serve ({label}): launches {launches}, expected {expected}")
     observe = sorted(report["observe_s"])
     adapt = sorted(report["adapt_step_s"])
     tokens = sum(len(h.tokens) for h in handles)
     print(f"serve ({label}): {len(handles)} requests, {tokens} tokens, "
-          f"{steps} adaptation steps, peak memory allocated {peak} bytes")
+          f"{steps} adaptation steps, {report['gradients']} feedback "
+          f"gradients through {report['leaf']} (d = {head.numel()}), peak "
+          f"memory allocated {peak} bytes, {wall:.1f} s")
     for what, times in (("monitor observe", observe),
                         ("adaptation step", adapt)):
         if times:
@@ -653,40 +899,47 @@ def phase_serve(dev, argv: list) -> tuple[dict, dict]:
     return launches, report
 
 
-def phase_serve_reference(dev) -> None:
-    """Reduced serve run with monitor and adaptation, same weights: card
-    (kernels) vs CPU (plain)."""
-    cfg = registry.get_reduced("paper-lm-100m")
+def phase_serve_reference(dev, arch: str = "paper-lm-100m") -> None:
+    """Reduced serve run of ``arch`` with monitor and adaptation, same
+    weights: card (kernels) vs CPU (plain)."""
+    cfg = registry.get_reduced(arch)
     params = model_lib.init_params(cfg, torch.Generator().manual_seed(0))
     runs = {}
     for device in (dev, torch.device("cpu")):
         start = tree.unflatten(params, [p.to(device)
                                         for p in tree.flatten(params)])
         runs[device.type] = serve_lib.serve(serve_lib.parse_args(
-            REDUCED_SERVE_ARGV + ["--device", str(device)]), start)
+            REDUCED_SERVE_ARGV + ["--arch", arch, "--device", str(device)]),
+            start)
     card, cpu = runs["cuda"], runs["cpu"]
     steps = card["adapt_steps"]
     expected = dict(gram=len(card["observe_s"]) + steps,
-                    lowrank_apply=steps)
+                    lowrank_apply=steps,
+                    **{k: card["gradients"] * v
+                       for k, v in per_gradient(cfg).items()})
     if steps == 0 or card["launches"] != expected:
-        fail(f"serve reference: the card run launched {card['launches']}, "
-             f"expected {expected} with at least one adaptation step")
+        fail(f"serve reference ({arch}): the card run launched "
+             f"{card['launches']}, expected {expected} with at least one "
+             f"adaptation step")
     if [h.tokens for h in card["handles"]] != \
             [h.tokens for h in cpu["handles"]]:
-        fail("serve reference: card and CPU greedy tokens differ")
+        fail(f"serve reference ({arch}): card and CPU greedy tokens differ")
     decisions = [[r.decision for r in run["readings"]]
                  for run in (card, cpu)]
     if decisions[0] != decisions[1]:
-        fail(f"serve reference: monitor decisions differ: {decisions}")
-    got = card["params"]["lm_head"].cpu()
-    want = cpu["params"]["lm_head"]
+        fail(f"serve reference ({arch}): monitor decisions differ: "
+             f"{decisions}")
+    leaf = card["leaf"]
+    got = card["params"][leaf].cpu()
+    want = cpu["params"][leaf]
     worst = float(((got - want).abs() / want.abs().max()).max())
-    print(f"serve reference: {card['adapt_steps']} adaptation steps, "
-          f"decisions {decisions[0]}, head max diff {worst:.2e} of its "
-          f"largest magnitude")
+    print(f"serve reference ({arch}): {card['adapt_steps']} adaptation "
+          f"steps, launches {card['launches']}, decisions {decisions[0]}, "
+          f"{leaf} max diff {worst:.2e} of its largest magnitude")
     if not torch.allclose(got, want, rtol=SERVE_HEAD_RTOL,
                           atol=SERVE_HEAD_RTOL * float(want.abs().max())):
-        fail("serve reference: card and CPU adapted heads disagree")
+        fail(f"serve reference ({arch}): card and CPU adapted {leaf} "
+             f"disagree")
 
 
 def main() -> int:
@@ -711,11 +964,12 @@ def main() -> int:
     kernels = phase_kernels(dev)
     phase_eigh(dev)
     none = dict.fromkeys(COUNTERS, 0)
+    flash = dict(flash_attention=12 * TRAIN_FLASH_PER_STEP)
     fp32 = phase_main_path(dev, MAIN_PATH_ARGV, dict(
-        none, batched_gram=16, batched_lowrank_apply=96))
+        none, batched_gram=16, batched_lowrank_apply=96, **flash))
     int8 = phase_main_path(dev, MAIN_PATH_ARGV + INT8_ARGV, dict(
         none, batched_gram_mixed=16, batched_project_quantize=16,
-        batched_lowrank_apply_int8=96), INT8_SECOND_MOMENT_BYTES)
+        batched_lowrank_apply_int8=96, **flash), INT8_SECOND_MOMENT_BYTES)
     phase_profile(dev, MAIN_PATH_ARGV)
     phase_profile(dev, MAIN_PATH_ARGV + INT8_ARGV)
     phase_reference(dev, "fp32")
@@ -728,11 +982,24 @@ def main() -> int:
         fail("serve: the adapting run launched no single-block apply")
     phase_serve_profile(dev)
     phase_serve_reference(dev)
+    zamba, report = phase_serve(dev, ZAMBA_SERVE_ARGV)
+    for name in ("gram", "lowrank_apply", "flash_attention", "ssd_scan"):
+        if zamba[name] == 0:
+            fail(f"serve (zamba2-7b): {name} was never launched")
+    params = report["params"]
+    del report
+    phase_zamba_gradient_profile(dev, params)
+    del params
+    torch.cuda.empty_cache()
+    phase_serve_reference(dev, "zamba2-7b")
+    phase_serve_reference(dev, "mamba2-370m")
 
     for name in kernels:
         kernels[name]["launches"] = fp32[name] or int8[name]
     kernels["gram"]["launches"] = served["gram"]
     kernels["lowrank_apply"]["launches"] = adapted["lowrank_apply"]
+    kernels["flash_attention"]["launches"] = zamba["flash_attention"]
+    kernels["ssd_scan"]["launches"] = zamba["ssd_scan"]
     print(smi)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

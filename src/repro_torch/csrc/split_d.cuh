@@ -17,21 +17,6 @@
 
 namespace repro {
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <>
-__device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half_rn(x);
-}
-
 constexpr int kColTile = 8;  // columns of y a block of cross_partial takes
 
 // partial[s][i][j] = sum over the rows r of slab s of x[r][i] * y[r][j]:

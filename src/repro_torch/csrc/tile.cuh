@@ -29,6 +29,21 @@ __device__ __forceinline__ float to_f32(int8_t x) {
   return static_cast<float>(x);
 }
 
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
+}
+
 // acc[u][v] += sum_kk xs[kk][4*ty+u] * ys[kk][4*tx+v] over kk < DEPTH.
 template <int DEPTH, int XSTRIDE, int YSTRIDE>
 __device__ __forceinline__ void tile_fma(const float (*xs)[XSTRIDE],

@@ -50,6 +50,13 @@ SIGNATURES = {
         "repro_batched_project_quantize":
             [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
+    "flash": {
+        "repro_flash_attention":
+            [_P, _P, _P, _P] + [_LL] * 12 + [_I] * 8 + [_P],
+    },
+    "ssd": {
+        "repro_ssd_scan": [_P, _P, _P, _P, _P] + [_I] * 7 + [_P],
+    },
 }
 
 

@@ -1,7 +1,9 @@
-"""The optimizer hot path's kernel set, dispatched on the tensor's device.
+"""The kernel set of the optimizer and the model, dispatched on the tensor's
+device.
 
 Port of repro/kernels/registry.py (``KernelSet`` :52) with the entries the
-Sketchy training step and the serving path use.  There is no backend
+Sketchy training step, the serving path and the model's attention and
+Mamba2 scan use.  There is no backend
 choice: a CUDA tensor launches the hand-written Hopper kernel (which raises
 if it cannot build or launch), a CPU tensor takes the plain PyTorch
 version, and any other device raises.  Nothing falls back from the kernel
@@ -15,9 +17,17 @@ to the plain version.
     lowrank_apply(u, c, b, g):            (d, ell), (ell,), (), (d, n)
                                           -> (d, n), g's dtype
 
+    flash_attention(q, k, v, causal):     (B, Hq, S, hd), (B, Hkv, Sk, hd)
+                                          -> (B, Hq, S, hd), q's dtype
+    ssd_scan(u, dlog, Bm, Cm, chunk):     (B, S, H, P), (B, S, H) f32,
+                                          (B, S, N) -> (B, S, H, P), u's
+                                          dtype
+
 The single-block entries serve one tall matrix (the FD sketches of the
 serving path: the gradient monitor and S-AdaGrad over the flattened head);
-their kernels split the reduction over d.
+their kernels split the reduction over d.  The attention and SSD entries
+are the model's forward; kernels/flash/ops.py and kernels/ssd/ops.py wrap
+them with their gradients.
 
 Fused entries of int8 second-moment storage (core/quantize.py):
 
@@ -37,10 +47,14 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.kernels.flash import kernel as flash_kernel
+from repro_torch.kernels.flash import ref as flash_ref
 from repro_torch.kernels.gram import kernel as gram_kernel
 from repro_torch.kernels.gram import ref as gram_ref
 from repro_torch.kernels.lowrank import kernel as lowrank_kernel
 from repro_torch.kernels.lowrank import ref as lowrank_ref
+from repro_torch.kernels.ssd import kernel as ssd_kernel
+from repro_torch.kernels.ssd import ref as ssd_ref
 
 
 class KernelSet(NamedTuple):
@@ -51,6 +65,22 @@ class KernelSet(NamedTuple):
     batched_gram_mixed: Callable
     batched_lowrank_apply_quantized: Callable
     batched_project_quantize: Callable
+    flash_attention: Callable
+    ssd_scan: Callable
+
+
+def grad_of_plain(plain: Callable, saved, needs, grad: torch.Tensor
+                  ) -> tuple:
+    """The gradients of ``plain(*saved)`` against ``grad``, recomputed under
+    autograd from the saved inputs, for each input whose entry of ``needs``
+    is set (None for the rest): the backward of the differentiable kernels
+    (kernels/flash/ops.py, kernels/ssd/ops.py), whose forwards launch the
+    kernel and whose reference has no backward kernel."""
+    inputs = [t.detach().requires_grad_(need) for t, need in zip(saved, needs)]
+    wanted = [t for t in inputs if t.requires_grad]
+    with torch.enable_grad():
+        grads = iter(torch.autograd.grad(plain(*inputs), wanted, grad))
+    return tuple(next(grads) if t.requires_grad else None for t in inputs)
 
 
 def _route(t: torch.Tensor, on_card: Callable, on_cpu: Callable) -> Callable:
@@ -116,6 +146,18 @@ def batched_project_quantize(vq: torch.Tensor, w_top: torch.Tensor,
     return fn(vq, w_top, a, w_bot)
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    fn = _route(q, flash_kernel.flash_attention, flash_ref.attention_ref)
+    return fn(q, k, v, causal=causal)
+
+
+def ssd_scan(u: torch.Tensor, dlog: torch.Tensor, Bm: torch.Tensor,
+             Cm: torch.Tensor, chunk: int) -> torch.Tensor:
+    return _route(u, ssd_kernel.ssd_scan, ssd_ref.ssd_ref)(u, dlog, Bm, Cm,
+                                                          chunk)
+
+
 KERNELS = KernelSet(
     gram=gram,
     lowrank_apply=lowrank_apply,
@@ -123,4 +165,6 @@ KERNELS = KernelSet(
     batched_lowrank_apply=batched_lowrank_apply,
     batched_gram_mixed=batched_gram_mixed,
     batched_lowrank_apply_quantized=batched_lowrank_apply_quantized,
-    batched_project_quantize=batched_project_quantize)
+    batched_project_quantize=batched_project_quantize,
+    flash_attention=flash_attention,
+    ssd_scan=ssd_scan)

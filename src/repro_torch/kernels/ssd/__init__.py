@@ -1,0 +1,2 @@
+"""Mamba2 SSD chunk scan: plain version (ref.py), CUDA kernel wrapper
+(kernel.py) and the differentiable entry point (ops.py)."""

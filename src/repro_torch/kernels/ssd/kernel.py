@@ -1,0 +1,71 @@
+"""Wrapper of the hand-written Hopper SSD chunk scan (csrc/ssd.cu), which
+replaces repro/kernels/ssd/kernel.py::ssd_pallas.
+
+The wrapper takes CUDA tensors only (the registry sends CPU tensors to
+``ref.py``), checks what the kernel accepts, allocates the output, launches
+on the current stream and raises on a launch error.  ``launches`` counts
+its launches, so a run can show that its scans went through the kernel.
+Unlike the Pallas kernel it needs no padding: positions past S and heads
+past the last head tile are masked in the kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64)
+MAX_STATE = 128
+MAX_BATCH = 65535       # the grid's y dimension
+launches = 0
+
+
+def ssd_scan(u: torch.Tensor, dlog: torch.Tensor, Bm: torch.Tensor,
+             Cm: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The chunked SSD scan for contiguous CUDA u (B, S, H, P), dlog
+    (B, S, H) f32 and Bm, Cm (B, S, N) in u's dtype (f32 or bf16), P one of
+    16, 32 and 64, N at most 128, in chunks of ``min(chunk, S)`` positions;
+    returns y like u."""
+    global launches
+    if u.dtype not in DTYPES or Bm.dtype != u.dtype or Cm.dtype != u.dtype \
+            or dlog.dtype != torch.float32:
+        raise TypeError(f"ssd_scan kernel takes float32 or bfloat16 u, Bm, "
+                        f"Cm of one dtype and float32 dlog, got {u.dtype}, "
+                        f"{Bm.dtype}, {Cm.dtype}, {dlog.dtype}")
+    for name, t in (("u", u), ("dlog", dlog), ("Bm", Bm), ("Cm", Cm)):
+        if t.device.type != "cuda" or t.device != u.device:
+            raise ValueError(f"ssd_scan kernel needs CUDA tensors on one "
+                             f"device, got {name} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"ssd_scan kernel needs a contiguous {name}, "
+                             f"got strides {t.stride()}")
+    if u.ndim != 4:
+        raise ValueError(f"ssd_scan kernel needs u (B, S, H, P), got shape "
+                         f"{tuple(u.shape)}")
+    B, S, H, P = u.shape
+    N = Bm.shape[-1]
+    if dlog.shape != (B, S, H) or Bm.shape != (B, S, N) \
+            or Cm.shape != Bm.shape:
+        raise ValueError(f"shape mismatch: u {tuple(u.shape)}, dlog "
+                         f"{tuple(dlog.shape)}, Bm {tuple(Bm.shape)}, Cm "
+                         f"{tuple(Cm.shape)}")
+    if P not in HEAD_DIMS or not 1 <= N <= MAX_STATE or B > MAX_BATCH \
+            or chunk < 1:
+        raise ValueError(f"ssd_scan kernel takes P in {HEAD_DIMS}, N up to "
+                         f"{MAX_STATE}, at most {MAX_BATCH} batch rows and "
+                         f"a positive chunk, got P={P}, N={N}, B={B}, "
+                         f"chunk={chunk}")
+    y = torch.empty_like(u)
+    if y.numel() == 0:
+        return y
+    err = build.launch(build.library("ssd").repro_ssd_scan, u.device,
+                       u.data_ptr(), dlog.data_ptr(), Bm.data_ptr(),
+                       Cm.data_ptr(), y.data_ptr(), B, S, H, P, N,
+                       min(chunk, S), DTYPES[u.dtype])
+    if err != 0:
+        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err} "
+                           f"at u {tuple(u.shape)}, N={N}, chunk={chunk} "
+                           f"{u.dtype}")
+    launches += 1
+    return y

@@ -19,10 +19,13 @@ each tick submits the generated arrivals, steps the engine, draws a
 feedback batch, feeds its head gradient to the monitor, and runs one
 adaptation step whenever the window policy says "adapt" (every tick when
 there is no monitor).  The reduced config is the default (``--no-reduced``
-for the full arch).  Runs on ``--device cuda`` unless told otherwise, and
-raises if the machine has no card.  Besides what the reference prints, it
-prints how many times the run launched the single-block Gram and low-rank
-apply kernels (the monitor's and S-AdaGrad's FD steps; 0 on the CPU).
+for the full arch).  ``--arch`` takes paper-lm-100m (dense), mamba2-370m
+(ssm) and zamba2-7b (hybrid); a tied-embedding model adapts its ``embed``.
+Runs on ``--device cuda`` unless told otherwise, and raises if the machine
+has no card.  Besides what the reference prints, it prints how many times
+the run launched the single-block Gram and low-rank apply kernels (the
+monitor's and S-AdaGrad's FD steps) and the flash attention and SSD scan
+kernels (the feedback gradients' forwards); all 0 on the CPU.
 """
 from __future__ import annotations
 
@@ -35,8 +38,10 @@ import torch
 
 from repro_torch.configs import registry
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.kernels.flash import kernel as flash_kernel
 from repro_torch.kernels.gram import kernel as gram_kernel
 from repro_torch.kernels.lowrank import kernel as lowrank_kernel
+from repro_torch.kernels.ssd import kernel as ssd_kernel
 from repro_torch.launch.flags import parse_kv_spec
 from repro_torch.models import model as model_lib
 from repro_torch.serve import (ADAPT, AdaptConfig, Engine, GradientMonitor,
@@ -71,7 +76,9 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
 
 def _launches() -> dict:
     return {"gram": gram_kernel.single_launches,
-            "lowrank_apply": lowrank_kernel.single_launches}
+            "lowrank_apply": lowrank_kernel.single_launches,
+            "flash_attention": flash_kernel.launches,
+            "ssd_scan": ssd_kernel.launches}
 
 
 class _Spans:
@@ -109,8 +116,11 @@ def serve(args: argparse.Namespace, params: Optional[dict] = None) -> dict:
     weights).  Returns what the run printed, as data: ``handles`` (in
     submission order), ``latencies_s``, ``readings``, ``adapt_steps``,
     ``observe_s`` and ``adapt_step_s`` (seconds per call, ``_Spans``), the
-    final ``params``, the ``engine`` and ``launches`` (of the single-block
-    kernels, over this run)."""
+    final ``params``, the adapted ``leaf`` (its key in ``params``; None
+    without an adapter), ``gradients`` (the feedback gradients computed:
+    one per tick for telemetry and one per adaptation step), the
+    ``engine`` and ``launches`` (of the
+    single-block, attention and SSD kernels, over this run)."""
     fail = _parser().error
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -130,7 +140,8 @@ def serve(args: argparse.Namespace, params: Optional[dict] = None) -> dict:
                                              seed=args.seed))
     before = _launches()
     report = dict(engine=engine, params=params, handles=[], latencies_s=[],
-                  readings=[], adapt_steps=0, observe_s=[], adapt_step_s=[])
+                  readings=[], adapt_steps=0, observe_s=[], adapt_step_s=[],
+                  leaf=None, gradients=0)
     observe_spans, adapt_spans = _Spans(device), _Spans(device)
 
     if args.traffic is None:
@@ -202,9 +213,12 @@ def serve(args: argparse.Namespace, params: Optional[dict] = None) -> dict:
         print(f"adaptation steps: {adapt_steps} "
               f"(hyperparams: {adapter.hyperparams})")
     launches = {k: v - before[k] for k, v in _launches().items()}
-    print(f"kernel launches: gram {launches['gram']}, lowrank_apply "
-          f"{launches['lowrank_apply']}")
+    print("kernel launches: " + ", ".join(f"{k} {v}"
+                                          for k, v in launches.items()))
     report.update(params=params, handles=done, latencies_s=lat,
+                  leaf=adapter.leaf if adapter is not None else None,
+                  gradients=(traffic.ticks + adapt_steps
+                             if adapter is not None else 0),
                   readings=list(monitor.readings) if monitor else [],
                   adapt_steps=adapt_steps, launches=launches,
                   observe_s=observe_spans.seconds(),

@@ -1,12 +1,14 @@
-"""Attention: GQA with q-chunked causal softmax in f32 for training (port
-of repro/models/attention.py ``causal_attention`` :167) and one-token
-decode against a cache for serving (``attention_decode`` :207), in plain
-tensor ops as the reference writes them.  Queries are grouped
-(B, S, KV, G, hd), so KV heads are never repeated in memory."""
+"""Attention: the full-sequence causal GQA attention of training and the
+feedback gradient (port of repro/models/attention.py ``causal_attention``
+:167) through the flash kernel, and one-token decode against a cache for
+serving (``attention_decode`` :207) in plain tensor ops, as the reference
+writes it (its XLA ``_chunk_attend``).  Queries are grouped, so KV heads are
+never repeated in memory."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope
 
@@ -30,22 +32,15 @@ def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions):
     return q, k, v
 
 
-def _attend(q_chunk: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            q_start) -> torch.Tensor:
-    """One q chunk (B, cq, KV, G, hd) against the causal prefix of k, v
-    (B, S, KV, hd), with an f32 softmax.  ``q_start`` is an int, or a (B,)
-    tensor of per-lane positions (continuous-batching decode)."""
-    cq, hd = q_chunk.shape[1], q_chunk.shape[-1]
-    S = k.shape[1]
-    s = torch.einsum("bqkgd,bskd->bkgqs", q_chunk.float() * hd ** -0.5,
-                     k.float())
-    k_pos = torch.arange(S, device=k.device)
-    if isinstance(q_start, torch.Tensor):          # per-lane positions
-        q_pos = q_start[:, None] + torch.arange(cq, device=k.device)
-        mask = (q_pos[:, :, None] >= k_pos)[:, None, None]  # (B,1,1,cq,S)
-    else:
-        q_pos = q_start + torch.arange(cq, device=k.device)
-        mask = q_pos[:, None] >= k_pos[None, :]
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            pos: torch.Tensor) -> torch.Tensor:
+    """One token's queries (B, 1, KV, G, hd) against the cache k, v
+    (B, Smax, KV, hd) up to each lane's position ``pos`` ((B,) long), with
+    an f32 softmax."""
+    hd = q.shape[-1]
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.float() * hd ** -0.5, k.float())
+    k_pos = torch.arange(k.shape[1], device=k.device)
+    mask = (pos[:, None] >= k_pos)[:, None, None, None]    # (B,1,1,1,Smax)
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
@@ -53,19 +48,15 @@ def _attend(q_chunk: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def causal_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor) -> torch.Tensor:
-    """q: (B, S, H, hd); k, v: (B, S, KV, hd) -> (B, S, H, hd)."""
-    B, S, H, hd = q.shape
-    KV = k.shape[2]
-    qg = q.reshape(B, S, KV, H // KV, hd)
-    cq = min(cfg.q_chunk, S)
-    n_chunks = (S + cq - 1) // cq
-    if n_chunks * cq != S:  # pad seq to a chunk multiple
-        qg = torch.nn.functional.pad(qg, (0, 0, 0, 0, 0, 0,
-                                          0, n_chunks * cq - S))
-    outs = [_attend(qg[:, i * cq:(i + 1) * cq], k, v, i * cq)
-            for i in range(n_chunks)]
-    out = torch.cat(outs, dim=1)[:, :S]
-    return out.reshape(B, S, H, hd)
+    """q: (B, S, H, hd); k, v: (B, S, KV, hd) -> (B, S, H, hd).
+
+    ``kernels/flash/ops.flash_attention`` (the flash kernel on the card, its
+    plain version on the CPU, with a gradient) reads the (B, S, H, hd)
+    tensors in place as (B, H, S, hd) views; its output is stored
+    (B, S, H, hd), so the transpose back is a view too."""
+    out = flash_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2), causal=True)
+    return out.transpose(1, 2)
 
 
 def attention_block(cfg: ModelConfig, p: dict, x: torch.Tensor,

@@ -1,12 +1,16 @@
-"""Decode caches and the one-token decode step of the dense family (port of
-repro/models/cache.py :26-112, :145-173).
+"""Decode caches and the one-token decode step of the dense, ssm and hybrid
+families (port of repro/models/cache.py :26-72, :84-112, :145-223).
 
-Cache layout, stacked over layers: attention k/v (L, B, Smax, KV, hd) in
-the model's dtype.  The mamba and hybrid layouts of the reference (and its
-moe, vlm and audio families) are not ported yet (ROADMAP.md queue 1 item
-13).  The reference returns new caches from every call; here the decode
-step and ``reset_lanes`` write into the cache tensors in place (one cache
-per engine, no copy per token) and return the same dict.
+Cache layouts, stacked over layers (batch is axis 1 of every tensor):
+  dense:  attention k/v (L, B, Smax, KV, hd)
+  ssm:    ssm (L, B, H, P, N) in f32 and conv (L, B, W-1, conv_dim)
+  hybrid: the ssm layout for all L layers, and attention k/v only at the
+          shared-attention sites (n_sites, B, Smax, KV, hd)
+in the model's dtype except the f32 SSM state.  The moe, vlm and audio
+families are not ported yet (ROADMAP.md queue 1 item 13).  The reference
+returns new caches from every call; here the decode step and
+``reset_lanes`` write into the cache tensors in place (one cache per
+engine, no copy per token) and return the same dict.
 """
 from __future__ import annotations
 
@@ -16,24 +20,39 @@ import torch
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import model as model_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import gated_mlp, rms_norm
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int
                  ) -> Dict[str, tuple]:
-    if cfg.family != "dense":
+    if cfg.family not in model_lib.FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} cache layout is not ported yet "
-            f"(ROADMAP.md queue 1 item 13); the port serves the dense family")
-    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": shape, "v": shape}
+            f"(ROADMAP.md queue 1 item 13); the port serves the "
+            f"{', '.join(model_lib.FAMILIES)} families")
+    L, B = cfg.num_layers, batch
+    kv = (max_seq, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.family == "dense":
+        return {"k": (L, B) + kv, "v": (L, B) + kv}
+    shapes = {
+        "ssm": (L, B, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+        "conv": (L, B, cfg.ssm_conv_width - 1,
+                 cfg.d_inner + 2 * cfg.ssm_state),
+    }
+    if cfg.family == "hybrid":
+        n_sites = len(cfg.shared_attn_layers())
+        shapes["k"] = (n_sites, B) + kv
+        shapes["v"] = (n_sites, B) + kv
+    return shapes
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device="cpu") -> Dict[str, torch.Tensor]:
     dtype = model_lib.DTYPES[cfg.dtype]
-    return {name: torch.zeros(shape, dtype=dtype, device=device)
+    return {name: torch.zeros(shape, device=device, dtype=torch.float32
+                              if name == "ssm" else dtype)
             for name, shape in cache_shapes(cfg, batch, max_seq).items()}
 
 
@@ -41,11 +60,34 @@ def reset_lanes(cache: Dict[str, torch.Tensor],
                 lane_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Zero the lanes marked in ``lane_mask`` ((B,) bool), in place: the
     slot-reuse primitive, a freed lane is wiped before a queued request
-    prefills into it.  Batch is axis 1 of every cache tensor."""
+    prefills into it.  Attention k/v beyond a lane's position are masked
+    anyway, but the SSM and conv states are cumulative, so a reused lane
+    must be cleared.  Batch is axis 1 of every cache tensor."""
     for x in cache.values():
         mask = lane_mask.reshape((1, -1) + (1,) * (x.ndim - 2))
         x.masked_fill_(mask, 0)
     return cache
+
+
+def _dense_layer_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                        cache_k: torch.Tensor, cache_v: torch.Tensor,
+                        pos) -> torch.Tensor:
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    x = x + attn_lib.attention_decode(cfg, p["attn"], h, cache_k, cache_v,
+                                      pos)
+    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    return x + gated_mlp(cfg, p["mlp"], h)
+
+
+def _mamba_layer_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                        cache: Dict[str, torch.Tensor], i: int
+                        ) -> torch.Tensor:
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    out, state, conv = ssm_lib.mamba_decode(cfg, p["mixer"], h,
+                                            cache["ssm"][i], cache["conv"][i])
+    cache["ssm"][i].copy_(state)
+    cache["conv"][i].copy_(conv)
+    return x + out
 
 
 @torch.no_grad()
@@ -57,12 +99,17 @@ def decode_step(cfg: ModelConfig, params: dict, cache: Dict[str, torch.Tensor],
     Returns (logits (B, 1, V), cache), the cache updated in place."""
     model_lib.check_supported(cfg)
     x = model_lib.embed_tokens(cfg, params, {"tokens": batch["token"]})
+    sites = cfg.shared_attn_layers()
     for i in range(cfg.num_layers):
         p_i = model_lib.layer(params["layers"], i)
-        h = rms_norm(x, p_i["norm1"], cfg.norm_eps)
-        x = x + attn_lib.attention_decode(cfg, p_i["attn"], h,
-                                          cache["k"][i], cache["v"][i], pos)
-        h = rms_norm(x, p_i["norm2"], cfg.norm_eps)
-        x = x + gated_mlp(cfg, p_i["mlp"], h)
+        if cfg.family == "dense":
+            x = _dense_layer_decode(cfg, p_i, x, cache["k"][i],
+                                    cache["v"][i], pos)
+            continue
+        if i in sites:
+            s = sites.index(i)
+            x = _dense_layer_decode(cfg, params["shared_attn"], x,
+                                    cache["k"][s], cache["v"][s], pos)
+        x = _mamba_layer_decode(cfg, p_i, x, cache, i)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return model_lib.project_logits(cfg, params, x), cache

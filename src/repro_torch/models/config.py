@@ -2,11 +2,12 @@
 
 The fields are the reference's, so configurations and their reduced
 variants are built the same way in both packages.  The port's model runs
-the dense family (models/model.py says which features).
+the dense, ssm and hybrid families (models/model.py says which features).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,5 +54,41 @@ class ModelConfig:
     remat: bool = True           # activation checkpointing per layer
     remat_policy: str = "full"   # full (save nothing) | dots
     # attention impl knobs
-    q_chunk: int = 2048          # q-chunked causal attention block
+    q_chunk: int = 2048          # the reference's q-chunk; read by nothing
+                                 # here (attention runs the flash kernel)
     attn_logits_dtype: str = "float32"
+
+    # ------------------------------------------------------------------
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    def block_pattern(self) -> Tuple[Tuple[str, int], ...]:
+        """((block_type, count), ...) of the model's composition, for the
+        families the port runs (the reference's :75 covers the rest)."""
+        L = self.num_layers
+        if self.family == "dense":
+            return (("dense", L),)
+        if self.family == "ssm":
+            return (("mamba", L),)
+        if self.family == "hybrid":
+            return (("mamba", L),
+                    ("shared_attn", len(self.shared_attn_layers())))
+        raise NotImplementedError(
+            f"the {self.family!r} family is not ported yet (ROADMAP.md "
+            f"queue 1 item 13)")
+
+    def shared_attn_layers(self) -> Tuple[int, ...]:
+        """The layers before whose mamba mixer the hybrid family's one
+        shared attention+MLP block runs (every ``attn_every``-th from 0)."""
+        if self.family != "hybrid" or not self.attn_every:
+            return ()
+        return tuple(range(0, self.num_layers, self.attn_every))

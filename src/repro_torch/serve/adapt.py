@@ -11,9 +11,12 @@ beta2=...)`` changes the live values in the optimizer state, for the next
 step.  When to step is the caller's decision (serve/monitor.py's policy).
 
 The gradient with respect to the flattened f32 head comes from autograd
-with only the head requiring a gradient.  On the card the step's refresh
-Gram and its apply are the split-d kernels of csrc/gram_tall.cu and
-csrc/lowrank_tall.cu (at full width a (25,165,824, 8) sketch).
+with only the head requiring a gradient.  With tied embeddings the head is
+``embed``, and the gradient flows back through every layer (the attention
+and SSD kernels' Functions).  On the card the step's refresh Gram and its
+apply are the split-d kernels of csrc/gram_tall.cu and csrc/lowrank_tall.cu
+(at full width a (25,165,824, 8) sketch for paper-lm-100m, (114,688,000,
+8) for zamba2-7b).
 """
 from __future__ import annotations
 
@@ -54,8 +57,8 @@ class OnlineAdapter:
                  adapt: Optional[AdaptConfig] = None):
         self.cfg = cfg
         self.adapt = adapt = adapt or AdaptConfig()
-        self._leaf = _pick_leaf(params)
-        head = params[self._leaf]
+        self.leaf = _pick_leaf(params)
+        head = params[self.leaf]
         self._shape, self._dtype = head.shape, head.dtype
         self.device = head.device
         self.d = head.numel()
@@ -78,10 +81,10 @@ class OnlineAdapter:
 
     def _value_and_grad(self, params: dict, batch: dict):
         """(loss, flat f32 gradient, flat f32 head)."""
-        w = params[self._leaf].detach().float().reshape(-1)
+        w = params[self.leaf].detach().float().reshape(-1)
         w.requires_grad_(True)
         p = dict(params)
-        p[self._leaf] = w.reshape(self._shape).to(self._dtype)
+        p[self.leaf] = w.reshape(self._shape).to(self._dtype)
         with torch.enable_grad():
             loss = model_lib.loss_fn(self.cfg, p, self._batch(batch))
             (g,) = torch.autograd.grad(loss, [w])
@@ -105,7 +108,7 @@ class OnlineAdapter:
             (update,), self.opt_state = self._tx.update([g], self.opt_state)
             new_leaf = (w + update).reshape(self._shape).to(self._dtype)
         new_params = dict(params)
-        new_params[self._leaf] = new_leaf
+        new_params[self.leaf] = new_leaf
         return new_params, loss
 
     # -- runtime hyperparameters --------------------------------------------

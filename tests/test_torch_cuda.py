@@ -15,6 +15,16 @@ order), and a value may differ by 1, only where the plain version's
 U_new / scale lies within 1e-3 of a step of a .5 boundary (a few hundred
 ulp at the int8 range's top: the kernel sums the k + r products in another
 order).
+
+The flash attention kernel (kernel 7) and the SSD chunk scan (kernel 8) are
+held to the tolerances of the reference's own sweeps
+(tests/test_kernels.py:210 and :230): against the plain version on the
+f32 upcast inputs, attention ``atol = 2e-5`` in f32 and 0.05 in bf16, the
+scan ``atol = 5e-6 * S`` in f32 and 0.15 in bf16.  Both kernels' sums run
+in a fixed order, so two runs give the same bits.  Their gradients (the
+plain version differentiated, ``kernels/*/ops.py``) match autograd of the
+plain version on the card to ``rtol = 1e-5, atol = 1e-6``: the same
+backward on forwards that differ by the kernel's rounding.
 """
 import numpy as np
 import pytest
@@ -268,3 +278,146 @@ def test_single_wrappers_reject_what_they_do_not_take(card):
         lowrank_kernel.lowrank_apply(u.bfloat16(), c, 1.0, g)
     with pytest.raises(ValueError, match="shape"):
         lowrank_kernel.lowrank_apply(u, c[:2], 1.0, g)
+
+
+# (B, Hq, Hkv, S, hd, causal): tests/test_kernels.py:196-201's sweep, the
+# dense training shape, zamba2-7b's feedback shape, head dims 48 and 128,
+# and a ragged one
+FLASH_CASES = [(1, 2, 2, 64, 16, True), (2, 4, 2, 96, 32, True),
+               (1, 8, 1, 128, 64, True), (2, 2, 2, 80, 16, False),
+               (8, 12, 12, 128, 64, True), (4, 32, 32, 16, 112, True),
+               (2, 6, 3, 130, 48, True), (1, 2, 1, 70, 128, False)]
+
+
+def _flash_inputs(card, B, Hq, Hkv, S, hd, dtype, seed):
+    """q (B, Hq, S, hd) and k, v (B, Hkv, S, hd) as the model hands them
+    over: transposed views of (B, S, H, hd) tensors."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    return [torch.randn(B, S, h, hd, generator=gen, device=card)
+            .to(DTYPES[dtype]).transpose(1, 2) for h in (Hq, Hkv, Hkv)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,S,hd,causal", FLASH_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_kernel_matches_plain_on_card(card, B, Hq, Hkv, S, hd, causal,
+                                            dtype):
+    from repro_torch.kernels.flash import kernel
+    from repro_torch.kernels.flash import ref
+    q, k, v = _flash_inputs(card, B, Hq, Hkv, S, hd, dtype, S + hd)
+    before = kernel.launches
+    got = kernel.flash_attention(q, k, v, causal=causal)
+    again = kernel.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert torch.equal(got, again)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    atol = 2e-5 if dtype == "float32" else 0.05
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=0)
+
+
+# (B, S, H, P, N, chunk): tests/test_kernels.py:215-219's sweep, zamba2-7b's
+# feedback shape, a chunk of 256 at N = 64 and 128, and S and H that are no
+# multiple of the chunk or the head tile
+SSD_CASES = [(1, 32, 4, 16, 16, 8), (2, 64, 8, 16, 32, 16),
+             (1, 48, 6, 32, 64, 16), (4, 16, 112, 64, 64, 16),
+             (1, 512, 8, 64, 64, 256), (1, 512, 4, 64, 128, 256),
+             (2, 70, 5, 32, 48, 32)]
+
+
+def _ssd_inputs(card, B, S, H, P, N, dtype, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    u = (torch.randn(B, S, H, P, generator=gen, device=card) * 0.5)
+    dlog = -torch.randn(B, S, H, generator=gen, device=card).abs() * 0.1
+    Bm = torch.randn(B, S, N, generator=gen, device=card) * 0.3
+    Cm = torch.randn(B, S, N, generator=gen, device=card) * 0.3
+    dt = DTYPES[dtype]
+    return u.to(dt), dlog, Bm.to(dt), Cm.to(dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_ssd_kernel_matches_plain_on_card(card, B, S, H, P, N, chunk, dtype):
+    from repro_torch.kernels.ssd import kernel
+    from repro_torch.kernels.ssd import ref
+    u, dlog, Bm, Cm = _ssd_inputs(card, B, S, H, P, N, dtype, S + N)
+    before = kernel.launches
+    got = kernel.ssd_scan(u, dlog, Bm, Cm, chunk)
+    again = kernel.ssd_scan(u, dlog, Bm, Cm, chunk)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert got.dtype == u.dtype and got.shape == u.shape
+    assert torch.equal(got, again)
+    want = ref.ssd_ref(u.float(), dlog, Bm.float(), Cm.float(), chunk)
+    atol = 5e-6 * S if dtype == "float32" else 0.15
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_and_ssd_gradients_on_card(card, dtype):
+    """The Functions' gradients (kernel forward, plain backward) against
+    autograd of the plain version, and each forward launches once."""
+    from repro_torch.kernels.flash import kernel as flash_kernel
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.flash import ref as flash_ref
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+    qkv = _flash_inputs(card, 2, 4, 2, 40, 32, dtype, 1)
+    ssd_in = _ssd_inputs(card, 2, 48, 6, 32, 64, dtype, 2)
+    cases = [(flash_kernel, lambda *t: flash_ops.flash_attention(*t),
+              lambda *t: flash_ref.attention_ref(*t), qkv),
+             (ssd_kernel, lambda *t: ssd_ops.ssd_scan(*t, 16),
+              lambda *t: ssd_ref.ssd_ref(*t, 16), ssd_in)]
+    for kernel, fn, plain, inputs in cases:
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        before = kernel.launches
+        out = fn(*leaves)
+        assert kernel.launches == before + 1
+        w = torch.randn(out.shape, device=card).to(out.dtype)
+        got = torch.autograd.grad((out.float() * w).sum(), leaves)
+        want = torch.autograd.grad((plain(*leaves).float() * w).sum(),
+                                   leaves)
+        assert kernel.launches == before + 1
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_flash_and_ssd_wrappers_reject_what_they_do_not_take(card):
+    from repro_torch.kernels.flash import kernel as flash_kernel
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    q = torch.zeros(1, 2, 8, 32, device=card)
+    with pytest.raises(TypeError):
+        flash_kernel.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_kernel.flash_attention(q.cpu(), q, q)
+    with pytest.raises(ValueError, match="contiguous last dim"):
+        flash_kernel.flash_attention(q.mT, q.mT, q.mT)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_kernel.flash_attention(q[..., :24], q[..., :24], q[..., :24])
+    with pytest.raises(ValueError, match="S == Sk"):
+        flash_kernel.flash_attention(q, q[:, :, :4], q[:, :, :4])
+    with pytest.raises(ValueError, match="shape"):
+        flash_kernel.flash_attention(q, q[:, :1].expand(1, 3, 8, 32),
+                                     q[:, :1].expand(1, 3, 8, 32))
+    u, dlog = torch.zeros(1, 8, 2, 16, device=card), torch.zeros(1, 8, 2,
+                                                                 device=card)
+    bc = torch.zeros(1, 8, 4, device=card)
+    with pytest.raises(TypeError):
+        ssd_kernel.ssd_scan(u, dlog.bfloat16(), bc, bc, 4)
+    with pytest.raises(TypeError):
+        ssd_kernel.ssd_scan(u.bfloat16(), dlog, bc, bc, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_kernel.ssd_scan(u, dlog.cpu(), bc, bc, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_kernel.ssd_scan(u, dlog, bc.mT.contiguous().mT, bc, 4)
+    with pytest.raises(ValueError, match="P in"):
+        ssd_kernel.ssd_scan(torch.zeros(1, 8, 2, 24, device=card), dlog, bc,
+                            bc, 4)
+    with pytest.raises(ValueError, match="shape"):
+        ssd_kernel.ssd_scan(u, dlog[:, :4], bc, bc, 4)
+

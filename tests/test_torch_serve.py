@@ -19,7 +19,8 @@ reference's weights (``convert.params_from_numpy``).
 (f) The reduced launcher end to end on the CPU against the reference's on
     the same weights: the one-shot demo's tokens, and a traffic run with the
     monitor and adaptation (served counts, readings, decisions, adaptation
-    steps).
+    steps); for mamba2-370m and zamba2-7b also the traffic run's greedy
+    tokens and the adapted tied ``embed``.
 
 Tolerances: logits ``rtol=1e-4, atol=1e-5`` (f32, sums in another order);
 readings' leading eigenvalue ``rtol=1e-4``, pressure ``1e-4`` absolute,
@@ -318,8 +319,64 @@ def test_reduced_launcher_matches_jax(models):
     for a, b in zip(tr, jr):
         np.testing.assert_allclose(a[1:4], b[1:4], rtol=2e-3, atol=2e-2)
     assert report["adapt_steps"] == int(adapt_line[0].split()[2])
-    assert report["launches"] == {"gram": 0, "lowrank_apply": 0}
-    assert "kernel launches: gram 0, lowrank_apply 0" in got
+    assert report["leaf"] == "lm_head"
+    assert report["launches"] == {"gram": 0, "lowrank_apply": 0,
+                                  "flash_attention": 0, "ssd_scan": 0}
+    assert ("kernel launches: gram 0, lowrank_apply 0, flash_attention 0, "
+            "ssd_scan 0") in got
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-7b"])
+def test_reduced_launcher_matches_jax_for_ssm_and_hybrid(arch, monkeypatch):
+    """The ssm and hybrid families through both launchers from the same
+    weights: the one-shot demo's output, and a traffic run's served
+    counts, greedy tokens, monitor decisions, adaptation steps and adapted
+    tied ``embed`` (the reference's engine is recorded to read them)."""
+    jparams = jmodel.init_params(jregistry.get_reduced(arch),
+                                 jax.random.PRNGKey(0))
+    tparams = convert.params_from_numpy(tregistry.get_reduced(arch),
+                                        jax.tree.map(np.asarray, jparams))
+    demo = ["--arch", arch, "--batch", "2", "--new-tokens", "4"]
+    want = _jax_launcher(demo)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        tlaunch.serve(tlaunch.parse_args(demo + ["--device", "cpu"]),
+                      params=tparams)
+    assert out.getvalue() == want
+
+    engines, handles = [], []
+
+    class Recording(jserve.Engine):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            engines.append(self)
+
+        def submit(self, request):
+            handles.append(super().submit(request))
+            return handles[-1]
+
+    monkeypatch.setattr(jserve, "Engine", Recording)
+    argv = ["--arch", arch, "--traffic", "shape=step,rate=1.0,ticks=8,"
+            "step_at=4,prompt_len=4,new_tokens=3", "--monitor",
+            "window=2,ell=8,top_k=3", "--adapt", "lr=0.1,beta2=0.95"]
+    want = _jax_launcher(argv)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        report = tlaunch.serve(tlaunch.parse_args(argv + ["--device", "cpu"]),
+                               params=tparams)
+    got = out.getvalue()
+    first = lambda text: text.splitlines()[0]
+    assert first(got) == first(want)                # served ... tokens
+    assert [h.tokens for h in report["handles"]] == \
+        [h.tokens for h in sorted(handles, key=lambda h: h.id)]
+    decisions = lambda text: [r[4] for r in _READING.findall(text)]
+    assert len(decisions(got)) == 4 and decisions(got) == decisions(want)
+    adapt_line = [ln for ln in want.splitlines() if ln.startswith("adapt")]
+    assert [ln for ln in got.splitlines() if ln.startswith("adapt")] == \
+        adapt_line
+    assert report["adapt_steps"] >= 1 and report["leaf"] == "embed"
+    assert_close_scaled(report["params"]["embed"].numpy(),
+                        engines[0].params["embed"])
 
 
 def test_launcher_needs_a_card_unless_asked_for_cpu():
