@@ -6,7 +6,8 @@ Phases, in order; any failure ends the run with a non-zero exit code and
 no result line:
 
 1. device: the card's name and power limit; TF32 off; build every CUDA
-   kernel from src/repro_torch/csrc.
+   kernel from src/repro_torch/csrc; the registers, static shared memory
+   and spills ``ptxas`` gave each kernel of kernels 6 and 7.
 2. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at every shape the Sketchy training step gives it (fp32
    storage for the Gram and the f32 apply, int8 storage for the mixed Gram,
@@ -21,7 +22,9 @@ no result line:
    reference's ragged sweeps, in f32 and bf16, at the reference's
    tolerances and a relative error of the whole output (MODEL_RTOL), two
    runs giving the same bits; attention timed beside
-   ``scaled_dot_product_attention`` (the scan has no single PyTorch call).
+   ``scaled_dot_product_attention`` (the scan has no single PyTorch call;
+   at the main shapes over 200 launches, kernel and sdpa in turns).
+   Kernels 6 and 7 also print their achieved TFLOP/s and share of bound.
 3. eigh: ``torch.linalg.eigh`` over one refresh's 444 Grams (a library call
    in both packages, timed on its own).
 4. main paths: ``repro_torch.launch.train`` at full-width paper-lm-100m with
@@ -175,6 +178,31 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, calls: int = 50) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls captured in a CUDA
+    graph, the graph's replay timed with CUDA events (no host work between
+    the launches)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                   # warm up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, 5) / calls
+
+
+def _in_turns(kernel, library, reps: int) -> tuple[float, float]:
+    """``cuda_ms`` of ``kernel`` and ``library`` timed in turns (kernel,
+    library, kernel, library), each the lower of its two runs: at
+    launch-bound shapes both are host-bound and the host's noise moves
+    single runs."""
+    runs = [cuda_ms(fn, reps) for fn in (kernel, library, kernel, library)]
+    return min(runs[0], runs[2]), min(runs[1], runs[3])
 
 
 def bound_ms(nbytes: float, flops: float,
@@ -433,23 +461,37 @@ def phase_model_kernels(dev, gen) -> dict:
         del want
         if (B, Hq, Hkv, S, hd, causal) not in FLASH_MAIN:
             continue
-        reps = 3 if S > 1024 else 20
-        ms = cuda_ms(lambda: flash_kernel.flash_attention(q, k, v,
-                                                          causal=causal),
-                     reps)
+        # 200 launches at the launch-bound main-path shapes (over 20 their
+        # times moved up to 2x between runs), kernel and sdpa in turns,
+        # each the lower of its two runs
+        reps = 10 if S > 1024 else 200
+        ms, lib = _in_turns(
+            lambda: flash_kernel.flash_attention(q, k, v, causal=causal),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=causal), reps)
         plain = cuda_ms(lambda: flash_ref.attention_ref(q, k, v,
                                                         causal=causal), reps)
-        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=causal), reps)
+        if S <= 1024:   # launch-bound: the device's share, without the host
+            dev_kernel = graph_ms(lambda: flash_kernel.flash_attention(
+                q, k, v, causal=causal))
+            dev_lib = graph_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal))
+            print(f"flash_attention B={B} H={Hq} S={S} device time per "
+                  f"call (CUDA graph of 50): kernel {dev_kernel * 1e3:.2f} "
+                  f"us, sdpa {dev_lib * 1e3:.2f} us")
         pairs = S * (S + 1) // 2 if causal else S * S
         t_bytes, t_ops = bound_ms(2 * (2 * B * Hq * S * hd
                                        + 2 * B * Hkv * S * hd),
                                   4 * B * Hq * pairs * hd, BF16_FLOPS_PER_S)
         rows.append(((B, Hq, S, hd), ms, plain, lib, t_bytes, t_ops))
-        print(f"flash_attention B={B} H={Hq} S={S} hd={hd} bf16: {ms:.3f} "
-              f"ms, plain {plain:.3f} ms, sdpa {lib:.3f} ms, bound "
-              f"{max(t_bytes, t_ops):.3f} ms (bytes {t_bytes:.3f}, "
-              f"operations {t_ops:.3f})")
+        flops = 4 * B * Hq * pairs * hd
+        print(f"flash_attention B={B} H={Hq} S={S} hd={hd} bf16: {ms:.4f} "
+              f"ms ({_rate(flops, ms)}, {max(t_bytes, t_ops) / ms:.1%} of "
+              f"bound), plain {plain:.4f} ms, sdpa {lib:.4f} ms "
+              f"({_rate(flops, lib)}), bound {max(t_bytes, t_ops):.4f} ms "
+              f"(bytes {t_bytes:.4f}, operations {t_ops:.4f}); kernel / "
+              f"sdpa {ms / lib:.2f}")
     out["flash_attention"] = dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash.cu",
@@ -494,6 +536,10 @@ def phase_model_kernels(dev, gen) -> dict:
         replaces="src/repro/kernels/ssd/kernel.py:68", max_abs_err=err,
         **_row(rows[0]))
     return out
+
+
+def _rate(flops: float, ms: float) -> str:
+    return f"{flops / ms / 1e9:.1f} TFLOP/s"
 
 
 def _row(row) -> dict:
@@ -565,21 +611,30 @@ def phase_int8_kernels(dev, gen, refresh_main, apply_main) -> dict:
             continue
         vqf, w_top, a, w_bot = args[0].float(), *args[1:]
         ms = cuda_ms(lambda: lowrank_kernel.batched_project_quantize(*args),
-                     3)
+                     10)
         plain = cuda_ms(
-            lambda: lowrank_ref.batched_project_quantize_ref(*args), 3)
+            lambda: lowrank_ref.batched_project_quantize_ref(*args), 10)
         lib = cuda_ms(lambda: torch.baddbmm(torch.bmm(a, w_bot), vqf, w_top),
-                      3)
+                      10)
         t_bytes, t_ops = bound_ms(
             N * d * k + 4 * (N * k * k + N * d * r + N * r * k + N)
             + N * d * k, 2 * N * d * k * (k + r) + 2 * N * d * k)
         rows.append((ms, plain, lib, t_bytes, t_ops))
-        print(f"batched_project_quantize N={N} d={d} k={k} r={r}: {ms:.3f} "
-              f"ms, plain {plain:.3f} ms, bmm+baddbmm {lib:.3f} ms, bound "
-              f"{max(t_bytes, t_ops):.3f} ms (bytes {t_bytes:.3f}, "
-              f"operations {t_ops:.3f})")
+        flops = 2 * N * d * k * (k + r)
+        print(f"batched_project_quantize N={N} d={d} k={k} r={r}: {ms:.4f} "
+              f"ms ({_rate(flops, ms)}, {max(t_bytes, t_ops) / ms:.1%} of "
+              f"bound), plain {plain:.4f} ms, bmm+baddbmm {lib:.4f} ms "
+              f"({_rate(flops, lib)}), bound {max(t_bytes, t_ops):.4f} ms "
+              f"(bytes {t_bytes:.4f}, operations {t_ops:.4f})")
     print(f"batched_project_quantize: {flips} of {entries} int8 values "
           f"differ by 1 from the plain version, each at a .5 boundary")
+    sums = _sums(rows)
+    flops = sum(2 * N * d * k * (k + r) for N, d, k, r in refresh_main)
+    print(f"batched_project_quantize, one refresh ({len(rows)} calls): "
+          f"{sums['ms']:.4f} ms ({_rate(flops, sums['ms'])}, "
+          f"{sums['bound_ms'] / sums['ms']:.1%} of bound), bmm+baddbmm "
+          f"{sums['library_ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms; "
+          f"kernel / library {sums['ms'] / sums['library_ms']:.2f}")
     out["batched_project_quantize"] = dict(
         name="batched_project_quantize", route="cuda",
         source="src/repro_torch/csrc/project_quantize.cu",
@@ -629,8 +684,9 @@ def phase_int8_kernels(dev, gen, refresh_main, apply_main) -> dict:
 
 def _sums(rows) -> dict:
     """Times of the main path's calls summed: one refresh for the Grams and
-    the write-back, one step for the applies.  The bound is the sum of each call's bound; it is
-    named by whichever of bytes and operations takes longer in total."""
+    the write-back, one step for the applies.  The bound is the sum of each
+    call's bound; it is named by whichever of bytes and operations takes
+    longer in total."""
     ms, plain, lib, t_bytes, t_ops = (sum(col) for col in zip(*rows))
     return dict(ms=ms, plain_ms=plain,
                 bound_ms=sum(max(r[3], r[4]) for r in rows),
@@ -960,6 +1016,11 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    for lib in ("flash", "project_quantize"):   # kernels 7 and 6
+        for fn, regs, smem, spill_st, spill_ld in build.resources(lib):
+            print(f"{lib}: {fn}: {regs} registers, {smem} B static shared "
+                  f"memory, spills {spill_st} B stored / {spill_ld} B "
+                  f"loaded")
 
     kernels = phase_kernels(dev)
     phase_eigh(dev)

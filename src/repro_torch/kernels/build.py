@@ -7,7 +7,8 @@ on the first call to ``library``.  Outputs go to ``build/repro_torch/`` at
 the repository root, named by a hash of the sources and flags, so an edited
 source builds anew and an unchanged one is reused.  ``nvcc -Xptxas -v``
 reports each kernel's registers, shared memory and spills; the build prints
-that summary.
+that summary and keeps it beside the library (``resources`` parses it per
+kernel).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -48,16 +50,36 @@ SIGNATURES = {
     },
     "project_quantize": {
         "repro_batched_project_quantize":
-            [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+            [_P] * 7 + [_I] * 7 + [_P],
     },
     "flash": {
         "repro_flash_attention":
-            [_P, _P, _P, _P] + [_LL] * 12 + [_I] * 8 + [_P],
+            [_P, _P, _P, _P] + [_LL] * 12 + [_I] * 9 + [_P],
     },
     "ssd": {
         "repro_ssd_scan": [_P, _P, _P, _P, _P] + [_I] * 7 + [_P],
     },
 }
+
+
+def resources(name: str) -> list:
+    """Per kernel of library ``name``: (mangled name, registers, static
+    shared memory bytes, spill store bytes, spill load bytes), as ``ptxas
+    -v`` reported them when the library was built (its log beside it)."""
+    log = _build_all()[name].with_suffix(".log")
+    text = log.read_text() if log.exists() else ""
+    out = []
+    for block in text.split("Compiling entry function")[1:]:
+        fn = re.search(r"'([^']+)'", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        smem = re.search(r"(\d+) bytes smem", block)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", block)
+        spill = tuple(map(int, spills.groups())) if spills else (None, None)
+        out.append((fn.group(1) if fn else "?",
+                    int(regs.group(1)) if regs else None,
+                    int(smem.group(1)) if smem else 0, *spill))
+    return out
 
 
 def _nvcc() -> str:
@@ -96,11 +118,13 @@ def _build_all() -> dict:
         log, _ = proc.communicate()
         print(f"[build] nvcc {name}.cu (exit {proc.returncode})")
         for line in log.splitlines():
-            if proc.returncode != 0 or "ptxas" in line or "warning" in line:
+            if proc.returncode != 0 or any(
+                    w in line for w in ("ptxas", "spill", "warning")):
                 print(f"[build]   {line.strip()}")
         if proc.returncode != 0:
             failed.append(name)
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError(f"nvcc failed for {failed}; see the log above")
@@ -121,10 +145,17 @@ def library(name: str) -> ctypes.CDLL:
 
 def launch(fn, device: torch.device, *args) -> int:
     """Call the C entry point ``fn`` with ``args`` and the current stream of
-    ``device`` last, with ``device`` current; returns its CUDA error code."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        return fn(*args, ctypes.c_void_p(stream))
+    ``device`` last, with ``device`` current (made so for the call when it
+    is not); returns its CUDA error code.  The stream comes from PyTorch's
+    raw getter, which builds no Stream object (the launch-bound calls of
+    the model's attention are host-bound)."""
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    stream = torch._C._cuda_getCurrentRawStream
+    if index != current:
+        with torch.cuda.device(index):
+            return fn(*args, stream(index))
+    return fn(*args, stream(index))
 
 
 def build_all() -> None:

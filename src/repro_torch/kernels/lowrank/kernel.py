@@ -20,7 +20,9 @@ view; its caller makes the copy (core/fd.py fd_apply_inverse_root_batched).
 """
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -31,6 +33,14 @@ G_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_BLOCKS = 65535      # the grid's z / y dimension
 MAX_ELL = 1024          # the single-block expand pass holds P's tile in
                         # shared memory: ell * 8 f32
+# the write-back's pass 1 (csrc/project_quantize.cu project_kernel)
+PROJECT_ROWS, PROJECT_COLS, PROJECT_DEPTH = 128, 64, 32
+PROJECT_THREADS = 128
+SMS = 132               # the H100's streaming multiprocessors
+PROJECT_BLOCKS_PER_SM = 3   # pass 1's residency: 168 registers x 128
+                            # threads (its launch bound), 53,248 B of
+                            # shared memory a block
+SMEM_LIMIT = 232_448    # dynamic shared memory a Hopper block can use
 launches = 0
 int8_launches = 0
 single_launches = 0
@@ -149,6 +159,87 @@ def lowrank_apply(u: torch.Tensor, coeffs: torch.Tensor, base,
     return out
 
 
+class ProjectPlan(NamedTuple):
+    tiles: tuple        # (row blocks of d, column blocks of e, N)
+    panels: int         # per tile: ceil(k / 32) + ceil(r / 32)
+    blocks: int         # pass 1's grid, sharing the tiles' panels
+    threads: int
+    smem_bytes: int     # pass 1's double-buffered panels
+    scratch: int        # f32 elements: partial slots, U_new, absmax words
+
+
+@functools.lru_cache(maxsize=1024)
+def project_plan(N: int, d: int, k: int, r: int, e: int) -> ProjectPlan:
+    """The write-back as csrc/project_quantize.cu launches it.  Pass 1 has
+    128-thread blocks, each computing 128 x 64 tiles of U_new over 32-deep
+    panels of V's k columns and then A's r columns, double buffered in
+    shared memory ([2][128][36] and [2][32][64] f32).  The tiles' panels,
+    in a row, are cut evenly among as many blocks as are resident on the
+    card at once (``project_runs``), each with two partial slots of one
+    tile for the tiles it shares with its neighbours."""
+    tiles = (math.ceil(d / PROJECT_ROWS), math.ceil(e / PROJECT_COLS), N)
+    panels = math.ceil(k / PROJECT_DEPTH) + math.ceil(r / PROJECT_DEPTH)
+    units = math.prod(tiles) * panels
+    blocks = min(units, SMS * PROJECT_BLOCKS_PER_SM)
+    return ProjectPlan(
+        tiles, panels, blocks, PROJECT_THREADS,
+        4 * 2 * (PROJECT_ROWS * (PROJECT_DEPTH + 4)
+                 + PROJECT_DEPTH * PROJECT_COLS),
+        2 * blocks * PROJECT_ROWS * PROJECT_COLS + N * d * e + N)
+
+
+def project_runs(units: int, blocks: int, panels: int) -> list:
+    """Pass 1's partition, as project_kernel walks it: per block c, its
+    runs (tile, first panel, end panel, slot) over units [c U / B,
+    (c + 1) U / B) (unit = tile * panels + panel); slot None for a whole
+    tile, else the partial slot: 0 for a run that starts inside its tile, 1
+    for one that starts the tile and ends inside it."""
+    out = []
+    for c in range(blocks):
+        u, hi, runs = c * units // blocks, (c + 1) * units // blocks, []
+        while u < hi:
+            tile, pa = divmod(u, panels)
+            pb = min(panels, pa + hi - u)
+            whole = pa == 0 and pb == panels
+            runs.append((tile, pa, pb, None if whole else int(pa == 0)))
+            u += pb - pa
+        out.append(runs)
+    return out
+
+
+def project_parts(units: int, blocks: int, panels: int, tile: int) -> list:
+    """The (block, slot) parts fixup_kernel adds, in order, for ``tile``
+    (empty for a tile one block computed whole): the block holding the
+    tile's first panel, slot 1, then slot 0 of each block up to the one
+    holding its last panel."""
+    def block_of(u):
+        return max(c for c in range(blocks) if c * units // blocks <= u)
+    c0 = block_of(tile * panels)
+    c1 = block_of(tile * panels + panels - 1)
+    if c0 == c1:
+        return []
+    return [(c0, 1)] + [(c, 0) for c in range(c0 + 1, c1 + 1)]
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def project_vector_flags(vq: torch.Tensor, w_top: torch.Tensor,
+                         a: torch.Tensor, w_bot: torch.Tensor,
+                         un: torch.Tensor) -> int:
+    """Which operands pass 1 moves in 16-byte accesses (bit 0 V, 1 A, 2
+    W_top and W_bot, 3 the f32 scratch it writes): those whose base is
+    16-byte aligned and whose rows are a whole number of 16 bytes (k % 16
+    int8 values, r % 4 or e % 4 floats), so every row starts aligned.  The
+    rest take masked scalar accesses."""
+    k, r, e = vq.shape[2], a.shape[2], w_top.shape[2]
+    return (int(k % 16 == 0 and _aligned(vq))
+            | int(r % 4 == 0 and _aligned(a)) << 1
+            | int(e % 4 == 0 and _aligned(w_top, w_bot)) << 2
+            | int(e % 4 == 0 and _aligned(un)) << 3)
+
+
 def batched_project_quantize(vq: torch.Tensor, w_top: torch.Tensor,
                              a: torch.Tensor, w_bot: torch.Tensor
                              ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -180,16 +271,18 @@ def batched_project_quantize(vq: torch.Tensor, w_top: torch.Tensor,
         raise ValueError(f"batched_project_quantize kernel takes at most "
                          f"{MAX_BLOCKS} blocks, got {N}")
     values = torch.empty((N, d, e), dtype=torch.int8, device=a.device)
-    scale = torch.ones((N, 1, 1), dtype=torch.float32, device=a.device)
     if values.numel() == 0:
-        return values, scale
-    scratch = torch.empty((N, d, e), dtype=torch.float32, device=a.device)
-    absmax = torch.zeros((N,), dtype=torch.int32, device=a.device)
+        return values, torch.ones((N, 1, 1), dtype=torch.float32,
+                                  device=a.device)
+    scale = torch.empty((N, 1, 1), dtype=torch.float32, device=a.device)
+    p = project_plan(N, d, k, r, e)
+    scratch = torch.empty((p.scratch,), dtype=torch.float32, device=a.device)
     err = build.launch(
         build.library("project_quantize").repro_batched_project_quantize,
         a.device, vq.data_ptr(), w_top.data_ptr(), a.data_ptr(),
-        w_bot.data_ptr(), scratch.data_ptr(), absmax.data_ptr(),
-        values.data_ptr(), scale.data_ptr(), N, d, k, r, e)
+        w_bot.data_ptr(), scratch.data_ptr(), values.data_ptr(),
+        scale.data_ptr(), N, d, k, r, e, p.blocks,
+        project_vector_flags(vq, w_top, a, w_bot, scratch))
     if err != 0:
         raise RuntimeError(f"batched_project_quantize kernel launch failed: "
                            f"CUDA error {err} at vq {tuple(vq.shape)}, a "

@@ -24,7 +24,11 @@ scan ``atol = 5e-6 * S`` in f32 and 0.15 in bf16.  Both kernels' sums run
 in a fixed order, so two runs give the same bits.  Their gradients (the
 plain version differentiated, ``kernels/*/ops.py``) match autograd of the
 plain version on the card to ``rtol = 1e-5, atol = 1e-6``: the same
-backward on forwards that differ by the kernel's rounding.
+backward on forwards that differ by the kernel's rounding.  The bf16
+attention kernel (``wgmma``) is also held at its own edges (every head dim,
+sequences that fill no tile, Sk != S, one KV head, more blocks than SMs) to
+a relative error of the whole output of 1e-2 beside the atol, and raises on
+a view that is not 16-byte aligned.
 """
 import numpy as np
 import pytest
@@ -110,7 +114,13 @@ def test_kernel_wrappers_reject_what_they_do_not_take(card):
 # of each full-width pool group at rank 64)
 INT8_CASES = [(1, 16, 4, 1), (3, 20, 12, 5), (2, 12, 12, 30), (5, 100, 30, 2),
               (4, 70, 12, 1), (2, 12, 12, 768), (2, 768, 64, 12),
-              (48, 768, 64, 768), (68, 1024, 64, 768), (104, 768, 64, 1024)]
+              (48, 768, 64, 768), (68, 1024, 64, 768), (104, 768, 64, 1024),
+              # the write-back's 128-row blocks and 32-deep panels: d no
+              # multiple of 128, r no multiple of 32, k and r no multiple of
+              # the 16-byte vector (scalar loads), e = k over 64 (two column
+              # blocks)
+              (3, 200, 64, 40), (2, 1000, 64, 50), (2, 200, 12, 45),
+              (2, 130, 80, 20)]
 
 
 def _int8(n, d, k, gen, card):
@@ -315,6 +325,65 @@ def test_flash_kernel_matches_plain_on_card(card, B, Hq, Hkv, S, hd, causal,
     want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal)
     atol = 2e-5 if dtype == "float32" else 0.05
     torch.testing.assert_close(got.float(), want, atol=atol, rtol=0)
+
+
+# bf16 only, the edges of the wgmma kernel (B, Hq, Hkv, S, Sk, hd, causal):
+# every head dim at S 130 (no multiple of the 128-row query tile or the
+# 64-key tile), hd 112 at S 4096, not causal with Sk != S, GQA with one KV
+# head, B * Hq = 160 blocks (over the card's 132 SMs), and S <= 64 (a
+# 64-row block, one warpgroup)
+FLASH_BF16_CASES = [(1, 4, 2, 130, 130, hd, True)
+                    for hd in range(16, 129, 16)]
+FLASH_BF16_CASES += [(1, 32, 32, 4096, 4096, 112, True),
+                     (2, 4, 4, 200, 72, 64, False),
+                     (1, 4, 2, 200, 333, 112, False),
+                     (2, 8, 1, 256, 256, 64, True),
+                     (5, 32, 8, 100, 100, 64, True),
+                     (3, 6, 2, 40, 40, 128, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,S,Sk,hd,causal", FLASH_BF16_CASES)
+def test_flash_bf16_kernel_edges_on_card(card, B, Hq, Hkv, S, Sk, hd,
+                                         causal):
+    """The reference's bf16 tolerance (atol 0.05 on the f32 upcast inputs)
+    and, as chip_smoke.py's MODEL_RTOL, a relative error of the whole
+    output of at most 1e-2 (at S 4096 the outputs are ~0.03 each)."""
+    from repro_torch.kernels.flash import kernel
+    from repro_torch.kernels.flash import ref
+    gen = torch.Generator(device=card).manual_seed(S + Sk + hd)
+    q = torch.randn(B, S, Hq, hd, generator=gen, device=card).bfloat16()
+    k, v = (torch.randn(B, Sk, Hkv, hd, generator=gen, device=card)
+            .bfloat16().transpose(1, 2) for _ in "kv")
+    q = q.transpose(1, 2)
+    before = kernel.launches
+    got = kernel.flash_attention(q, k, v, causal=causal)
+    again = kernel.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert torch.equal(got, again)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    torch.testing.assert_close(got.float(), want, atol=0.05, rtol=0)
+    assert float((got.float() - want).norm() / want.norm()) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_flash_bf16_kernel_rejects_misaligned_views(card):
+    """The bf16 kernel copies 16-byte chunks: a base or a stride that is no
+    multiple of 16 bytes raises (the f32 kernel has no such rule)."""
+    from repro_torch.kernels.flash import kernel
+    flat = torch.zeros(8 * 2 * 64 + 1, device=card, dtype=torch.bfloat16)
+    q = flat[1:].view(1, 8, 2, 64).transpose(1, 2)      # base 2 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        kernel.flash_attention(q, q, q)
+    wide = torch.zeros(1, 8, 2, 68, device=card, dtype=torch.bfloat16)
+    q = wide[..., :64].transpose(1, 2)                  # rows 136 bytes
+    with pytest.raises(ValueError, match="aligned"):
+        kernel.flash_attention(q, q, q)
+    before = kernel.launches
+    kernel.flash_attention(q.float(), q.float(), q.float())
+    assert kernel.launches == before + 1
 
 
 # (B, S, H, P, N, chunk): tests/test_kernels.py:215-219's sweep, zamba2-7b's

@@ -11,6 +11,11 @@ Tolerances: the reference's own, ``atol = 2e-5`` in f32 and 0.05 in bf16
 (bf16 inputs against the reference on their f32 upcast, as its sweep holds
 the Pallas kernel); the model's attention and the gradients in f32
 ``rtol = 1e-5, atol = 1e-6`` (sums in another order).
+
+The card kernel's launch arithmetic (``kernel.plan``, ``check_aligned``)
+is plain Python and is checked here too: which kernel each dtype takes,
+that every head dim fits the block's shared memory and that the grid
+covers every query tile, and the bf16 kernel's alignment rule.
 """
 import jax
 import jax.numpy as jnp
@@ -25,6 +30,7 @@ from repro.kernels.flash.ref import attention_ref as j_attention_ref
 from repro.models import attention as jattention
 from repro_torch.configs import registry as tregistry
 from repro_torch.kernels import registry as kernel_registry
+from repro_torch.kernels.flash import kernel as fkernel
 from repro_torch.kernels.flash import ops, ref
 from repro_torch.models import attention as tattention
 
@@ -104,3 +110,59 @@ def test_flash_route_raises_off_cpu_and_cuda():
     q = torch.zeros(1, 2, 4, 16, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         kernel_registry.flash_attention(q, q, q)
+
+
+# (B, Hq, S): the main paths' shapes, S 4096, rows that fill no tile, B * Hq
+# over 132, and S on each side of the one-warpgroup block (64)
+PLAN_SHAPES = [(8, 12, 128), (4, 32, 16), (1, 32, 4096), (2, 6, 130),
+               (5, 32, 100), (1, 2, 64), (1, 2, 65), (3, 1, 1)]
+
+
+@pytest.mark.parametrize("hd", range(16, 129, 16))
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_plan_fits_and_covers(hd, dtype):
+    tdt = DTYPES[dtype][1]
+    for B, Hq, S in PLAN_SHAPES:
+        p = fkernel.plan(tdt, B, Hq, S, hd)
+        assert p.smem_bytes <= fkernel.SMEM_LIMIT
+        if tdt == torch.float32:
+            assert (p.kernel, p.block_m, p.threads) == ("simt_f32", 64, 256)
+            tiles, heads, batch = p.grid
+            assert (heads, batch) == (Hq, B)
+        else:
+            assert p.kernel == "wgmma_bf16"
+            two_per_sm = B * Hq * -(-S // 128) >= 2 * fkernel.SMS
+            assert p.block_m == (128 if two_per_sm else 64)
+            assert p.threads == 128 * (p.block_m // 64)   # a warpgroup a 64
+            bh, tiles, one = p.grid
+            assert (bh, one) == (B * Hq, 1)
+        # every query row in exactly one tile
+        assert (tiles - 1) * p.block_m < S <= tiles * p.block_m
+
+
+def test_flash_plan_raises_on_what_no_kernel_takes():
+    with pytest.raises(TypeError):
+        fkernel.plan(torch.float16, 1, 2, 64, 64)
+    with pytest.raises(ValueError, match="grid"):
+        fkernel.plan(torch.float32, 70_000, 2, 64, 64)
+    with pytest.raises(ValueError, match="grid"):
+        fkernel.plan(torch.bfloat16, 1, 2, 128 * 65_536, 64)
+    assert fkernel.plan(torch.bfloat16, 70_000, 2, 64, 64).grid[0] == 140_000
+
+
+def test_flash_alignment_rule():
+    """Base and batch, sequence and head strides of a bf16 operand must be
+    multiples of 16 bytes; the model's transposed (B, S, H, hd) views are."""
+    def check(name, t):
+        fkernel.check_aligned(name, t, t.stride())
+    x = torch.zeros(2, 16, 4, 64, dtype=torch.bfloat16)
+    check("q", x.transpose(1, 2))
+    flat = torch.zeros(x.numel() + 8, dtype=torch.bfloat16)
+    check("q", flat[8:].view(2, 16, 4, 64).transpose(1, 2))
+    with pytest.raises(ValueError, match="aligned"):
+        check("q", flat[1:1 + x.numel()].view(2, 16, 4, 64).transpose(1, 2))
+    wide = torch.zeros(2, 16, 4, 68, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        check("k", wide[..., :64].transpose(1, 2))
+    check("k", torch.zeros(2, 16, 4, 72, dtype=torch.bfloat16)
+          [..., :64].transpose(1, 2))

@@ -39,6 +39,7 @@ from repro.kernels.lowrank.kernel import (batched_lowrank_apply_pallas,
                                           lowrank_apply_pallas)
 from repro_torch.kernels import registry
 from repro_torch.kernels.gram import ref as gram_ref
+from repro_torch.kernels.lowrank import kernel as lowrank_kernel
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -282,3 +283,72 @@ def test_int8_entries_on_empty_pool():
         vq, torch.ones((0, 1, 1)), torch.zeros((0, 3)), torch.zeros((0,)),
         torch.zeros((0, 8, 4)))
     assert y.shape == (0, 8, 4)
+
+
+# (N, d, k, r): the main path's eight write-back shapes (chip_smoke.py
+# main_path_shapes: left and right side of each full-width pool group), then
+# d no multiple of the 128-row block, r no multiple of the 32-deep panel,
+# k = e over the 64-column block
+PROJECT_SHAPES = [(68, 1024, 64, 768), (68, 768, 64, 1024), (2, 12, 12, 768),
+                  (2, 768, 64, 12), (104, 768, 64, 1024),
+                  (104, 1024, 64, 768), (48, 768, 64, 768),
+                  (3, 200, 64, 40), (2, 1000, 64, 50), (2, 200, 12, 45),
+                  (2, 130, 80, 20)]
+
+
+@pytest.mark.parametrize("N,d,k,r", PROJECT_SHAPES)
+def test_project_plan_covers_and_fits(N, d, k, r):
+    """The write-back's pass 1 (``kernel.project_plan``, the launch
+    arithmetic csrc/project_quantize.cu mirrors): its tiles cover every row
+    of d and column of e = k exactly once and its panels every column of V
+    and of A; its blocks, resident at once, cover every (tile, panel) unit
+    exactly once; a tile cut among blocks has its parts in distinct slots,
+    which the fixup adds in block order; the scratch holds them; its shared
+    memory fits a Hopper block."""
+    p = lowrank_kernel.project_plan(N, d, k, r, k)
+    rows, cols, blocks = p.tiles
+    R, C, D = (lowrank_kernel.PROJECT_ROWS, lowrank_kernel.PROJECT_COLS,
+               lowrank_kernel.PROJECT_DEPTH)
+    assert blocks == N
+    assert (rows - 1) * R < d <= rows * R
+    assert (cols - 1) * C < k <= cols * C
+    nv = p.panels - (r + D - 1) // D
+    assert (nv - 1) * D < k <= nv * D
+    assert p.smem_bytes <= lowrank_kernel.SMEM_LIMIT
+    assert p.threads * 8 * 8 == R * C       # an 8 x 8 tile a thread
+    tiles = rows * cols * N
+    units = tiles * p.panels
+    assert p.blocks == min(units, lowrank_kernel.SMS
+                           * lowrank_kernel.PROJECT_BLOCKS_PER_SM)
+    assert p.scratch == 2 * p.blocks * R * C + N * d * k + N
+    runs = lowrank_kernel.project_runs(units, p.blocks, p.panels)
+    covered = sorted((t, q) for block in runs for t, pa, pb, _ in block
+                     for q in range(pa, pb))
+    assert covered == [(t, q) for t in range(tiles)
+                       for q in range(p.panels)]
+    slots = {}
+    for c, block in enumerate(runs):
+        for t, pa, pb, slot in block:
+            if slot is not None:
+                assert (c, slot) not in slots
+                slots[c, slot] = (t, pa)
+    for t in range(tiles):
+        parts = lowrank_kernel.project_parts(units, p.blocks, p.panels, t)
+        mine = sorted((pa, c, s) for (c, s), (tt, pa) in slots.items()
+                      if tt == t)
+        assert [(c, s) for _, c, s in mine] == parts
+def test_project_vector_flags():
+    """16-byte accesses only where every row starts 16-byte aligned: V's
+    rows are k int8 values (k % 16), A's r floats (r % 4), W's and the
+    scratch's e floats (e % 4), and each base aligned."""
+    def flags(k, r, e, shift=0):
+        vq = torch.zeros(2 * 8 * k + 16, dtype=torch.int8)[shift:][
+            :2 * 8 * k].view(2, 8, k)
+        return lowrank_kernel.project_vector_flags(
+            vq, torch.zeros(2, k, e), torch.zeros(2, 8, r),
+            torch.zeros(2, r, e), torch.zeros(2, 8, e))
+    assert flags(64, 768, 64) == 0b1111
+    assert flags(12, 768, 12) == 0b1110
+    assert flags(64, 45, 64) == 0b1101
+    assert flags(64, 12, 10) == 0b0011
+    assert flags(64, 768, 64, shift=1) == 0b1110
