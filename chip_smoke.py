@@ -7,7 +7,7 @@ no result line:
 
 1. device: the card's name and power limit; TF32 off; build every CUDA
    kernel from src/repro_torch/csrc; the registers, static shared memory
-   and spills ``ptxas`` gave each kernel of kernels 6 and 7.
+   and spills ``ptxas`` gave each kernel of kernels 1, 5, 6 and 7.
 2. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at every shape the Sketchy training step gives it (fp32
    storage for the Gram and the f32 apply, int8 storage for the mixed Gram,
@@ -24,7 +24,11 @@ no result line:
    runs giving the same bits; attention timed beside
    ``scaled_dot_product_attention`` (the scan has no single PyTorch call;
    at the main shapes over 200 launches, kernel and sdpa in turns).
-   Kernels 6 and 7 also print their achieved TFLOP/s and share of bound.
+   Kernels 1, 5, 6 and 7 also print their achieved TFLOP/s and share of
+   bound (kernels 1 and 5 against both their 3xTF32 and f32 bounds, each
+   with two runs giving the same bits at one main-path shape, and also
+   held to the tolerance on data of mean 3); every row bound by f32
+   operations also prints that bound at the 3xTF32 rate.
 3. eigh: ``torch.linalg.eigh`` over one refresh's 444 Grams (a library call
    in both packages, timed on its own).
 4. main paths: ``repro_torch.launch.train`` at full-width paper-lm-100m with
@@ -113,15 +117,26 @@ from repro_torch.models import model as model_lib  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at its 700 W
 # limit): device memory 3.35 TB/s; f32 outside the tensor cores 67 TFLOP/s;
-# bf16 on the tensor cores 989 TFLOP/s.  A bound takes the operations at the
-# rate of the type the function multiplies in: f32 for the FD kernels (int8
-# factors meet f32 operands) and the SSD scan (the reference upcasts every
-# input to f32 before its products), bf16 for bf16 attention (the reference
-# multiplies q k^T and p v in the inputs' type, accumulating in f32),
-# whatever unit the hand-written kernel itself uses.
+# tf32 on the tensor cores 494.7 TFLOP/s; bf16 on the tensor cores 989
+# TFLOP/s; int8 on the tensor cores 1979 TOP/s.  A bound takes the
+# operations at the rate of the fastest unit shown to meet the function's
+# tolerance, whatever unit the hand-written kernel itself uses: bf16 for
+# bf16 attention (the reference multiplies q k^T and p v in the inputs'
+# type, accumulating in f32); error-compensated 3xTF32 (three tf32 products
+# a multiply-add, 494.7 / 3 TFLOP/s) for the batched FD Grams' f32 columns,
+# which csrc/gram.cu shows meets their f32 tolerance of 1e-4 sqrt(d) (one
+# tf32 product does not), with the mixed Gram's exact int8 columns needing
+# fewer (_mixed_tf32_ms); f32 for the other FD kernels (int8 factors meet
+# f32 operands) and the SSD scan (the reference upcasts every input to f32
+# before its products).  Only kernels 1 and 5 carry the 3xTF32 bound in the
+# JSON line; every other row bound by f32 operations keeps its f32 bound
+# there and prints its bound at 3xTF32 beside it, for ordering only.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 494.7e12
+TF32X3_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
 BF16_FLOPS_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
 RANK, BLOCK = 64, 1024          # the launcher's defaults
 # The launcher's defaults but a peak lr of 3e-4 (default 3e-3): with 12
 # steps the warmup-cosine schedule warms up for one step, and at full width
@@ -229,30 +244,47 @@ def main_path_shapes() -> tuple[list, list]:
     return refresh, apply
 
 
-def check(name: str, got: torch.Tensor, want: torch.Tensor, d: int) -> float:
-    """f32 tolerance of the tests: |got - want| <= 1e-4 sqrt(d) + 1e-5
-    |want| (sums of d products in another order); returns the largest
-    absolute difference."""
+def tolerance_share(got: torch.Tensor, want: torch.Tensor,
+                    d: int) -> tuple[float, float]:
+    """(largest |got - want|, largest |got - want| over the f32 tolerance of
+    the tests, 1e-4 sqrt(d) + 1e-5 |want|: sums of d products in another
+    order)."""
     diff = (got.double() - want.double()).abs()
     tol = 1e-4 * math.sqrt(d) + 1e-5 * want.double().abs()
-    if not torch.all(diff <= tol):
+    return float(diff.max()), float((diff / tol).max())
+
+
+def check(name: str, got: torch.Tensor, want: torch.Tensor, d: int) -> float:
+    """Fails unless ``got`` is within the f32 tolerance of ``want``
+    (``tolerance_share``); returns the largest absolute difference."""
+    diff, share = tolerance_share(got, want, d)
+    if not share <= 1:
         fail(f"{name}: kernel disagrees with its plain version "
-             f"(max abs diff {float(diff.max()):.3e})")
-    return float(diff.max())
+             f"(max abs diff {diff:.3e})")
+    return diff
 
 
 def phase_kernels(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     refresh_main, apply_main = main_path_shapes()
     gram_main = [(N, d, ell + r) for N, d, ell, r in refresh_main]
-    out = {}
+    out, f32_rows = {}, []
 
     rows, err = [], 0.0
-    for N, d, k in gram_main + [(3, 20, 6), (7, 33, 9), (5, 100, 30)]:
-        a = torch.randn(N, d, k, generator=gen, device=dev)
-        got = gram_kernel.batched_gram(a)
-        torch.cuda.synchronize()
-        err = max(err, check(f"batched_gram {(N, d, k)}", got,
+    # (N, d, k, mean of the entries): the main path, ragged shapes, and
+    # data of mean 3, on which the 3xTF32 products need the promotion of
+    # csrc/gram.cu's accumulator every chunk to hold the tolerance
+    for N, d, k, mean in [(*s, 0.0) for s in gram_main + [
+            (3, 20, 6), (7, 33, 9), (5, 100, 30), (1, 33, 129)]] + [
+            (8, 1024, 832, 3.0)]:
+        a = torch.randn(N, d, k, generator=gen, device=dev) + mean
+        if (N, d, k) == gram_main[0]:
+            got = _same_bits(f"batched_gram {(N, d, k)}",
+                             lambda: gram_kernel.batched_gram(a))
+        else:
+            got = gram_kernel.batched_gram(a)
+            torch.cuda.synchronize()
+        err = max(err, check(f"batched_gram {(N, d, k)} mean {mean}", got,
                              gram_ref.batched_gram_ref(a), d))
         if (N, d, k) not in gram_main:
             continue
@@ -260,18 +292,26 @@ def phase_kernels(dev) -> dict:
         plain = cuda_ms(lambda: gram_ref.batched_gram_ref(a), 3)
         lib = cuda_ms(lambda: torch.bmm(a.mT, a), 3)
         # symmetric output: d * k (k + 1) / 2 multiply-adds are needed
-        t_bytes, t_ops = bound_ms(4 * (N * d * k + N * k * k),
-                                  N * d * k * (k + 1))
-        rows.append((ms, plain, lib, t_bytes, t_ops))
-        print(f"batched_gram N={N} d={d} k={k}: {ms:.3f} ms, plain "
-              f"{plain:.3f} ms, bmm {lib:.3f} ms, bound "
-              f"{max(t_bytes, t_ops):.3f} ms (bytes {t_bytes:.3f}, "
-              f"operations {t_ops:.3f})")
+        flops = N * d * k * (k + 1)
+        t_bytes = bound_ms(4 * (N * d * k + N * k * k), 0)[0]
+        t_f32, t_tf32 = (flops / rate * 1e3 for rate in
+                         (F32_FLOPS_PER_S, TF32X3_FLOPS_PER_S))
+        rows.append((ms, plain, lib, t_bytes, t_tf32))
+        f32_rows.append(max(t_bytes, t_f32))
+        print(f"batched_gram N={N} d={d} k={k}: {ms:.4f} ms "
+              f"({_rate(flops, ms)}, {max(t_bytes, t_tf32) / ms:.1%} of the "
+              f"3xTF32 bound, {max(t_bytes, t_f32) / ms:.1%} of the f32 "
+              f"one), plain {plain:.4f} ms, bmm {lib:.4f} ms "
+              f"({_rate(flops, lib)}), bound {max(t_bytes, t_tf32):.4f} ms "
+              f"(bytes {t_bytes:.4f}, 3xTF32 operations {t_tf32:.4f}; f32 "
+              f"operations {t_f32:.4f})")
     out["batched_gram"] = dict(
         name="batched_gram", route="cuda",
         source="src/repro_torch/csrc/gram.cu",
         replaces="src/repro/kernels/gram/kernel.py:99",
         max_abs_err=err, **_sums(rows))
+    _refresh_line("batched_gram", out["batched_gram"], f32_rows,
+                  sum(N * d * k * (k + 1) for N, d, k in gram_main), "bmm")
 
     rows, err = [], 0.0
     for N, d, ell, n in apply_main + [(3, 24, 6, 10), (7, 123, 17, 50)]:
@@ -300,12 +340,14 @@ def phase_kernels(dev) -> dict:
         print(f"batched_lowrank_apply N={N} d={d} ell={ell} n={n}: {ms:.3f} "
               f"ms, plain {plain:.3f} ms, bmm+baddbmm {lib:.3f} ms, bound "
               f"{max(t_bytes, t_ops):.3f} ms (bytes {t_bytes:.3f}, "
-              f"operations {t_ops:.3f}); transpose copy of G {copy:.3f} ms")
+              f"operations {t_ops:.3f}; at 3xTF32 {_tf32x3(t_ops):.3f}); "
+              f"transpose copy of G {copy:.3f} ms")
     out["batched_lowrank_apply"] = dict(
         name="batched_lowrank_apply", route="cuda",
         source="src/repro_torch/csrc/lowrank.cu",
         replaces="src/repro/kernels/lowrank/kernel.py:97",
         max_abs_err=err, **_sums(rows))
+    _step_line("batched_lowrank_apply", rows)
     out.update(phase_int8_kernels(dev, gen, refresh_main, apply_main))
     out.update(phase_single_kernels(dev, gen))
     out.update(phase_model_kernels(dev, gen))
@@ -530,7 +572,7 @@ def phase_model_kernels(dev, gen) -> dict:
         print(f"ssd_scan B={B} S={S} H={H} P={P} N={N} chunk={chunk} bf16: "
               f"{ms:.3f} ms, plain {plain:.3f} ms, no library call, bound "
               f"{max(t_bytes, t_ops):.3f} ms (bytes {t_bytes:.3f}, "
-              f"operations {t_ops:.3f})")
+              f"operations {t_ops:.3f}; at 3xTF32 {_tf32x3(t_ops):.3f})")
     out["ssd_scan"] = dict(
         name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd.cu",
         replaces="src/repro/kernels/ssd/kernel.py:68", max_abs_err=err,
@@ -540,6 +582,50 @@ def phase_model_kernels(dev, gen) -> dict:
 
 def _rate(flops: float, ms: float) -> str:
     return f"{flops / ms / 1e9:.1f} TFLOP/s"
+
+
+def _mixed_tf32_ms(N: int, d: int, ell: int, r: int) -> float:
+    """ms for the mixed Gram's triangle at the fastest rates that meet its
+    tolerance, per block of columns: V.V exact on the int8 tensor cores
+    (int32 sums), V.A two tf32 products (V is exact in tf32, A is hi + lo),
+    A.A three."""
+    return 2 * N * d * (ell * (ell + 1) / 2 / INT8_OPS_PER_S
+                        + 2 * ell * r / TF32_FLOPS_PER_S
+                        + r * (r + 1) / 2 / TF32X3_FLOPS_PER_S) * 1e3
+
+
+def _tf32x3(f32_ms: float) -> float:
+    """An f32 operations bound (ms) taken at the 3xTF32 rate instead."""
+    return f32_ms * F32_FLOPS_PER_S / TF32X3_FLOPS_PER_S
+
+
+def _tf32x3_bound(rows) -> float:
+    """The summed bound of f32-operation rows (ms, plain, lib, bytes,
+    f32 operations) with the operations taken at the 3xTF32 rate."""
+    return sum(max(r[3], _tf32x3(r[4])) for r in rows)
+
+
+def _step_line(name: str, rows) -> None:
+    """One step's summed time of an apply row beside both its bounds."""
+    sums = _sums(rows)
+    print(f"{name}, one step ({len(rows)} calls): {sums['ms']:.4f} ms, "
+          f"bound {sums['bound_ms']:.4f} ms ({_tf32x3_bound(rows):.4f} ms at "
+          f"3xTF32), bmm+baddbmm {sums['library_ms']:.4f} ms; kernel / "
+          f"library {sums['ms'] / sums['library_ms']:.2f}")
+
+
+def _refresh_line(name: str, sums: dict, f32_bounds: list, flops: float,
+                  library: str) -> None:
+    """One refresh's summed time of a Gram row: its rate on the triangle's
+    operations, its share of the 3xTF32 bound (the JSON's) and of the f32
+    one, and its factor against the library call."""
+    f32 = sum(f32_bounds)
+    print(f"{name}, one refresh ({len(f32_bounds)} calls): "
+          f"{sums['ms']:.4f} ms ({_rate(flops, sums['ms'])}, "
+          f"{sums['bound_ms'] / sums['ms']:.1%} of its 3xTF32 bound "
+          f"{sums['bound_ms']:.4f} ms, {f32 / sums['ms']:.1%} of its f32 "
+          f"bound {f32:.4f} ms), {library} {sums['library_ms']:.4f} ms; "
+          f"kernel / library {sums['ms'] / sums['library_ms']:.2f}")
 
 
 def _row(row) -> dict:
@@ -560,14 +646,22 @@ def phase_int8_kernels(dev, gen, refresh_main, apply_main) -> dict:
     ragged = [(3, 20, 12, 5), (4, 70, 12, 1), (5, 100, 30, 2)]
     out = {}
 
-    rows, err = [], 0.0
-    for N, d, ell, r in refresh_main + ragged:
+    rows, err, f32_rows = [], 0.0, []
+    # (N, d, ell, r, mean of A's entries), as the f32 Gram's rows
+    for N, d, ell, r, mean in [(*s, 0.0) for s in refresh_main + ragged] + [
+            (8, 1024, 64, 768, 3.0)]:
         vq = _int8((N, d, ell), gen, dev)
         colw = torch.rand(N, ell, generator=gen, device=dev) / 127
-        a = torch.randn(N, d, r, generator=gen, device=dev)
-        got = gram_kernel.batched_gram_mixed(vq, colw, a)
-        torch.cuda.synchronize()
-        err = max(err, check(f"batched_gram_mixed {(N, d, ell, r)}", got,
+        a = torch.randn(N, d, r, generator=gen, device=dev) + mean
+        if (N, d, ell, r) == refresh_main[0]:
+            got = _same_bits(f"batched_gram_mixed {(N, d, ell, r)}",
+                             lambda: gram_kernel.batched_gram_mixed(vq, colw,
+                                                                    a))
+        else:
+            got = gram_kernel.batched_gram_mixed(vq, colw, a)
+            torch.cuda.synchronize()
+        err = max(err, check(f"batched_gram_mixed {(N, d, ell, r)} mean "
+                             f"{mean}", got,
                              gram_ref.batched_gram_mixed_ref(vq, colw, a), d))
         if (N, d, ell, r) not in refresh_main:
             continue
@@ -577,19 +671,31 @@ def phase_int8_kernels(dev, gen, refresh_main, apply_main) -> dict:
             lambda: gram_ref.batched_gram_mixed_ref(vq, colw, a), 3)
         lib = cuda_ms(lambda: torch.bmm(m.mT, m), 3)
         k = ell + r
-        t_bytes, t_ops = bound_ms(N * d * ell + 4 * (N * d * r + N * ell
-                                                     + N * k * k),
-                                  N * d * k * (k + 1) + 2 * N * k * k)
-        rows.append((ms, plain, lib, t_bytes, t_ops))
-        print(f"batched_gram_mixed N={N} d={d} ell={ell} r={r}: {ms:.3f} "
-              f"ms, plain {plain:.3f} ms, bmm {lib:.3f} ms, bound "
-              f"{max(t_bytes, t_ops):.3f} ms (bytes {t_bytes:.3f}, "
-              f"operations {t_ops:.3f})")
+        # the triangle's multiply-adds, and the weights' two multiplies an
+        # output in f32
+        flops = N * d * k * (k + 1)
+        t_bytes = bound_ms(N * d * ell + 4 * (N * d * r + N * ell
+                                              + N * k * k), 0)[0]
+        t_weights = 2 * N * k * k / F32_FLOPS_PER_S * 1e3
+        t_f32 = flops / F32_FLOPS_PER_S * 1e3 + t_weights
+        t_tf32 = _mixed_tf32_ms(N, d, ell, r) + t_weights
+        rows.append((ms, plain, lib, t_bytes, t_tf32))
+        f32_rows.append(max(t_bytes, t_f32))
+        print(f"batched_gram_mixed N={N} d={d} ell={ell} r={r}: {ms:.4f} ms "
+              f"({_rate(flops, ms)}, {max(t_bytes, t_tf32) / ms:.1%} of the "
+              f"3xTF32 bound, {max(t_bytes, t_f32) / ms:.1%} of the f32 "
+              f"one), plain {plain:.4f} ms, bmm {lib:.4f} ms "
+              f"({_rate(flops, lib)}), bound {max(t_bytes, t_tf32):.4f} ms "
+              f"(bytes {t_bytes:.4f}, 3xTF32 operations {t_tf32:.4f}; f32 "
+              f"operations {t_f32:.4f})")
     out["batched_gram_mixed"] = dict(
         name="batched_gram_mixed", route="cuda",
         source="src/repro_torch/csrc/gram.cu",
         replaces="src/repro/kernels/gram/kernel.py:158",
         max_abs_err=err, **_sums(rows))
+    _refresh_line("batched_gram_mixed", out["batched_gram_mixed"], f32_rows,
+                  sum(N * d * (ell + r) * (ell + r + 1)
+                      for N, d, ell, r in refresh_main), "bmm")
 
     rows, err, flips, entries = [], 0.0, 0, 0
     for N, d, k, r in refresh_main + ragged:
@@ -625,7 +731,8 @@ def phase_int8_kernels(dev, gen, refresh_main, apply_main) -> dict:
               f"ms ({_rate(flops, ms)}, {max(t_bytes, t_ops) / ms:.1%} of "
               f"bound), plain {plain:.4f} ms, bmm+baddbmm {lib:.4f} ms "
               f"({_rate(flops, lib)}), bound {max(t_bytes, t_ops):.4f} ms "
-              f"(bytes {t_bytes:.4f}, operations {t_ops:.4f})")
+              f"(bytes {t_bytes:.4f}, operations {t_ops:.4f}; at 3xTF32 "
+              f"{_tf32x3(t_ops):.4f})")
     print(f"batched_project_quantize: {flips} of {entries} int8 values "
           f"differ by 1 from the plain version, each at a .5 boundary")
     sums = _sums(rows)
@@ -633,8 +740,9 @@ def phase_int8_kernels(dev, gen, refresh_main, apply_main) -> dict:
     print(f"batched_project_quantize, one refresh ({len(rows)} calls): "
           f"{sums['ms']:.4f} ms ({_rate(flops, sums['ms'])}, "
           f"{sums['bound_ms'] / sums['ms']:.1%} of bound), bmm+baddbmm "
-          f"{sums['library_ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms; "
-          f"kernel / library {sums['ms'] / sums['library_ms']:.2f}")
+          f"{sums['library_ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms "
+          f"({_tf32x3_bound(rows):.4f} ms at 3xTF32); kernel / library "
+          f"{sums['ms'] / sums['library_ms']:.2f}")
     out["batched_project_quantize"] = dict(
         name="batched_project_quantize", route="cuda",
         source="src/repro_torch/csrc/project_quantize.cu",
@@ -672,13 +780,14 @@ def phase_int8_kernels(dev, gen, refresh_main, apply_main) -> dict:
         print(f"batched_lowrank_apply int8 N={N} d={d} ell={ell} n={n}: "
               f"{ms:.3f} ms, plain {plain:.3f} ms, bmm+baddbmm {lib:.3f} ms, "
               f"bound {max(t_bytes, t_ops):.3f} ms (bytes {t_bytes:.3f}, "
-              f"operations {t_ops:.3f})")
+              f"operations {t_ops:.3f}; at 3xTF32 {_tf32x3(t_ops):.3f})")
     out["batched_lowrank_apply_int8"] = dict(
         name="batched_lowrank_apply_int8", route="cuda",
         source="src/repro_torch/csrc/lowrank.cu",
         replaces="src/repro/kernels/lowrank/kernel.py:97 (int8 U, "
                  "src/repro/kernels/registry.py:133)",
         max_abs_err=err, **_sums(rows))
+    _step_line("batched_lowrank_apply int8", rows)
     return out
 
 
@@ -1016,7 +1125,7 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
-    for lib in ("flash", "project_quantize"):   # kernels 7 and 6
+    for lib in ("gram", "flash", "project_quantize"):  # kernels 1, 5, 7, 6
         for fn, regs, smem, spill_st, spill_ld in build.resources(lib):
             print(f"{lib}: {fn}: {regs} registers, {smem} B static shared "
                   f"memory, spills {spill_st} B stored / {spill_ld} B "

@@ -1,4 +1,4 @@
-// Hopper (sm_90a) warpgroup matrix multiply, bf16 operands and f32
+// Hopper (sm_90a) warpgroup matrix multiply, bf16 and tf32 operands and f32
 // accumulators in registers, and the asynchronous copies that feed it.
 //
 // Shared-memory operands use the 32-byte swizzle: a matrix is stored as
@@ -22,6 +22,11 @@
 // over a 16-column slice: a[0] row 16 w + g, columns c, c + 1; a[1] row
 // + 8; a[2] columns 8 + c, 9 + c; a[3] both.  So two accumulator column
 // blocks 2j, 2j + 1 of S, rounded to bf16, are A's k16 slice j of P V.
+//
+// tf32 (f32 bit patterns whose low 13 bits the tensor core ignores): one
+// k8 step is 32 bytes, as a bf16 k16 step is.  tf32 wgmma reads both
+// operands K-major from shared memory and has no transpose bit; the
+// batched Gram (gram.cu) keeps them in the 128-byte swizzle below.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,13 +49,26 @@ __device__ __forceinline__ uint32_t swz32_offset(int rows, int r, int c) {
          (c & 7) * 2;
 }
 
+// Byte offset of byte b (< 128) of row r of a K-major tile stored with the
+// 128-byte swizzle: rows of 128 bytes (32 tf32), atoms of 8 rows (1,024
+// bytes, aligned to 1,024), the 16-byte chunk c of row r at c ^ (r & 7)
+// (address bits 4-6 ^= bits 7-9).  A k8 tf32 step is the 32-byte slice
+// 32 j of every row: its descriptor starts 32 j bytes into the tile (SBO
+// 1,024 bytes, LBO unused).
+__device__ __forceinline__ uint32_t swz128_offset(int r, int b) {
+  return (r >> 3) * 1024 + (r & 7) * 128 + ((((b >> 4) ^ r) & 7) << 4) +
+         (b & 15);
+}
+
 // Matrix descriptor: start address, leading and stride byte offsets (each
-// >> 4), 32-byte swizzle (layout type 3 in bits 62-63).
+// >> 4, in bytes, so the same for every element type), and the swizzle in
+// bits 62-63: 3 = 32-byte (the default), 1 = 128-byte.
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
+                                              uint32_t sbo,
+                                              uint64_t swizzle = 3) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (3ull << 62);
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (swizzle << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -91,6 +109,16 @@ __device__ __forceinline__ void cp_async_wait() {
 // st.shared) visible to the async proxy that wgmma reads through.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// x rounded to tf32 (10 stored mantissa bits) to nearest, ties away from
+// zero, as cvt.rna.tf32.f32 rounds a finite x: half of the dropped 13 bits'
+// weight added to the magnitude's bits (a carry moves into the exponent),
+// then those bits cleared.  Two integer operations at the full ALU rate:
+// with the cvt instruction the batched Grams ran 7-11 % slower
+// (gram_variants.py).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -293,5 +321,35 @@ __device__ __forceinline__ void wgmma_rs<128>(
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (64 x 128) = A (64 x 8, K-major, descriptor a) B (8 x 128, K-major,
+// descriptor b) + (scale_d ? d : 0), tf32 operands, f32 accumulators (the
+// same fragment map as the bf16 instructions above).
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[64], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, %64, %65, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+}
 
 }  // namespace repro

@@ -35,7 +35,7 @@ _LL = ctypes.c_longlong
 SIGNATURES = {
     "gram": {
         "repro_batched_gram": [_P, _P, _I, _I, _I, _I, _P],
-        "repro_batched_gram_mixed": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "repro_batched_gram_mixed": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "lowrank": {
         "repro_batched_lowrank_apply":
@@ -98,6 +98,15 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def start_nvcc(source, out) -> subprocess.Popen:
+    """``nvcc`` with the port's flags, started on ``source`` (a shared
+    library to ``out``); its output, ptxas's report included, is read from
+    the process's stdout."""
+    return subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(out),
+                             str(source)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
 @functools.lru_cache(maxsize=None)
 def _build_all() -> dict:
     """Compile every ``csrc/*.cu`` that has no library yet; return paths."""
@@ -109,10 +118,7 @@ def _build_all() -> dict:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True),
-                      tmp, out)
+        jobs[name] = (start_nvcc(CSRC / f"{name}.cu", tmp), tmp, out)
     failed = []
     for name, (proc, tmp, out) in jobs.items():
         log, _ = proc.communicate()
@@ -135,7 +141,14 @@ def _build_all() -> dict:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library ``name`` (a key of ``SIGNATURES``), with its
     entry points' ``argtypes``/``restype`` declared."""
-    lib = ctypes.CDLL(str(_build_all()[name]))
+    return load(_build_all()[name], name)
+
+
+def load(path, name: str) -> ctypes.CDLL:
+    """The shared library at ``path``, built from ``csrc/<name>.cu`` or an
+    edited copy of it, with the entry points of ``SIGNATURES[name]``
+    declared."""
+    lib = ctypes.CDLL(str(path))
     for fn_name, argtypes in SIGNATURES[name].items():
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes

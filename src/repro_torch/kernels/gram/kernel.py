@@ -66,10 +66,9 @@ def batched_gram_mixed(vq: torch.Tensor, colw: torch.Tensor,
     """Gram of ``[vq * colw, a]`` for contiguous CUDA tensors: vq (N, d, k)
     int8, colw (N, k) f32, a (N, d, r) f32 -> (N, k+r, k+r) f32.
 
-    The kernel forms the unweighted ``C0 = [V, A]^T [V, A]``; the column
-    weights ``C = C0 o w w^T``, ``w = [colw, 1]``, are applied here on the
-    small output, as the reference applies them outside its kernel.  N = 0
-    returns an empty result unlaunched."""
+    The kernel forms ``C0 = [V, A]^T [V, A]`` and applies the column weights
+    ``C = C0 o w w^T``, ``w = [colw, 1]``, in its epilogue, in the
+    reference's order.  N = 0 returns an empty result unlaunched."""
     global mixed_launches
     if vq.dtype != torch.int8 or a.dtype != torch.float32 \
             or colw.dtype != torch.float32:
@@ -84,20 +83,19 @@ def batched_gram_mixed(vq: torch.Tensor, colw: torch.Tensor,
             or colw.device != a.device:
         raise ValueError(f"shape mismatch: vq {tuple(vq.shape)}, colw "
                          f"{tuple(colw.shape)}, a {tuple(a.shape)}")
+    colw = colw.contiguous()
     out = torch.empty((N, k + r, k + r), dtype=torch.float32, device=a.device)
     if N == 0:
         return out
     err = build.launch(build.library("gram").repro_batched_gram_mixed,
-                       a.device, vq.data_ptr(), a.data_ptr(), out.data_ptr(),
-                       N, d, k, r)
+                       a.device, vq.data_ptr(), a.data_ptr(), colw.data_ptr(),
+                       out.data_ptr(), N, d, k, r)
     if err != 0:
         raise RuntimeError(f"batched_gram_mixed kernel launch failed: CUDA "
                            f"error {err} at vq {tuple(vq.shape)}, a "
                            f"{tuple(a.shape)}")
     mixed_launches += 1
-    w = torch.cat([colw, torch.ones((N, r), dtype=torch.float32,
-                                    device=a.device)], dim=1)
-    return out * w[:, :, None] * w[:, None, :]
+    return out
 
 
 def gram(a: torch.Tensor) -> torch.Tensor:

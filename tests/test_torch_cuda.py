@@ -9,7 +9,9 @@ Tolerances as in tests/test_torch_kernels.py: f32 ``atol = 1e-4 * sqrt(d)``,
 and apply (split over d) take f32, bf16 and fp16 and are held to the same
 tolerances (a half-precision apply result also one rounding step of its
 dtype), and two runs on the same inputs must give the same bits: their
-partial sums are added in a fixed order.  The int8 write-back's
+partial sums are added in a fixed order.  The batched Grams (kernels 1 and 5,
+3xTF32 on the tensor cores) keep the f32 tolerance, give the same bits on
+two runs, and the mixed one weights its output inside the kernel.  The int8 write-back's
 scales agree to ``rtol = 1e-5`` (the absmax of U_new summed in another
 order), and a value may differ by 1, only where the plain version's
 U_new / scale lies within 1e-3 of a step of a .5 boundary (a few hundred
@@ -52,15 +54,25 @@ def card():
     return torch.device("cuda")
 
 
+GRAM_CASES = [(1, 16, 4), (3, 20, 6), (5, 100, 30), (7, 33, 9), (2, 12, 780),
+              (2, 768, 76), (48, 768, 832),
+              # the 128-wide tile's edges, d no multiple of the 32-row
+              # chunk, N = 1, and the largest main-path shape
+              (1, 33, 127), (2, 1000, 128), (1, 100, 129), (1, 1000, 1088),
+              (104, 768, 1088)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,d,k", [(1, 16, 4), (3, 20, 6), (5, 100, 30),
-                                   (7, 33, 9), (2, 12, 780), (2, 768, 76),
-                                   (48, 768, 832)])
+@pytest.mark.parametrize("N,d,k,mean", [(*c, 0.0) for c in GRAM_CASES] + [
+    # entries of mean 3: without the promotion of the tensor core's
+    # accumulator every 32-row chunk, 3xTF32 misses the tolerance here
+    (8, 1024, 832, 3.0)])
 @pytest.mark.parametrize("dtype", list(DTYPES))
-def test_gram_kernel_matches_plain_on_card(card, N, d, k, dtype):
+def test_gram_kernel_matches_plain_on_card(card, N, d, k, mean, dtype):
     from repro_torch.kernels.gram import kernel
     gen = torch.Generator(device=card).manual_seed(d)
-    a = torch.randn(N, d, k, generator=gen, device=card).to(DTYPES[dtype])
+    a = (torch.randn(N, d, k, generator=gen, device=card)
+         + mean).to(DTYPES[dtype])
     before = kernel.launches
     got = kernel.batched_gram(a)
     torch.cuda.synchronize()
@@ -128,14 +140,24 @@ def _int8(n, d, k, gen, card):
                          dtype=torch.int8)
 
 
+# the mixed Gram's own edges: k + r across the 128-wide tile (127, 128,
+# 129, 1088), d no multiple of the 32-row chunk, N = 1, and ell or r no
+# multiple of 4 (element-by-element loads, a 4-column group across ell)
+GRAM_MIXED_EDGES = [(1, 33, 64, 63), (2, 1000, 64, 64), (1, 100, 12, 117),
+                    (1, 1000, 64, 1024), (2, 40, 10, 30), (3, 70, 12, 45)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,d,ell,r", INT8_CASES)
-def test_gram_mixed_kernel_matches_plain_on_card(card, N, d, ell, r):
+@pytest.mark.parametrize("N,d,ell,r,mean", [
+    (*c, 0.0) for c in INT8_CASES + GRAM_MIXED_EDGES] + [
+    # A of mean 3, as the f32 Gram's case of that mean
+    (8, 1024, 64, 768, 3.0)])
+def test_gram_mixed_kernel_matches_plain_on_card(card, N, d, ell, r, mean):
     from repro_torch.kernels.gram import kernel
     gen = torch.Generator(device=card).manual_seed(d + ell)
     vq = _int8(N, d, ell, gen, card)
     colw = torch.rand(N, ell, generator=gen, device=card) / 127
-    a = torch.randn(N, d, r, generator=gen, device=card)
+    a = torch.randn(N, d, r, generator=gen, device=card) + mean
     before = kernel.mixed_launches
     got = kernel.batched_gram_mixed(vq, colw, a)
     torch.cuda.synchronize()
@@ -143,6 +165,69 @@ def test_gram_mixed_kernel_matches_plain_on_card(card, N, d, ell, r):
     torch.testing.assert_close(got, gram_ref.batched_gram_mixed_ref(vq, colw,
                                                                     a),
                                **_tol(d, "float32"))
+
+
+@pytest.mark.cuda
+def test_gram_kernels_give_the_same_bits_twice(card):
+    """One block owns each output tile over all of d: no atomics, no split,
+    so two calls on the same input agree bit for bit."""
+    from repro_torch.kernels.gram import kernel
+    gen = torch.Generator(device=card).manual_seed(5)
+    a = torch.randn(68, 1024, 832, generator=gen, device=card)
+    assert torch.equal(kernel.batched_gram(a), kernel.batched_gram(a))
+    vq = _int8(104, 768, 64, gen, card)
+    colw = torch.rand(104, 64, generator=gen, device=card) / 127
+    a = torch.randn(104, 768, 1024, generator=gen, device=card)
+    assert torch.equal(kernel.batched_gram_mixed(vq, colw, a),
+                       kernel.batched_gram_mixed(vq, colw, a))
+
+
+@pytest.mark.cuda
+def test_gram_mixed_weights_in_the_kernel(card):
+    """The column weights are applied in the kernel's epilogue: one launch,
+    and nothing allocated beyond the (N, k + r, k + r) output."""
+    from repro_torch.kernels.gram import kernel
+    gen = torch.Generator(device=card).manual_seed(6)
+    N, d, ell, r = 48, 768, 64, 768
+    vq = _int8(N, d, ell, gen, card)
+    colw = torch.rand(N, ell, generator=gen, device=card) / 127
+    a = torch.randn(N, d, r, generator=gen, device=card)
+    kernel.batched_gram_mixed(vq, colw, a)     # build and load first
+    torch.cuda.synchronize()
+    before = kernel.mixed_launches
+    torch.cuda.reset_peak_memory_stats(card)
+    held = torch.cuda.memory_allocated(card)
+    got = kernel.batched_gram_mixed(vq, colw, a)
+    torch.cuda.synchronize()
+    assert kernel.mixed_launches == before + 1
+    out_bytes = -(-N * (ell + r) ** 2 * 4 // 512) * 512   # allocator blocks
+    assert torch.cuda.max_memory_allocated(card) - held <= out_bytes
+    torch.testing.assert_close(got, gram_ref.batched_gram_mixed_ref(vq, colw,
+                                                                    a),
+                               **_tol(d, "float32"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_gram_kernels_take_unaligned_stacks(card, dtype):
+    """A contiguous stack whose base is not 16-byte aligned (a view at an
+    odd offset) takes the element-by-element loads."""
+    from repro_torch.kernels.gram import kernel
+    gen = torch.Generator(device=card).manual_seed(7)
+    N, d, k = 3, 70, 132
+    flat = torch.randn(N * d * k + 1, generator=gen, device=card)
+    a = flat.to(DTYPES[dtype])[1:].view(N, d, k)
+    assert a.data_ptr() % 8 != 0
+    torch.testing.assert_close(kernel.batched_gram(a),
+                               gram_ref.batched_gram_ref(a), **_tol(d, dtype))
+    if dtype == "float32":
+        vq = torch.randint(-127, 128, (N * d * 12 + 1,), generator=gen,
+                           device=card, dtype=torch.int8)[1:].view(N, d, 12)
+        colw = torch.rand(N, 12, generator=gen, device=card) / 127
+        torch.testing.assert_close(
+            kernel.batched_gram_mixed(vq, colw, a),
+            gram_ref.batched_gram_mixed_ref(vq, colw, a),
+            **_tol(d, "float32"))
 
 
 @pytest.mark.cuda

@@ -23,6 +23,17 @@ scales against the reference's oracle (``quantize_stack``); the
 interpret-mode Pallas kernel's scale may be one ulp off IEEE division.  On
 general inputs a value may differ by 1 where the two sides' U_new/scale
 straddle a .5 boundary, and the scales by ``rtol = 1e-6``.
+
+The card's batched Grams (csrc/gram.cu) multiply in 3xTF32.  Three tests
+here document that arithmetic and the kernel's tiling with copies written
+in this file, not with the package's code, so no change to the kernel can
+make them fail: a numpy emulation of the split held to the f32 tolerance at
+the main path's depths (and one tf32 product shown to miss it), tf32
+rounding to nearest, and the enumeration of the upper-triangular tiles.
+The kernel's own accuracy and tiling are held on the card
+(tests/test_torch_cuda.py), where its error reads several times the
+emulation's and data of mean 3 shows the need of the accumulator's
+promotion, which the emulation cannot.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -352,3 +363,99 @@ def test_project_vector_flags():
     assert flags(64, 45, 64) == 0b1101
     assert flags(64, 12, 10) == 0b0011
     assert flags(64, 768, 64, shift=1) == 0b1110
+
+
+# ---- the batched Grams on the card: 3xTF32 (csrc/gram.cu) -----------------
+
+
+def _tf32_rna(x: np.ndarray) -> np.ndarray:
+    """f32 rounded to tf32 (10 stored mantissa bits) to nearest, ties away
+    from zero, by bit operations: what ``cvt.rna.tf32.f32`` and
+    csrc/hopper.cuh's ``tf32_rna`` give a finite x."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _gram_3xtf32(m: np.ndarray, depth: int = 32) -> np.ndarray:
+    """The card's 3xTF32 Gram emulated in f32: x = hi + lo, both rounded
+    to tf32; per 32-row chunk hi.lo + lo.hi + hi.hi in f32 (each product
+    of two tf32 values is exact in f32), the chunks summed in f32."""
+    hi = _tf32_rna(m)
+    lo = _tf32_rna(m - hi)
+    out = np.zeros((m.shape[1], m.shape[1]), np.float32)
+    for r in range(0, m.shape[0], depth):
+        h, lw = hi[r:r + depth], lo[r:r + depth]
+        out += h.T @ lw + lw.T @ h + h.T @ h
+    return out
+
+
+@pytest.mark.parametrize("x,want", [
+    (1 + 2.0 ** -12, 1.0),                  # below half a step: down
+    (1 + 2.0 ** -11, 1 + 2.0 ** -10),       # a tie: away from zero
+    (-(1 + 2.0 ** -11), -(1 + 2.0 ** -10)),
+    (1 + 3 * 2.0 ** -11, 1 + 2.0 ** -9),    # a tie: away from zero
+    (2 - 2.0 ** -23, 2.0),                  # the carry reaches the exponent
+    (0.0, 0.0)])
+def test_tf32_rounding_is_to_nearest_ties_away(x, want):
+    """Documents the rounding that csrc/hopper.cuh's ``tf32_rna`` does, on
+    this file's copy of it."""
+    got = _tf32_rna(np.float32(x))
+    assert float(got) == want
+    assert got.view(np.uint32) & 0x1FFF == 0
+
+
+@pytest.mark.parametrize("d", [768, 1024])
+def test_three_tf32_products_hold_the_gram_tolerance(d):
+    """Documents the arithmetic the kernel uses, on an emulation: at the
+    main path's depths, hi.lo + lo.hi + hi.hi stays within the f32
+    tolerance of the float64 Gram (1e-4 sqrt(d) + 1e-5 |C|; here 0.02 of
+    it, max abs 2.0e-4 / 2.6e-4), and a single tf32 product does not (9.1x
+    / 11.3x over it, max abs 0.043 / 0.045): the reason for three products.
+    The emulation sums in f32 where the tensor core's additions round
+    more, so the card reads more than this (tests/test_torch_cuda.py)."""
+    rng = np.random.default_rng(d)
+    m = rng.normal(size=(d, 64)).astype(np.float32)
+    want = m.astype(np.float64).T @ m.astype(np.float64)
+    tol = 1e-4 * np.sqrt(d) + 1e-5 * np.abs(want)
+    three = np.abs(_gram_3xtf32(m) - want) / tol
+    hi = _tf32_rna(m)
+    one = np.abs((hi.T @ hi).astype(np.float64) - want) / tol
+    assert three.max() <= 0.1
+    assert one.max() > 1.0
+
+
+GRAM_TILE = 128     # csrc/gram.cu kTile
+
+
+def _gram_block_tiles(k: int) -> list:
+    """(ti, tj) of each block of csrc/gram.cu's grid, in block order: the
+    kernel's own enumeration of the upper-triangular tiles, transliterated
+    (its first lines)."""
+    tiles = -(-k // GRAM_TILE)
+    out = []
+    for t in range(tiles * (tiles + 1) // 2):
+        ti = 0
+        while t >= tiles - ti:
+            t -= tiles - ti
+            ti += 1
+        out.append((ti, ti + t))
+    return out
+
+
+@pytest.mark.parametrize("k", [832, 1088, 780, 76, 1, 127, 128, 129, 256,
+                               257])
+def test_gram_tiles_cover_the_output_once(k):
+    """Documents the kernel's tiling, on this file's copy of its
+    enumeration: every output element (i, j) of a (k, k) Gram is written
+    by exactly one block, the direct store of the tile that holds it when
+    i <= j's tile, else the mirrored store of its transpose's tile."""
+    writes = np.zeros((k, k), np.int64)
+    for ti, tj in _gram_block_tiles(k):
+        assert ti <= tj
+        rows = slice(ti * GRAM_TILE, min(k, (ti + 1) * GRAM_TILE))
+        cols = slice(tj * GRAM_TILE, min(k, (tj + 1) * GRAM_TILE))
+        writes[rows, cols] += 1
+        if ti != tj:
+            writes[cols, rows] += 1
+    assert (writes == 1).all()
