@@ -7,7 +7,8 @@ no result line:
 
 1. device: the card's name and power limit; TF32 off; build every CUDA
    kernel from src/repro_torch/csrc; the registers, static shared memory
-   and spills ``ptxas`` gave each kernel of kernels 1, 5, 6 and 7.
+   and spills ``ptxas`` gave each kernel of kernels 1, 2, 2', 5, 6, 7 and
+   8.
 2. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at every shape the Sketchy training step gives it (fp32
    storage for the Gram and the f32 apply, int8 storage for the mixed Gram,
@@ -23,12 +24,14 @@ no result line:
    tolerances and a relative error of the whole output (MODEL_RTOL), two
    runs giving the same bits; attention timed beside
    ``scaled_dot_product_attention`` (the scan has no single PyTorch call;
-   at the main shapes over 200 launches, kernel and sdpa in turns).
-   Kernels 1, 5, 6 and 7 also print their achieved TFLOP/s and share of
-   bound (kernels 1 and 5 against both their 3xTF32 and f32 bounds, each
-   with two runs giving the same bits at one main-path shape, and also
-   held to the tolerance on data of mean 3); every row bound by f32
-   operations also prints that bound at the 3xTF32 rate.
+   at the main shapes over 200 launches, kernel and sdpa in turns), and at
+   the launch-bound shapes (S <= 1024) both also timed alone on the device
+   (a CUDA graph of 50 calls).  Kernels 1, 2, 2', 5, 6, 7 and 8 also print
+   their achieved TFLOP/s and share of bound (kernels 1, 2, 2' and 5
+   against both their 3xTF32 and f32 bounds, each with two runs giving the
+   same bits at one main-path shape, and also held to the tolerance on
+   data of mean 3; kernel 8 against its bf16 and f32 bounds); every row
+   bound by f32 operations also prints that bound at the 3xTF32 rate.
 3. eigh: ``torch.linalg.eigh`` over one refresh's 444 Grams (a library call
    in both packages, timed on its own).
 4. main paths: ``repro_torch.launch.train`` at full-width paper-lm-100m with
@@ -76,7 +79,11 @@ no result line:
    (14 sites and 81 mamba layers, each in the forward and again in the
    remat recompute: the tied embed's gradient flows back through every
    layer); kernels 3, 4, 7 and 8 each at least once, no training kernel.
-   Then profiles one full-width feedback gradient.
+   Then profiles one full-width feedback gradient, with kernel 8's device
+   time and launches in it summed; then serves the same run twice more,
+   the scan's plain version and then the kernel's f32 instantiation in the
+   bf16 kernel's place, and prints the three runs' monitor readings (leading
+   eigenvalue and decision per window) side by side.
 8b. serve reference of the reduced zamba2-7b and mamba2-370m, as phase 8,
    the adapted leaf their tied embed.
 
@@ -91,6 +98,7 @@ import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -122,14 +130,16 @@ from repro_torch.models import model as model_lib  # noqa: E402
 # operations at the rate of the fastest unit shown to meet the function's
 # tolerance, whatever unit the hand-written kernel itself uses: bf16 for
 # bf16 attention (the reference multiplies q k^T and p v in the inputs'
-# type, accumulating in f32); error-compensated 3xTF32 (three tf32 products
-# a multiply-add, 494.7 / 3 TFLOP/s) for the batched FD Grams' f32 columns,
-# which csrc/gram.cu shows meets their f32 tolerance of 1e-4 sqrt(d) (one
-# tf32 product does not), with the mixed Gram's exact int8 columns needing
-# fewer (_mixed_tf32_ms); f32 for the other FD kernels (int8 factors meet
-# f32 operands) and the SSD scan (the reference upcasts every input to f32
-# before its products).  Only kernels 1 and 5 carry the 3xTF32 bound in the
-# JSON line; every other row bound by f32 operations keeps its f32 bound
+# type, accumulating in f32) and the bf16 SSD scan (csrc/ssd.cu meets the
+# reference's bf16 tolerance rounding the decayed scores, the state and
+# the decayed u to bf16); error-compensated 3xTF32 (three tf32 products a
+# multiply-add, 494.7 / 3 TFLOP/s) for the batched FD Grams' f32 columns
+# and the batched apply, which csrc/gram.cu and csrc/lowrank.cu show meets
+# their f32 tolerance of 1e-4 sqrt(d) (one tf32 product does not), with the
+# mixed Gram's exact int8 columns needing fewer (_mixed_tf32_ms); f32 for
+# the other FD kernels (int8 factors meet f32 operands).  Kernels 1, 2, 2'
+# and 5 carry the 3xTF32 bound in the JSON line and print their f32 one
+# beside it; every other row bound by f32 operations keeps its f32 bound
 # there and prints its bound at 3xTF32 beside it, for ordering only.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
@@ -313,18 +323,28 @@ def phase_kernels(dev) -> dict:
     _refresh_line("batched_gram", out["batched_gram"], f32_rows,
                   sum(N * d * k * (k + 1) for N, d, k in gram_main), "bmm")
 
-    rows, err = [], 0.0
-    for N, d, ell, n in apply_main + [(3, 24, 6, 10), (7, 123, 17, 50)]:
+    rows, err, f32_rows = [], 0.0, []
+    # (N, d, ell, n, mean of G's entries): the main path, ragged shapes
+    # (ell 17, m no multiple of the column tile, ell over one group), and G
+    # of mean 3, where the 3xTF32 products' sums are large
+    for N, d, ell, n, mean in [(*s, 0.0) for s in apply_main + [
+            (3, 24, 6, 10), (7, 123, 17, 50), (2, 300, 130, 70)]] + [
+            (*apply_main[0], 3.0)]:
         u = torch.randn(N, d, ell, generator=gen, device=dev)
-        g = torch.randn(N, d, n, generator=gen, device=dev)
+        g = torch.randn(N, d, n, generator=gen, device=dev) + mean
         c = torch.rand(N, ell, generator=gen, device=dev)
         b = torch.rand(N, generator=gen, device=dev)
-        got = lowrank_kernel.batched_lowrank_apply(u, c, b, g)
-        torch.cuda.synchronize()
-        err = max(err, check(f"batched_lowrank_apply {(N, d, ell, n)}", got,
+        label = f"batched_lowrank_apply {(N, d, ell, n)} mean {mean}"
+        if (N, d, ell, n, mean) == (*apply_main[0], 0.0):
+            got = _same_bits(label, lambda: (
+                lowrank_kernel.batched_lowrank_apply(u, c, b, g)))
+        else:
+            got = lowrank_kernel.batched_lowrank_apply(u, c, b, g)
+            torch.cuda.synchronize()
+        err = max(err, check(label, got,
                              lowrank_ref.batched_lowrank_apply_ref(u, c, b, g),
                              d))
-        if (N, d, ell, n) not in apply_main:
+        if (N, d, ell, n) not in apply_main or mean != 0.0:
             continue
         ms = cuda_ms(lambda: lowrank_kernel.batched_lowrank_apply(u, c, b, g),
                      5)
@@ -332,22 +352,18 @@ def phase_kernels(dev) -> dict:
             lambda: lowrank_ref.batched_lowrank_apply_ref(u, c, b, g), 5)
         lib = cuda_ms(lambda: torch.baddbmm(
             g * b[:, None, None], u, c[:, :, None] * torch.bmm(u.mT, g)), 5)
-        copy = cuda_ms(lambda: g.mT.contiguous(), 5)
-        t_bytes, t_ops = bound_ms(
-            4 * (N * d * ell + N * ell + N + 2 * N * d * n),
-            N * (4 * d * ell * n + 2 * d * n + ell * n))
-        rows.append((ms, plain, lib, t_bytes, t_ops))
-        print(f"batched_lowrank_apply N={N} d={d} ell={ell} n={n}: {ms:.3f} "
-              f"ms, plain {plain:.3f} ms, bmm+baddbmm {lib:.3f} ms, bound "
-              f"{max(t_bytes, t_ops):.3f} ms (bytes {t_bytes:.3f}, "
-              f"operations {t_ops:.3f}; at 3xTF32 {_tf32x3(t_ops):.3f}); "
-              f"transpose copy of G {copy:.3f} ms")
+        row, f32_bound = _apply_row(
+            f"batched_lowrank_apply N={N} d={d} ell={ell} n={n}", ms, plain,
+            lib, 4 * (N * d * ell + N * ell + N + 2 * N * d * n), N, d, ell,
+            n)
+        rows.append(row)
+        f32_rows.append(f32_bound)
     out["batched_lowrank_apply"] = dict(
         name="batched_lowrank_apply", route="cuda",
         source="src/repro_torch/csrc/lowrank.cu",
         replaces="src/repro/kernels/lowrank/kernel.py:97",
         max_abs_err=err, **_sums(rows))
-    _step_line("batched_lowrank_apply", rows)
+    _step_line("batched_lowrank_apply", rows, f32_rows, apply_main)
     out.update(phase_int8_kernels(dev, gen, refresh_main, apply_main))
     out.update(phase_single_kernels(dev, gen))
     out.update(phase_model_kernels(dev, gen))
@@ -482,10 +498,11 @@ def phase_model_kernels(dev, gen) -> dict:
     the main shapes timed in bf16 beside the plain version (and, for
     attention, PyTorch's ``scaled_dot_product_attention`` as a yardstick,
     never called by the port).  Bounds: bytes of the inputs and the output
-    over 3.35 TB/s, or the operations at the rate of the type the function
-    multiplies in (bf16 on the tensor cores, 989 TFLOP/s, for attention;
-    f32, 67 TFLOP/s, for the scan), whichever is larger; the JSON row is
-    the serving main path's shape, one call."""
+    over 3.35 TB/s, or the operations at the rate of the unit the kernel
+    multiplies in (bf16 on the tensor cores, 989 TFLOP/s, for both; the
+    scan's f32 bound beside it), whichever is larger; the JSON row is the
+    serving main path's shape, one call.  The launch-bound shapes also
+    print their device time alone (a CUDA graph of 50 calls)."""
     out = {}
     rows, err = [], 0.0
     cases = [(c, torch.bfloat16) for c in FLASH_MAIN] + \
@@ -562,22 +579,42 @@ def phase_model_kernels(dev, gen) -> dict:
                      reps)
         plain = cuda_ms(lambda: ssd_ref.ssd_ref(u, dlog, Bm, Cm, chunk),
                         reps)
-        Q = min(chunk, S)
-        tri = Q * (Q + 1) // 2
-        macs = B * (S // Q) * (tri * N + H * (tri * P + 2 * Q * N * P))
-        t_bytes, t_ops = bound_ms(2 * 2 * B * S * H * P + 4 * B * S * H
-                                  + 2 * 2 * B * S * N, 2 * macs)
+        if S <= 1024:   # launch-bound: the device's share, without the host
+            dev_ms = graph_ms(lambda: ssd_kernel.ssd_scan(u, dlog, Bm, Cm,
+                                                         chunk))
+            print(f"ssd_scan B={B} S={S} device time per call (CUDA graph "
+                  f"of 50): {dev_ms * 1e3:.2f} us")
+        flops = 2 * _ssd_macs(B, S, H, P, N, chunk)
+        nbytes = 2 * 2 * B * S * H * P + 4 * B * S * H + 2 * 2 * B * S * N
+        t_bytes, t_ops = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+        t_f32 = bound_ms(0, flops)[1]
         rows.append(((B, S, H, P, N, chunk), ms, plain, None, t_bytes,
                      t_ops))
         print(f"ssd_scan B={B} S={S} H={H} P={P} N={N} chunk={chunk} bf16: "
-              f"{ms:.3f} ms, plain {plain:.3f} ms, no library call, bound "
-              f"{max(t_bytes, t_ops):.3f} ms (bytes {t_bytes:.3f}, "
-              f"operations {t_ops:.3f}; at 3xTF32 {_tf32x3(t_ops):.3f})")
+              f"{ms:.4f} ms ({_rate(flops, ms)}, "
+              f"{max(t_bytes, t_ops) / ms:.1%} of the bound, "
+              f"{max(t_bytes, t_f32) / ms:.1%} of the f32 one), plain "
+              f"{plain:.3f} ms, no library call, bound "
+              f"{max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, bf16 "
+              f"operations {t_ops:.4f}; f32 operations {t_f32:.4f})")
     out["ssd_scan"] = dict(
         name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd.cu",
         replaces="src/repro/kernels/ssd/kernel.py:68", max_abs_err=err,
         **_row(rows[0]))
     return out
+
+
+def _ssd_macs(B: int, S: int, H: int, P: int, N: int, chunk: int) -> int:
+    """Multiply-adds the SSD scan's output needs, in chunks of Q = min(chunk,
+    S): per chunk and batch row the causal scores C B^T (Q (Q + 1) / 2 N)
+    and per head the intra term (Q (Q + 1) / 2 P); the inter term (Q N P a
+    head) after the first chunk and the state each chunk adds (Q N P) before
+    the last: y reads no other."""
+    Q = min(chunk, S)
+    chunks = -(-S // Q)
+    tri = Q * (Q + 1) // 2
+    return B * (chunks * (tri * N + H * tri * P)
+                + 2 * (chunks - 1) * H * Q * N * P)
 
 
 def _rate(flops: float, ms: float) -> str:
@@ -605,13 +642,43 @@ def _tf32x3_bound(rows) -> float:
     return sum(max(r[3], _tf32x3(r[4])) for r in rows)
 
 
-def _step_line(name: str, rows) -> None:
-    """One step's summed time of an apply row beside both its bounds."""
+def _apply_flops(N: int, d: int, ell: int, n: int) -> int:
+    """The batched apply's operations: U^T G and U P (2 d ell n each), the
+    scaling by c and base G plus the sum."""
+    return N * (4 * d * ell * n + 2 * d * n + ell * n)
+
+
+def _apply_row(label: str, ms: float, plain: float, lib: float,
+               nbytes: float, N: int, d: int, ell: int, n: int):
+    """(the JSON's row, the f32-FFMA bound) of one timed apply call, its
+    line printed: csrc/lowrank.cu multiplies in 3xTF32, so its bound takes
+    the operations at that rate (the bytes bound it there); the f32-FFMA
+    bound, its old unit's, is printed beside it."""
+    flops = _apply_flops(N, d, ell, n)
+    t_bytes, t_f32 = bound_ms(nbytes, flops)
+    t_tf32 = _tf32x3(t_f32)
+    print(f"{label}: {ms:.4f} ms ({_rate(flops, ms)}, "
+          f"{max(t_bytes, t_tf32) / ms:.1%} of the bound, "
+          f"{max(t_bytes, t_f32) / ms:.1%} of the f32 one), plain "
+          f"{plain:.4f} ms, bmm+baddbmm {lib:.4f} ms, bound "
+          f"{max(t_bytes, t_tf32):.4f} ms (bytes {t_bytes:.4f}, 3xTF32 "
+          f"operations {t_tf32:.4f}; f32 operations {t_f32:.4f})")
+    return (ms, plain, lib, t_bytes, t_tf32), max(t_bytes, t_f32)
+
+
+def _step_line(name: str, rows, f32_bounds: list, shapes) -> None:
+    """One step's summed time of an apply row: its rate, its share of the
+    bound (the JSON's: bytes) and of the f32-FFMA one, and its factor
+    against the library call."""
     sums = _sums(rows)
-    print(f"{name}, one step ({len(rows)} calls): {sums['ms']:.4f} ms, "
-          f"bound {sums['bound_ms']:.4f} ms ({_tf32x3_bound(rows):.4f} ms at "
-          f"3xTF32), bmm+baddbmm {sums['library_ms']:.4f} ms; kernel / "
-          f"library {sums['ms'] / sums['library_ms']:.2f}")
+    f32 = sum(f32_bounds)
+    flops = sum(_apply_flops(*s) for s in shapes)
+    print(f"{name}, one step ({len(rows)} calls): {sums['ms']:.4f} ms "
+          f"({_rate(flops, sums['ms'])}, {sums['bound_ms'] / sums['ms']:.1%} "
+          f"of its bound {sums['bound_ms']:.4f} ms ({sums['bound_by']}), "
+          f"{f32 / sums['ms']:.1%} of its f32-FFMA bound {f32:.4f} ms), "
+          f"bmm+baddbmm {sums['library_ms']:.4f} ms; kernel / library "
+          f"{sums['ms'] / sums['library_ms']:.2f}")
 
 
 def _refresh_line(name: str, sums: dict, f32_bounds: list, flops: float,
@@ -749,45 +816,48 @@ def phase_int8_kernels(dev, gen, refresh_main, apply_main) -> dict:
         replaces="src/repro/kernels/lowrank/kernel.py:171",
         max_abs_err=err, **_sums(rows))
 
-    rows, err = [], 0.0
-    for N, d, ell, n in apply_main + [(3, 24, 6, 10), (7, 123, 17, 50)]:
+    rows, err, f32_rows = [], 0.0, []
+    for N, d, ell, n, mean in [(*s, 0.0) for s in apply_main + [
+            (3, 24, 6, 10), (7, 123, 17, 50), (2, 300, 130, 70)]] + [
+            (*apply_main[0], 3.0)]:
         vq = _int8((N, d, ell), gen, dev)
         scale = torch.rand(N, 1, 1, generator=gen, device=dev) / 127
-        g = torch.randn(N, d, n, generator=gen, device=dev)
+        g = torch.randn(N, d, n, generator=gen, device=dev) + mean
         c = torch.rand(N, ell, generator=gen, device=dev)
         b = torch.rand(N, generator=gen, device=dev)
-        got = kernel_registry.batched_lowrank_apply_quantized(vq, scale, c, b,
-                                                              g)
-        torch.cuda.synchronize()
+        args = (vq, scale, c, b, g)
+        label = f"batched_lowrank_apply int8 {(N, d, ell, n)} mean {mean}"
+        if (N, d, ell, n, mean) == (*apply_main[0], 0.0):
+            got = _same_bits(label, lambda: (
+                kernel_registry.batched_lowrank_apply_quantized(*args)))
+        else:
+            got = kernel_registry.batched_lowrank_apply_quantized(*args)
+            torch.cuda.synchronize()
         err = max(err, check(
-            f"batched_lowrank_apply int8 {(N, d, ell, n)}", got,
-            lowrank_ref.batched_lowrank_apply_quantized_ref(vq, scale, c, b,
-                                                            g), d))
-        if (N, d, ell, n) not in apply_main:
+            label, got,
+            lowrank_ref.batched_lowrank_apply_quantized_ref(*args), d))
+        if (N, d, ell, n) not in apply_main or mean != 0.0:
             continue
         u = vq.float() * scale
-        args = (vq, scale, c, b, g)
         ms = cuda_ms(
             lambda: kernel_registry.batched_lowrank_apply_quantized(*args), 5)
         plain = cuda_ms(
             lambda: lowrank_ref.batched_lowrank_apply_quantized_ref(*args), 5)
         lib = cuda_ms(lambda: torch.baddbmm(
             g * b[:, None, None], u, c[:, :, None] * torch.bmm(u.mT, g)), 5)
-        t_bytes, t_ops = bound_ms(
-            N * d * ell + 4 * (N * ell + 2 * N + 2 * N * d * n),
-            N * (4 * d * ell * n + 2 * d * n + ell * n))
-        rows.append((ms, plain, lib, t_bytes, t_ops))
-        print(f"batched_lowrank_apply int8 N={N} d={d} ell={ell} n={n}: "
-              f"{ms:.3f} ms, plain {plain:.3f} ms, bmm+baddbmm {lib:.3f} ms, "
-              f"bound {max(t_bytes, t_ops):.3f} ms (bytes {t_bytes:.3f}, "
-              f"operations {t_ops:.3f}; at 3xTF32 {_tf32x3(t_ops):.3f})")
+        row, f32_bound = _apply_row(
+            f"batched_lowrank_apply int8 N={N} d={d} ell={ell} n={n}", ms,
+            plain, lib, N * d * ell + 4 * (N * ell + 2 * N + 2 * N * d * n),
+            N, d, ell, n)
+        rows.append(row)
+        f32_rows.append(f32_bound)
     out["batched_lowrank_apply_int8"] = dict(
         name="batched_lowrank_apply_int8", route="cuda",
         source="src/repro_torch/csrc/lowrank.cu",
         replaces="src/repro/kernels/lowrank/kernel.py:97 (int8 U, "
                  "src/repro/kernels/registry.py:133)",
         max_abs_err=err, **_sums(rows))
-    _step_line("batched_lowrank_apply int8", rows)
+    _step_line("batched_lowrank_apply int8", rows, f32_rows, apply_main)
     return out
 
 
@@ -894,10 +964,13 @@ def phase_main_path(dev, argv: list, expected: dict,
     return launches
 
 
-def _profiled(fn, title: str, labels: tuple = ()) -> None:
+def _profiled(fn, title: str, labels: tuple = (), groups: dict = None
+              ) -> None:
     """Run ``fn()`` under ``torch.profiler``; print its wall time, the
     device's busy time and idle share over it, and the device time by
-    kernel (``labels``: the caller's own ranges, left out of both)."""
+    kernel (``labels``: the caller's own ranges, left out of both);
+    ``groups``: name -> substrings of kernel names whose device time and
+    launches are also printed summed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -928,6 +1001,10 @@ def _profiled(fn, title: str, labels: tuple = ()) -> None:
     for r in prof.key_averages():
         if r.key in labels:
             print(f"  {r.key}: host {r.cpu_time_total / 1e3:.3f} ms")
+    for name, parts in (groups or {}).items():
+        hits = [r for r in rows if any(p in r.key for p in parts)]
+        print(f"  {name}: device {sum(map(dev_us, hits)) / 1e3:.3f} ms over "
+              f"{sum(r.count for r in hits)} launches")
 
 
 def phase_profile(dev, argv: list) -> None:
@@ -963,6 +1040,10 @@ def phase_serve_profile(dev) -> None:
               "a full-width adaptation step")
 
 
+# csrc/ssd.cu's kernels, as the profiler names them
+SSD_KERNELS = ("chunk_out_kernel", "chunk_state_kernel", "state_pass_kernel")
+
+
 def phase_zamba_gradient_profile(dev, params: dict) -> None:
     """Device time by kernel of one full-width zamba2-7b feedback gradient
     (the adapter's gradient through the tied embed, ``params`` the served
@@ -975,7 +1056,34 @@ def phase_zamba_gradient_profile(dev, params: dict) -> None:
                                    global_batch=4, seed=1)).batch(0)
     adapter.grad(params, batch)
     _profiled(lambda: adapter.grad(params, batch),
-              "a full-width zamba2-7b feedback gradient")
+              "a full-width zamba2-7b feedback gradient",
+              groups={"kernel 8 (csrc/ssd.cu)": SSD_KERNELS})
+
+
+def phase_zamba_scan_witness(readings: list) -> None:
+    """ZAMBA_SERVE_ARGV's run again, twice, with the bf16 scan kernel of
+    phase 7b replaced: by its plain version (f32 throughout, y cast to
+    bf16), then by the same kernel's f32 instantiation on the inputs upcast
+    (csrc/ssd.cu's phases and sums with no bf16 rounding of the decayed
+    scores, the carried state and the decayed u).  Prints each run's
+    leading eigenvalue and decision per monitor window beside ``readings``,
+    the bf16 kernel's: a decision that only the bf16 run takes follows the
+    roundings that its f32 instantiation leaves out."""
+    def f32_kernel(u, dlog, Bm, Cm, chunk):
+        return ssd_kernel.ssd_scan(u.float(), dlog, Bm.float(), Cm.float(),
+                                   chunk).to(u.dtype)
+
+    rows = {"bf16 kernel": readings}
+    for label, scan in (("plain scan", ssd_ref.ssd_ref),
+                        ("f32 kernel", f32_kernel)):
+        with mock.patch.object(kernel_registry, "ssd_scan", scan):
+            report = serve_lib.serve(serve_lib.parse_args(ZAMBA_SERVE_ARGV))
+        rows[label] = report["readings"]
+        del report
+        torch.cuda.empty_cache()
+    for label, got in rows.items():
+        print(f"serve (zamba2-7b), {label}: " + ", ".join(
+            f"{r.leading_eig:.4e} {r.decision}" for r in got))
 
 
 def phase_reference(dev, storage: str) -> None:
@@ -1125,7 +1233,8 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
-    for lib in ("gram", "flash", "project_quantize"):  # kernels 1, 5, 7, 6
+    # kernels 1, 5, 7, 6, 8, 2 and 2'
+    for lib in ("gram", "flash", "project_quantize", "ssd", "lowrank"):
         for fn, regs, smem, spill_st, spill_ld in build.resources(lib):
             print(f"{lib}: {fn}: {regs} registers, {smem} B static shared "
                   f"memory, spills {spill_st} B stored / {spill_ld} B "
@@ -1156,11 +1265,12 @@ def main() -> int:
     for name in ("gram", "lowrank_apply", "flash_attention", "ssd_scan"):
         if zamba[name] == 0:
             fail(f"serve (zamba2-7b): {name} was never launched")
-    params = report["params"]
+    params, readings = report["params"], report["readings"]
     del report
     phase_zamba_gradient_profile(dev, params)
     del params
     torch.cuda.empty_cache()
+    phase_zamba_scan_witness(readings)
     phase_serve_reference(dev, "zamba2-7b")
     phase_serve_reference(dev, "mamba2-370m")
 

@@ -24,7 +24,7 @@
 // hi.lo + lo.hi + hi.hi is accumulated in f32, smallest first, which keeps
 // ~22 bits.  The tensor core's own additions lose bits of their own (with
 // no promotion an H100 read 1.4x the tolerance at d = 1024 on data of
-// mean 3; gram_variants.py), so each 32-row depth chunk starts a fresh
+// mean 3; variants.py gram), so each 32-row depth chunk starts a fresh
 // accumulator, which is then added into a separate register sum with
 // FADD: the error then does not grow with d (0.24x on the same data).
 // bf16 and int8 values are exact in tf32 (lo = 0): the bf16 Gram runs one
@@ -52,7 +52,7 @@
 // warp covers 4 rows of 128 columns, each one contiguous 512 / 256 /
 // 128-byte run.  (8 rows of 16 columns a warp, which needs no permutation
 // below, touches twice the cache lines an instruction and ran 17-26 %
-// slower; gram_variants.py.)  It converts, splits and stores the unit
+// slower; variants.py gram.)  It converts, splits and stores the unit
 // transposed: one 16-byte store per column, holding 4 consecutive depths,
 // into the 128-byte-swizzled K-major panels.  Lanes permute the order of their 4 columns (XOR with bits 1-2
 // of the lane) so that the 8 lanes of each quarter-warp hit 8 distinct

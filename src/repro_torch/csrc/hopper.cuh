@@ -116,7 +116,7 @@ __device__ __forceinline__ void fence_proxy_async() {
 // weight added to the magnitude's bits (a carry moves into the exponent),
 // then those bits cleared.  Two integer operations at the full ALU rate:
 // with the cvt instruction the batched Grams ran 7-11 % slower
-// (gram_variants.py).
+// (variants.py gram).
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }

@@ -1,328 +1,599 @@
 // Mamba2 SSD chunk scan with one B/C group (n_groups = 1):
 //   within a chunk of Q positions, A = cumsum(dlog) per head and
 //   y[q] = sum_{s <= q} (C[q] . B[s]) exp(A[q] - A[s]) u[s]      (intra)
-//        + exp(A[q]) C[q] state^T                                (inter)
-//   state <- exp(A[Q-1]) state + sum_s exp(A[Q-1] - A[s]) u[s] B[s]^T
-// with the (P, N) state of each head carried across the chunks in order.
-// u (B, S, H, P) f32 or bf16, dlog (B, S, H) f32, B and C (B, S, N) in u's
-// dtype, all contiguous -> y (B, S, H, P) in u's dtype; f32 arithmetic.
+//        + exp(A[q]) C[q] S_c^T                                  (inter)
+//   S_{c+1} = exp(A[Q-1]) S_c + sum_s exp(A[Q-1] - A[s]) u[s] B[s]^T
+// with S_0 = 0, the (P, N) state of each head.  u (B, S, H, P) f32 or bf16,
+// dlog (B, S, H) f32, B and C (B, S, N) in u's dtype, all contiguous -> y
+// (B, S, H, P) in u's dtype.
 //
 // Replaces repro/kernels/ssd/kernel.py::ssd_pallas (_ssd_kernel).  On the
 // port's main path it is the scan of every Mamba2 mixer (models/ssm.py
 // ssd): zamba2-7b's 81 layers in the serving feedback gradient (B 4, S 16,
 // H 112, P 64, N 64, one chunk of 16).
 //
-// What bounds it: at a chunk of 256 the operations.  Per chunk and batch
-// the scores C B^T take Q (Q + 1) / 2 N multiply-adds, and each head
-// Q (Q + 1) / 2 P (intra), Q N P (inter) and Q N P (state), all f32 FFMA at
-// 67 TFLOP/s; the bytes of u, dlog, B, C and y are ~20x fewer than the
-// card could move in that time.
+// What bounds it: in bf16 the bytes.  Per chunk and batch row the scores
+// C B^T take Q (Q + 1) / 2 N multiply-adds, and each head Q (Q + 1) / 2 P
+// (intra), Q N P (inter) and Q N P (state): on the bf16 tensor cores that
+// is below the time to read u, dlog, B, C and write y (chip_smoke.py
+// prints both).  The f32 instantiation multiplies in f32 FFMA, where the
+// operations bound it.
 //
-// Design: the Pallas kernel walks the chunks in order on its grid's last
-// axis with the state in VMEM.  Here one block of 256 threads takes one
-// batch row and a tile of HT heads (the scores are shared by every head, so
-// they are formed once per tile), and loops over the chunks itself with the
-// HT (P, N) states in shared memory (16 KB a head at P = N = 64).  The Q x Q
-// score matrix does not fit shared memory at Q = 256 (256 KB), so a chunk
-// is cut into 64-row query tiles and 64-column key tiles; tiles above the
-// diagonal are skipped.  Thread (ty, tx) of the 16 x 16 grid owns score
-// rows 4 ty .. 4 ty + 3 at columns tx + 16 j and, of y, those rows at
-// columns tx + 16 j of each head; in the state update it owns state rows
-// PJ ty .. PJ ty + PJ - 1 at columns tx + 16 j.  HT is the largest of 4, 2
-// and 1 whose shared memory fits (4 at N = 64, 2 at N = 128).  Positions
-// past S and heads past H read as zeros and are not written, so S and H
-// need not be multiples of the chunk or the head tile.  The grid is (H /
-// HT, B): at B = 1 and H = 112 that is 28 blocks for 132 SMs.
+// Design: the Pallas kernel walks the chunks in order with the state in
+// VMEM.  Here the chunks run in parallel, in three phases (Mamba-2's own
+// SSD decomposition: chunk states, state passing, chunk outputs), each a
+// launch on the caller's stream:
+//   1. chunk_state_kernel, grid (chunks - 1, H, B): the state a chunk adds,
+//      dS_c = sum_s exp(A_end - A_s) u_s B_s^T, into an f32 scratch
+//      (B, chunks - 1, H, P, N), and exp(A_end) into (B, chunks - 1, H).
+//      The last chunk's state is never read, so it is not computed.
+//   2. state_pass_kernel, one thread per 4 state elements of a (b, h): in
+//      chunk order, S_{c+1} = exp(A_end,c) S_c + dS_c in place, so slot c
+//      ends holding the state that enters chunk c + 1.  Elementwise: bytes.
+//   3. chunk_out_kernel, grid (chunks x query blocks, head tiles, B): the
+//      intra term over the key tiles up to the diagonal (the ones above it
+//      are skipped) plus, after the first chunk, the inter term against
+//      slot c - 1.
+// With one chunk (the main path, S <= chunk) only phase 3 runs, with no
+// inter term.  A = cumsum(dlog) is a warp-parallel scan in each block that
+// needs it (per lane a run of positions, then a shuffle scan of the lanes'
+// sums), recomputed rather than kept.  Query blocks are the chunk's own
+// size where Q < 64: 16 rows at Q <= 16, 32 at Q <= 32, else 64, so Q = 16
+// computes no zero rows; key tiles are the query block's size.
+//
+// Products: mma.sync.m16n8k16 (bf16 in, f32 accumulate) for every shape:
+// warp-sized tiles fit Q = 16 directly, and at Q = 256 the products take
+// 15 us at the bf16 rate (zamba2-7b at S 4096; chip_smoke.py prints it), a
+// small part of the kernel's time, so wgmma was not tried.  C B^T is exact;
+// the decayed scores (scores o L), the carried state and the decayed u are
+// rounded to bf16 as mamba_ssm's kernels round them, and every sum is f32.
+// The scores C B^T are shared by the heads; each head tile recomputes them
+// from its staged C and B rows (a third of its products at P = N = 64 and
+// two heads a block), rather than staging them once per chunk in an f32
+// scratch (4 MB at S 4096), which was not built.  The f32 instantiation
+// runs the same three phases with the same fragment layout, its product
+// emulated in f32 FFMA (operands gathered across the warp by shuffles, k
+// summed in order): it has no main path, and meets 5e-6 S absolute against
+// the plain version (chip_smoke.py).
+//
+// Determinism: no atomics; every sum runs in a fixed order, so two runs
+// give the same bits.  Positions past S and heads past H read as zeros and
+// are not written, so S and H need not be multiples of the chunk or the
+// head tile.
+#include <cstdint>
+
+#include "hopper.cuh"
 #include "tile.cuh"
 
 namespace {
 
-using repro::kThreads;
-using repro::kTile;
+using bf16 = __nv_bfloat16;
 
-constexpr int kMaxN = 128;        // the state update keeps N / 16 columns
-constexpr int kMaxNJ = kMaxN / 16;
+constexpr int kThreads = 128;   // four warps a block in every phase
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxN = 128;
+constexpr int kKeys = 64;       // phase 1's key tile
 constexpr size_t kMaxSmem = 232448;
 
-size_t smem_bytes(int P, int N, int Q, int HT) {
-  // C and B tiles [64][N + 1], the weighted score tile [64][65], one head's
-  // u tile [64][P], the chunk's cumulative decay [Q][HT], the states
-  // [HT][P][N + 1]
-  return sizeof(float) *
-         (2ull * kTile * (N + 1) + kTile * (kTile + 1) + kTile * P +
-          static_cast<size_t>(Q) * HT + static_cast<size_t>(HT) * P * (N + 1));
-}
+// ---- one register of an mma.m16n8k16 operand fragment: two values --------
 
-// rows [r0, r0 + 64) of a (rows, n) matrix into a [64][ns] tile as f32, zero
-// past `valid` rows
 template <typename T>
-__device__ __forceinline__ void load_rows(float* tile, const T* m, int r0,
-                                          int valid, int n, int ns) {
-  for (int e = threadIdx.x; e < kTile * n; e += kThreads) {
-    const int r = e / n, c = e % n;
-    tile[r * ns + c] =
-        r < valid ? repro::to_f32(m[static_cast<long long>(r0 + r) * n + c])
-                  : 0.f;
+struct Frag;
+template <>
+struct Frag<bf16> {
+  uint32_t v;  // bf16x2, the lower column in the low half
+};
+template <>
+struct Frag<float> {
+  float x, y;
+};
+
+template <typename T>
+__device__ __forceinline__ Frag<T> make_frag(float lo, float hi);
+template <>
+__device__ __forceinline__ Frag<bf16> make_frag<bf16>(float lo, float hi) {
+  return {repro::pack_bf16(lo, hi)};
+}
+template <>
+__device__ __forceinline__ Frag<float> make_frag<float>(float lo, float hi) {
+  return {lo, hi};
+}
+
+// the elements at p and q of a shared-memory tile
+__device__ __forceinline__ Frag<bf16> load_frag(const bf16* p, const bf16* q) {
+  const uint32_t lo = *reinterpret_cast<const unsigned short*>(p);
+  const uint32_t hi = *reinterpret_cast<const unsigned short*>(q);
+  return {lo | (hi << 16)};
+}
+__device__ __forceinline__ Frag<float> load_frag(const float* p,
+                                                 const float* q) {
+  return {*p, *q};
+}
+// two consecutive elements at p (p even)
+__device__ __forceinline__ Frag<bf16> load_frag2(const bf16* p) {
+  return {*reinterpret_cast<const uint32_t*>(p)};
+}
+__device__ __forceinline__ Frag<float> load_frag2(const float* p) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  return {v.x, v.y};
+}
+
+// d (16 x 8, f32) += a (16 x 16) b (16 x 8).  Fragments of lane l, g = l / 4,
+// t = l % 4: a[0] row g, columns 2t, 2t + 1; a[1] row g + 8; a[2] columns
+// 2t + 8, 2t + 9; a[3] both; b[0] rows 2t, 2t + 1 of column g, b[1] rows
+// 2t + 8, 2t + 9; d[0, 1] row g, columns 2t, 2t + 1, d[2, 3] row g + 8.
+__device__ __forceinline__ void mma(float (&d)[4], const Frag<bf16> (&a)[4],
+                                    const Frag<bf16> (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0].v), "r"(a[1].v), "r"(a[2].v), "r"(a[3].v), "r"(b[0].v),
+        "r"(b[1].v));
+}
+
+// The same product in f32 FFMA: lane (g, t) gathers rows g and g + 8 of a
+// from lanes 4g .. 4g + 3 and columns 2t, 2t + 1 of b from lanes 8t ..
+// 8t + 7, then sums k = 0 .. 15 in order.  Every lane of the warp must call.
+__device__ __forceinline__ void mma(float (&d)[4], const Frag<float> (&a)[4],
+                                    const Frag<float> (&b)[2]) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {      // k = 8 h + 2 tk + e
+#pragma unroll
+    for (int tk = 0; tk < 4; ++tk) {
+      const int la = 4 * g + tk, lb0 = 8 * t + tk, lb1 = lb0 + 4;
+      const float r0x = __shfl_sync(~0u, a[2 * h].x, la);
+      const float r0y = __shfl_sync(~0u, a[2 * h].y, la);
+      const float r1x = __shfl_sync(~0u, a[2 * h + 1].x, la);
+      const float r1y = __shfl_sync(~0u, a[2 * h + 1].y, la);
+      const float c0x = __shfl_sync(~0u, b[h].x, lb0);
+      const float c0y = __shfl_sync(~0u, b[h].y, lb0);
+      const float c1x = __shfl_sync(~0u, b[h].x, lb1);
+      const float c1y = __shfl_sync(~0u, b[h].y, lb1);
+      d[0] = fmaf(r0y, c0y, fmaf(r0x, c0x, d[0]));
+      d[1] = fmaf(r0y, c1y, fmaf(r0x, c1x, d[1]));
+      d[2] = fmaf(r1y, c0y, fmaf(r1x, c0x, d[2]));
+      d[3] = fmaf(r1y, c1y, fmaf(r1x, c1x, d[3]));
+    }
   }
 }
 
-// Grid (ceil(H / HT), B); P = 16 PJ.
-template <typename T, int PJ, int HT>
+__device__ __forceinline__ void store2(bf16* p, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(p) = repro::pack_bf16(lo, hi);
+}
+__device__ __forceinline__ void store2(float* p, float lo, float hi) {
+  *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+}
+
+struct One {
+  __device__ __forceinline__ float operator()(int) const { return 1.f; }
+};
+
+// Rows [0, nrows) of a row-major matrix (row r at m + r * stride) into
+// tile[r * ts + c] as TD, each row times scale(r): columns [0, n), zeros in
+// [n, nk) and in rows >= valid.  nk is a multiple of 16; vec: 16-byte loads
+// (m and stride * sizeof(TS) 16-byte aligned).
+template <typename TD, typename TS, typename Scale>
+__device__ __forceinline__ void stage(TD* tile, int ts, const TS* m,
+                                      long long stride, int nrows, int valid,
+                                      int n, int nk, bool vec, Scale scale) {
+  constexpr int kVec = 16 / sizeof(TS);
+  const int per_row = nk / kVec;
+  for (int e = threadIdx.x; e < nrows * per_row; e += kThreads) {
+    const int r = e / per_row, c = e % per_row * kVec;
+    const TS* src = m + r * stride + c;
+    float x[kVec];
+    if (r < valid && vec && c + kVec <= n) {
+      union {
+        uint4 raw;
+        TS v[kVec];
+      } in;
+      in.raw = __ldg(reinterpret_cast<const uint4*>(src));
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) x[i] = repro::to_f32(in.v[i]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        x[i] = r < valid && c + i < n ? repro::to_f32(src[i]) : 0.f;
+      }
+    }
+    const float s = r < valid ? scale(r) : 0.f;
+    TD* dst = tile + r * ts + c;
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) dst[i] = repro::from_f32<TD>(x[i] * s);
+  }
+}
+
+// a[r * HT + hh] = sum_{i <= r} dlog[i * H + h0 + hh] (0 for heads past
+// H) for r < rows: warp w scans heads w, w + 4, ...; each lane sums a run
+// of positions, a shuffle scan adds the earlier lanes' sums.
+template <int HT>
+__device__ __forceinline__ void cumsum(float* a, const float* dlog, int H,
+                                       int h0, int rows) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int per = (rows + 31) / 32;
+  for (int hh = warp; hh < HT; hh += kWarps) {
+    const int h = h0 + hh;
+    float run = 0.f;
+    for (int i = 0; i < per; ++i) {
+      const int r = lane * per + i;
+      if (r < rows) {
+        run += h < H ? dlog[static_cast<long long>(r) * H + h] : 0.f;
+        a[r * HT + hh] = run;
+      }
+    }
+    float incl = run;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float v = __shfl_up_sync(~0u, incl, o);
+      if (lane >= o) incl += v;
+    }
+    float before = __shfl_up_sync(~0u, incl, 1);
+    if (lane == 0) before = 0.f;
+    for (int i = 0; i < per; ++i) {
+      const int r = lane * per + i;
+      if (r < rows) a[r * HT + hh] += before;
+    }
+  }
+}
+
+__host__ __device__ constexpr int round16(int x) { return (x + 15) / 16 * 16; }
+
+// ---- phase 1: the state each chunk but the last adds ----------------------
+
+size_t state_smem(int P, int N, int Q, size_t esize) {
+  return sizeof(float) * ((Q + 3) / 4 * 4) +
+         esize * kKeys * (round16(N) + 8 + P + 8);
+}
+
+// Grid (chunks - 1, H, B).  Warp w holds the 16 state rows p of row tile
+// w % (P / 16) and every (4 / (P / 16))-th n-tile of 8 columns from w /
+// (P / 16): out[p][n] = sum_s du[s][p] B[s][n], du = u exp(A_end - A).
+template <typename T, int P>
 __global__ void __launch_bounds__(kThreads)
-    ssd_kernel(const T* __restrict__ u, const float* __restrict__ dlog,
-               const T* __restrict__ bm, const T* __restrict__ cm,
-               T* __restrict__ y, int S, int H, int N, int Q) {
-  constexpr int P = 16 * PJ;
-  constexpr int WS = kTile + 1;
-  const int NS = N + 1;  // padded rows: column reads hit distinct banks
-  extern __shared__ float smem[];
-  float* sc = smem;                 // [64][NS]   C rows of the query tile
-  float* sb = sc + kTile * NS;      // [64][NS]   B rows of the key tile
-  float* sw = sb + kTile * NS;      // [64][WS]   scores times one decay
-  float* su = sw + kTile * WS;      // [64][P]    one head's u rows
-  float* sa = su + kTile * P;       // [Q][HT]    A = cumsum(dlog)
-  float* sst = sa + Q * HT;         // [HT][P][NS] the carried states
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int h0 = blockIdx.x * HT, b = blockIdx.y;
-  const long long pos_stride = static_cast<long long>(H) * P;
-  const T* ub = u + b * S * pos_stride;
-  T* yb = y + b * S * pos_stride;
-  const float* db = dlog + static_cast<long long>(b) * S * H;
-  const T* bb = bm + static_cast<long long>(b) * S * N;
-  const T* cb = cm + static_cast<long long>(b) * S * N;
+    chunk_state_kernel(const T* __restrict__ u, const float* __restrict__ dlog,
+                       const T* __restrict__ bm, float* __restrict__ states,
+                       float* __restrict__ keep, int S, int H, int N, int Q,
+                       int chunks, int vec_b, int vec_u) {
+  constexpr int RT = P / 16, WPR = kWarps / RT, MT = 16 / WPR, PS = P + 8;
+  const int NT = (N + 7) / 8, NK = round16(N), NS = NK + 8;
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const long long pos0 = static_cast<long long>(b) * S +
+                         static_cast<long long>(c) * Q;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sa = reinterpret_cast<float*>(smem);                // [Q]
+  T* sb = reinterpret_cast<T*>(sa + (Q + 3) / 4 * 4);        // [kKeys][NS]
+  T* su = sb + kKeys * NS;                                   // [kKeys][PS]
 
-  for (int e = tid; e < HT * P * NS; e += kThreads) sst[e] = 0.f;
-  const int tiles = (Q + kTile - 1) / kTile;
+  cumsum<1>(sa, dlog + pos0 * H, H, h, Q);
+  __syncthreads();
+  const float a_end = sa[Q - 1];
+  const long long slot = (static_cast<long long>(b) * (chunks - 1) + c) * H +
+                         h;
+  if (threadIdx.x == 0) keep[slot] = expf(a_end);
 
-  for (int c0 = 0; c0 < S; c0 += Q) {
-    const int valid = min(Q, S - c0);  // positions of this chunk below S
-    __syncthreads();  // the previous chunk's readers of sa are done
-    for (int e = tid; e < Q * HT; e += kThreads) {
-      const int qq = e / HT, hh = e % HT, h = h0 + hh;
-      sa[e] = (qq < valid && h < H)
-                  ? db[static_cast<long long>(c0 + qq) * H + h] : 0.f;
-    }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rt = warp % RT, n0 = warp / RT;
+  float acc[MT][4] = {};
+  for (int s0 = 0; s0 < Q; s0 += kKeys) {
+    const int kn = min(kKeys, Q - s0);
+    __syncthreads();  // the last key tile's readers are done
+    stage(sb, NS, bm + (pos0 + s0) * N, N, kKeys, kn, N, NK, vec_b, One{});
+    stage(su, PS, u + (pos0 + s0) * H * P + static_cast<long long>(h) * P,
+          static_cast<long long>(H) * P, kKeys, kn, P, P, vec_u,
+          [&](int r) { return expf(a_end - sa[s0 + r]); });
     __syncthreads();
-    if (tid < HT) {  // cumulative sums, one thread per head, in order
-      float a = 0.f;
-      for (int qq = 0; qq < Q; ++qq) {
-        a += sa[qq * HT + tid];
-        sa[qq * HT + tid] = a;
+    for (int ks = 0; ks < kn; ks += 16) {
+      const T* ua = su + (ks + 2 * t) * PS + 16 * rt + g;
+      const Frag<T> a[4] = {load_frag(ua, ua + PS),
+                            load_frag(ua + 8, ua + PS + 8),
+                            load_frag(ua + 8 * PS, ua + 9 * PS),
+                            load_frag(ua + 8 * PS + 8, ua + 9 * PS + 8)};
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int nt = n0 + WPR * i;
+        if (nt >= NT) break;
+        const T* bp = sb + (ks + 2 * t) * NS + 8 * nt + g;
+        const Frag<T> bf[2] = {load_frag(bp, bp + NS),
+                               load_frag(bp + 8 * NS, bp + 9 * NS)};
+        mma(acc[i], a, bf);
       }
     }
+  }
 
-    for (int qt = 0; qt < tiles; ++qt) {
-      const int q0 = qt * kTile;
-      __syncthreads();  // sa is complete; the last tile's readers of sc done
-      load_rows(sc, cb, c0 + q0, min(kTile, valid - q0), N, NS);
-      __syncthreads();
-
-      // inter-chunk term: exp(A[q]) sum_n C[q][n] state[h][p][n]
-      float acc[HT][4][PJ];
+  float* out = states + slot * P * N;
 #pragma unroll
-      for (int hh = 0; hh < HT; ++hh) {
-        float dot[4][PJ] = {};
-        const float* st = sst + hh * P * NS;
-        for (int n = 0; n < N; ++n) {
-          float cv[4], sv[PJ];
+  for (int i = 0; i < MT; ++i) {
+    const int nt = n0 + WPR * i;
+    if (nt >= NT) break;
+    const int n = 8 * nt + 2 * t, p = 16 * rt + g;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) cv[i] = sc[(4 * ty + i) * NS + n];
-#pragma unroll
-          for (int jj = 0; jj < PJ; ++jj) sv[jj] = st[(tx + 16 * jj) * NS + n];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-#pragma unroll
-            for (int jj = 0; jj < PJ; ++jj) {
-              dot[i][jj] = fmaf(cv[i], sv[jj], dot[i][jj]);
-            }
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qq = q0 + 4 * ty + i;
-          const float decay = qq < Q ? expf(sa[qq * HT + hh]) : 0.f;
-#pragma unroll
-          for (int jj = 0; jj < PJ; ++jj) acc[hh][i][jj] = decay * dot[i][jj];
-        }
-      }
-
-      // intra-chunk term over the key tiles up to the diagonal
-      for (int kt = 0; kt <= qt; ++kt) {
-        const int s0 = kt * kTile;
-        __syncthreads();  // the last key tile's readers of sb, sw, su done
-        load_rows(sb, bb, c0 + s0, min(kTile, valid - s0), N, NS);
-        __syncthreads();
-        float g[4][4] = {};
-        for (int n = 0; n < N; ++n) {
-          float cv[4], bv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) cv[i] = sc[(4 * ty + i) * NS + n];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) bv[j] = sb[(tx + 16 * j) * NS + n];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) g[i][j] = fmaf(cv[i], bv[j], g[i][j]);
-          }
-        }
-#pragma unroll
-        for (int hh = 0; hh < HT; ++hh) {
-          const int h = h0 + hh;
-          if (hh > 0) __syncthreads();  // the last head's readers done
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int qq = q0 + 4 * ty + i;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int ss = s0 + tx + 16 * j;
-              float w = 0.f;
-              if (qq < Q && qq >= ss) {
-                w = g[i][j] * expf(sa[qq * HT + hh] - sa[ss * HT + hh]);
-              }
-              sw[(4 * ty + i) * WS + tx + 16 * j] = w;
-            }
-          }
-          for (int e = tid; e < kTile * P; e += kThreads) {
-            const int r = e / P, p = e % P;
-            su[e] = (s0 + r < valid && h < H)
-                        ? repro::to_f32(
-                              ub[(c0 + s0 + r) * pos_stride + h * P + p])
-                        : 0.f;
-          }
-          __syncthreads();
-#pragma unroll 4
-          for (int ss = 0; ss < kTile; ++ss) {
-            float wv[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) wv[i] = sw[(4 * ty + i) * WS + ss];
-#pragma unroll
-            for (int jj = 0; jj < PJ; ++jj) {
-              const float uv = su[ss * P + tx + 16 * jj];
-#pragma unroll
-              for (int i = 0; i < 4; ++i) {
-                acc[hh][i][jj] = fmaf(wv[i], uv, acc[hh][i][jj]);
-              }
-            }
-          }
-        }
-      }
-
-#pragma unroll
-      for (int hh = 0; hh < HT; ++hh) {
-        const int h = h0 + hh;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qq = q0 + 4 * ty + i;
-          if (qq >= valid || h >= H) continue;
-#pragma unroll
-          for (int jj = 0; jj < PJ; ++jj) {
-            yb[(c0 + qq) * pos_stride + h * P + tx + 16 * jj] =
-                repro::from_f32<T>(acc[hh][i][jj]);
-          }
-        }
-      }
-    }
-
-    // state update, head by head, over the key tiles of the chunk
-    for (int hh = 0; hh < HT; ++hh) {
-      const int h = h0 + hh;
-      float upd[PJ][kMaxNJ] = {};
-      for (int kt = 0; kt < tiles; ++kt) {
-        const int s0 = kt * kTile;
-        __syncthreads();  // the last readers of sb and su are done
-        load_rows(sb, bb, c0 + s0, min(kTile, valid - s0), N, NS);
-        const float a_end = sa[(Q - 1) * HT + hh];
-        for (int e = tid; e < kTile * P; e += kThreads) {
-          const int r = e / P, p = e % P;
-          su[e] = (s0 + r < valid && h < H)
-                      ? repro::to_f32(
-                            ub[(c0 + s0 + r) * pos_stride + h * P + p]) *
-                            expf(a_end - sa[(s0 + r) * HT + hh])
-                      : 0.f;
-        }
-        __syncthreads();
-#pragma unroll 2
-        for (int ss = 0; ss < kTile; ++ss) {
-          float uv[PJ];
-#pragma unroll
-          for (int i = 0; i < PJ; ++i) uv[i] = su[ss * P + PJ * ty + i];
-#pragma unroll
-          for (int j = 0; j < kMaxNJ; ++j) {
-            const int n = tx + 16 * j;
-            if (n < N) {
-              const float bv = sb[ss * NS + n];
-#pragma unroll
-              for (int i = 0; i < PJ; ++i) upd[i][j] = fmaf(uv[i], bv, upd[i][j]);
-            }
-          }
-        }
-      }
-      const float keep = expf(sa[(Q - 1) * HT + hh]);
-      float* st = sst + hh * P * NS;
-#pragma unroll
-      for (int i = 0; i < PJ; ++i) {
-#pragma unroll
-        for (int j = 0; j < kMaxNJ; ++j) {
-          const int n = tx + 16 * j;
-          if (n < N) {
-            float* at = st + (PJ * ty + i) * NS + n;
-            *at = keep * *at + upd[i][j];
-          }
-        }
+    for (int e = 0; e < 2; ++e) {
+      if (n + e < N) {
+        out[p * N + n + e] = acc[i][e];
+        out[(p + 8) * N + n + e] = acc[i][2 + e];
       }
     }
   }
 }
 
-template <typename T, int PJ, int HT>
-int launch_tile(const T* u, const float* dlog, const T* bm, const T* cm,
-                T* y, int B, int S, int H, int N, int Q, size_t smem,
-                cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_kernel<T, PJ, HT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((H + HT - 1) / HT, B);
-  ssd_kernel<T, PJ, HT><<<grid, kThreads, smem, stream>>>(u, dlog, bm, cm, y,
-                                                          S, H, N, Q);
+// ---- phase 2: the states in chunk order -----------------------------------
+
+// One thread per 4 consecutive elements of one (b, h)'s (P, N) state.
+__global__ void __launch_bounds__(256)
+    state_pass_kernel(float* __restrict__ states,
+                      const float* __restrict__ keep, int B, int H, int PN,
+                      int chunks) {
+  const int per = PN / 4;
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= static_cast<long long>(B) * H * per) return;
+  const long long bh = i / per;  // b * H + h
+  const int e = static_cast<int>(i % per);
+  const long long b = bh / H, h = bh % H;
+  const int slots = chunks - 1;
+  float4* s0 = reinterpret_cast<float4*>(states) +
+               ((b * slots) * H + h) * per + e;
+  float4 s = *s0;
+  for (int c = 1; c < slots; ++c) {
+    const long long at = (b * slots + c) * H + h;
+    const float k = keep[at];
+    float4* p = reinterpret_cast<float4*>(states) + at * per + e;
+    const float4 ds = *p;
+    s = make_float4(fmaf(k, s.x, ds.x), fmaf(k, s.y, ds.y),
+                    fmaf(k, s.z, ds.z), fmaf(k, s.w, ds.w));
+    *p = s;
+  }
+}
+
+// ---- phase 3: the outputs -------------------------------------------------
+
+// Query blocks of QB = 16 QT rows and HT = (4 / QT) HW heads; warp w holds
+// query rows 16 (w % QT) .. + 15 of the block for heads (w / QT) HW .. + HW
+// - 1 of the tile.
+size_t out_smem(int P, int N, int Q, int QT, int HW, bool inter,
+                size_t esize) {
+  const int QB = 16 * QT, HT = (4 / QT) * HW, NS = round16(N) + 8;
+  const int qrows = (Q + QB - 1) / QB * QB;
+  return sizeof(float) * qrows * HT +
+         esize * (2ull * QB * NS + QB * (HT * P + 8) +
+                  (inter ? static_cast<size_t>(HT) * P * NS : 0));
+}
+
+template <typename T, int P, int QT, int HW>
+__global__ void __launch_bounds__(kThreads)
+    chunk_out_kernel(const T* __restrict__ u, const float* __restrict__ dlog,
+                     const T* __restrict__ bm, const T* __restrict__ cm,
+                     const float* __restrict__ states, T* __restrict__ y,
+                     int S, int H, int N, int Q, int qblocks, int chunks,
+                     int vec_b, int vec_u) {
+  constexpr int QB = 16 * QT, HT = (4 / QT) * HW, NTP = P / 8;
+  constexpr int US = HT * P + 8;
+  const int NK = round16(N), NS = NK + 8;
+  const int c = blockIdx.x / qblocks, qb = blockIdx.x % qblocks;
+  const int c0 = c * Q, valid = min(Q, S - c0), q0 = qb * QB;
+  if (q0 >= valid) return;  // past S in a ragged last chunk
+  const int rows = min(valid, q0 + QB);  // positions of the chunk it reads
+  const int h0 = blockIdx.y * HT, b = blockIdx.z;
+  const int heads = min(HT, H - h0);
+  const long long pos0 = static_cast<long long>(b) * S + c0;
+  const bool inter = c > 0;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sa = reinterpret_cast<float*>(smem);                  // [rows][HT]
+  T* sc = reinterpret_cast<T*>(sa + (Q + QB - 1) / QB * QB * HT);
+  T* sb = sc + QB * NS;                                        // [QB][NS]
+  T* su = sb + QB * NS;                                        // [QB][US]
+  T* ss = su + QB * US;                                        // [HT][P][NS]
+
+  cumsum<HT>(sa, dlog + pos0 * H, H, h0, rows);
+  stage(sc, NS, cm + (pos0 + q0) * N, N, QB, rows - q0, N, NK, vec_b, One{});
+  if (inter) {
+    const float* st = states +
+        ((static_cast<long long>(b) * (chunks - 1) + c - 1) * H + h0) * P * N;
+    stage(ss, NS, st, N, HT * P, heads * P, N, NK, N % 4 == 0, One{});
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wq = warp % QT, hw0 = (warp / QT) * HW;
+  const int qr = q0 + 16 * wq;  // the warp's first query row
+  const T* cr = sc + (16 * wq + g) * NS + 2 * t;
+  float acc[HW][NTP][4] = {};
+
+  if (inter) {  // exp(A[q]) C[q] S_c^T
+    for (int kk = 0; kk < NK; kk += 16) {
+      const Frag<T> a[4] = {load_frag2(cr + kk), load_frag2(cr + 8 * NS + kk),
+                            load_frag2(cr + kk + 8),
+                            load_frag2(cr + 8 * NS + kk + 8)};
+#pragma unroll
+      for (int i = 0; i < HW; ++i) {
+#pragma unroll
+        for (int nt = 0; nt < NTP; ++nt) {
+          const T* sp = ss + ((hw0 + i) * P + 8 * nt + g) * NS + kk + 2 * t;
+          const Frag<T> bf[2] = {load_frag2(sp), load_frag2(sp + 8)};
+          mma(acc[i][nt], a, bf);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < HW; ++i) {
+      const int hh = hw0 + i;
+      const float e0 = qr + g < rows ? expf(sa[(qr + g) * HT + hh]) : 0.f;
+      const float e1 = qr + g + 8 < rows ? expf(sa[(qr + g + 8) * HT + hh])
+                                         : 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NTP; ++nt) {
+        acc[i][nt][0] *= e0, acc[i][nt][1] *= e0;
+        acc[i][nt][2] *= e1, acc[i][nt][3] *= e1;
+      }
+    }
+  }
+
+  for (int kt = 0; kt <= qb; ++kt) {  // key tiles up to the diagonal
+    const int s0 = kt * QB;
+    __syncthreads();  // the last key tile's readers are done
+    stage(sb, NS, bm + (pos0 + s0) * N, N, QB, rows - s0, N, NK, vec_b,
+          One{});
+    stage(su, US, u + (pos0 + s0) * H * P + static_cast<long long>(h0) * P,
+          static_cast<long long>(H) * P, QB, rows - s0, heads * P, HT * P,
+          vec_u, One{});
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < QT; ++j) {
+      const int ks = s0 + 16 * j;  // the key subtile's first key
+      if (ks > qr + 15 || ks >= rows) continue;
+      float sg[2][4] = {};  // C B^T: rows qr + g (+ 8), keys ks + 8 jn + 2t
+      for (int kk = 0; kk < NK; kk += 16) {
+        const Frag<T> a[4] = {
+            load_frag2(cr + kk), load_frag2(cr + 8 * NS + kk),
+            load_frag2(cr + kk + 8), load_frag2(cr + 8 * NS + kk + 8)};
+#pragma unroll
+        for (int jn = 0; jn < 2; ++jn) {
+          const T* bp = sb + (16 * j + 8 * jn + g) * NS + kk + 2 * t;
+          const Frag<T> bf[2] = {load_frag2(bp), load_frag2(bp + 8)};
+          mma(sg[jn], a, bf);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < HW; ++i) {
+        const int hh = hw0 + i;
+        const int q[2] = {qr + g, qr + g + 8};
+        const float aq[2] = {sa[q[0] * HT + hh], sa[q[1] * HT + hh]};
+        float w[2][4];  // the decayed scores, as sg
+#pragma unroll
+        for (int jn = 0; jn < 2; ++jn) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int s = ks + 8 * jn + 2 * t + e;
+            const float as = sa[s * HT + hh];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              w[jn][2 * r + e] = s <= q[r] && q[r] < rows
+                                     ? sg[jn][2 * r + e] * expf(aq[r] - as)
+                                     : 0.f;
+            }
+          }
+        }
+        const Frag<T> a[4] = {
+            make_frag<T>(w[0][0], w[0][1]), make_frag<T>(w[0][2], w[0][3]),
+            make_frag<T>(w[1][0], w[1][1]), make_frag<T>(w[1][2], w[1][3])};
+        const T* up = su + (16 * j + 2 * t) * US + hh * P + g;
+#pragma unroll
+        for (int nt = 0; nt < NTP; ++nt) {
+          const T* bp = up + 8 * nt;
+          const Frag<T> bf[2] = {load_frag(bp, bp + US),
+                                 load_frag(bp + 8 * US, bp + 9 * US)};
+          mma(acc[i][nt], a, bf);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < HW; ++i) {
+    const int h = h0 + hw0 + i;
+    if (h >= H) continue;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int q = qr + g + 8 * r;
+      if (q >= rows) continue;
+      T* yr = y + ((pos0 + q) * H + h) * P + 2 * t;
+#pragma unroll
+      for (int nt = 0; nt < NTP; ++nt) {
+        store2(yr + 8 * nt, acc[i][nt][2 * r], acc[i][nt][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// ---- launches -------------------------------------------------------------
+
+template <typename K>
+int allow_smem(K kernel, size_t bytes) {
+  if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes)));
+}
+
+template <typename T, int P, int QT, int HW>
+int launch_out(const T* u, const float* dlog, const T* bm, const T* cm,
+               const float* states, T* y, int B, int S, int H, int N, int Q,
+               int chunks, int vec_b, int vec_u, cudaStream_t stream) {
+  constexpr int QB = 16 * QT, HT = (4 / QT) * HW;
+  const size_t smem = out_smem(P, N, Q, QT, HW, chunks > 1, sizeof(T));
+  int err = allow_smem(chunk_out_kernel<T, P, QT, HW>, smem);
+  if (err != 0) return err;
+  const int qblocks = (Q + QB - 1) / QB;
+  const dim3 grid(chunks * qblocks, (H + HT - 1) / HT, B);
+  chunk_out_kernel<T, P, QT, HW><<<grid, kThreads, smem, stream>>>(
+      u, dlog, bm, cm, states, y, S, H, N, Q, qblocks, chunks, vec_b, vec_u);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int PJ>
+template <typename T, int P>
 int launch_p(const T* u, const float* dlog, const T* bm, const T* cm, T* y,
-             int B, int S, int H, int N, int Q, cudaStream_t stream) {
-  const int P = 16 * PJ;
-  if (smem_bytes(P, N, Q, 4) <= kMaxSmem) {
-    return launch_tile<T, PJ, 4>(u, dlog, bm, cm, y, B, S, H, N, Q,
-                                 smem_bytes(P, N, Q, 4), stream);
+             float* states, float* keep, int B, int S, int H, int N, int Q,
+             int vec_b, int vec_u, cudaStream_t stream) {
+  const int chunks = (S + Q - 1) / Q;
+  if (chunks > 1) {
+    const size_t smem = state_smem(P, N, Q, sizeof(T));
+    int err = allow_smem(chunk_state_kernel<T, P>, smem);
+    if (err != 0) return err;
+    chunk_state_kernel<T, P><<<dim3(chunks - 1, H, B), kThreads, smem,
+                               stream>>>(u, dlog, bm, states, keep, S, H, N,
+                                         Q, chunks, vec_b, vec_u);
+    err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
   }
-  if (smem_bytes(P, N, Q, 2) <= kMaxSmem) {
-    return launch_tile<T, PJ, 2>(u, dlog, bm, cm, y, B, S, H, N, Q,
-                                 smem_bytes(P, N, Q, 2), stream);
+  if (chunks > 2) {
+    const long long threads = static_cast<long long>(B) * H * P * N / 4;
+    state_pass_kernel<<<static_cast<unsigned>((threads + 255) / 256), 256, 0,
+                        stream>>>(states, keep, B, H, P * N, chunks);
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
   }
-  if (smem_bytes(P, N, Q, 1) <= kMaxSmem) {
-    return launch_tile<T, PJ, 1>(u, dlog, bm, cm, y, B, S, H, N, Q,
-                                 smem_bytes(P, N, Q, 1), stream);
+  if (Q <= 16) {
+    return launch_out<T, P, 1, 1>(u, dlog, bm, cm, states, y, B, S, H, N, Q,
+                                  chunks, vec_b, vec_u, stream);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (Q <= 32) {
+    return launch_out<T, P, 2, 1>(u, dlog, bm, cm, states, y, B, S, H, N, Q,
+                                  chunks, vec_b, vec_u, stream);
+  }
+  return launch_out<T, P, 4, 2>(u, dlog, bm, cm, states, y, B, S, H, N, Q,
+                                chunks, vec_b, vec_u, stream);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 template <typename T>
 int launch(const void* u, const float* dlog, const void* bm, const void* cm,
-           void* y, int B, int S, int H, int P, int N, int Q,
-           void* stream_ptr) {
+           void* y, float* states, float* keep, int B, int S, int H, int P,
+           int N, int Q, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const T* ut = static_cast<const T*>(u);
   const T* bt = static_cast<const T*>(bm);
   const T* ct = static_cast<const T*>(cm);
   T* yt = static_cast<T*>(y);
+  const int vec_b = N * sizeof(T) % 16 == 0 && aligned16(bm) && aligned16(cm);
+  const int vec_u = aligned16(u);
   switch (P) {
     case 16:
-      return launch_p<T, 1>(ut, dlog, bt, ct, yt, B, S, H, N, Q, stream);
+      return launch_p<T, 16>(ut, dlog, bt, ct, yt, states, keep, B, S, H, N,
+                             Q, vec_b, vec_u, stream);
     case 32:
-      return launch_p<T, 2>(ut, dlog, bt, ct, yt, B, S, H, N, Q, stream);
+      return launch_p<T, 32>(ut, dlog, bt, ct, yt, states, keep, B, S, H, N,
+                             Q, vec_b, vec_u, stream);
     case 64:
-      return launch_p<T, 4>(ut, dlog, bt, ct, yt, B, S, H, N, Q, stream);
+      return launch_p<T, 64>(ut, dlog, bt, ct, yt, states, keep, B, S, H, N,
+                             Q, vec_b, vec_u, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -332,21 +603,24 @@ int launch(const void* u, const float* dlog, const void* bm, const void* cm,
 
 // u (B, S, H, P), dlog (B, S, H) f32, bm and cm (B, S, N), y like u, all
 // contiguous; P one of 16, 32, 64; N at most 128; chunks of Q positions.
-// dtype 0 = f32, 1 = bf16 (of u, bm, cm and y).  Returns the CUDA error of
-// the launch (cudaErrorInvalidValue for a shape it does not take).
+// states (B, chunks - 1, H, P, N) and keep (B, chunks - 1, H) are f32
+// scratch (unused, may be null, with one chunk).  dtype 0 = f32, 1 = bf16
+// (of u, bm, cm and y).  Returns the CUDA error of the launches
+// (cudaErrorInvalidValue for a shape it does not take).
 extern "C" int repro_ssd_scan(const void* u, const float* dlog,
-                              const void* bm, const void* cm, void* y, int B,
-                              int S, int H, int P, int N, int Q, int dtype,
-                              void* stream) {
+                              const void* bm, const void* cm, void* y,
+                              float* states, float* keep, int B, int S, int H,
+                              int P, int N, int Q, int dtype, void* stream) {
   if (N < 1 || N > kMaxN || Q < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == 0) {
-    return launch<float>(u, dlog, bm, cm, y, B, S, H, P, N, Q, stream);
+    return launch<float>(u, dlog, bm, cm, y, states, keep, B, S, H, P, N, Q,
+                         stream);
   }
   if (dtype == 1) {
-    return launch<__nv_bfloat16>(u, dlog, bm, cm, y, B, S, H, P, N, Q,
-                                 stream);
+    return launch<bf16>(u, dlog, bm, cm, y, states, keep, B, S, H, P, N, Q,
+                        stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -39,7 +39,7 @@ SIGNATURES = {
     },
     "lowrank": {
         "repro_batched_lowrank_apply":
-            [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+            [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "gram_tall": {
         "repro_gram_tall": [_P, _P, _P, _LL, _I, _I, _I, _LL, _P],
@@ -57,7 +57,7 @@ SIGNATURES = {
             [_P, _P, _P, _P] + [_LL] * 12 + [_I] * 9 + [_P],
     },
     "ssd": {
-        "repro_ssd_scan": [_P, _P, _P, _P, _P] + [_I] * 7 + [_P],
+        "repro_ssd_scan": [_P] * 7 + [_I] * 7 + [_P],
     },
 }
 

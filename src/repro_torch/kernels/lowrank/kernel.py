@@ -8,12 +8,13 @@ repro/kernels/lowrank/kernel.py::batched_lowrank_apply_pallas,
 ::lowrank_apply_pallas and ``batched_project_quantize`` replaces
 ::batched_project_quantize_pallas.
 The wrappers take CUDA tensors only (the registry sends CPU tensors to
-``ref.py``), check what the kernels accept, allocate the outputs and the
-f32 scratch of the kernels' two passes, launch on the current stream and
-raise on a launch error.  Each counts the calls that launched (one per call,
-for both passes): ``launches`` the apply with an f32 U, ``int8_launches``
-the apply with an int8 U (the fused int8 path), ``single_launches`` the
-single-block apply, and ``project_quantize_launches`` the write-back.
+``ref.py``), check what the kernels accept, allocate the outputs (and the
+f32 scratch of the single-block apply and the write-back; the batched apply
+is one pass and needs none), launch on the current stream and raise on a
+launch error.  Each counts the calls that launched (one per call):
+``launches`` the apply with an f32 U, ``int8_launches`` the apply with an
+int8 U (the fused int8 path), ``single_launches`` the single-block apply,
+and ``project_quantize_launches`` the write-back.
 
 G must be contiguous.  The right-side apply of Sketchy sees a transposed
 view; its caller makes the copy (core/fd.py fd_apply_inverse_root_batched).
@@ -33,6 +34,9 @@ G_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_BLOCKS = 65535      # the grid's z / y dimension
 MAX_ELL = 1024          # the single-block expand pass holds P's tile in
                         # shared memory: ell * 8 f32
+BATCHED_MAX_ELL = 1984  # the batched apply's P (ell x 8 at its narrowest
+                        # column tile, split in two) fits shared memory
+                        # beside its stages (csrc/lowrank.cu smem_bytes)
 # the write-back's pass 1 (csrc/project_quantize.cu project_kernel)
 PROJECT_ROWS, PROJECT_COLS, PROJECT_DEPTH = 128, 64, 32
 PROJECT_THREADS = 128
@@ -86,17 +90,17 @@ def batched_lowrank_apply(u: torch.Tensor, coeffs: torch.Tensor,
         raise ValueError(f"shape mismatch: u {tuple(u.shape)}, coeffs "
                          f"{tuple(coeffs.shape)}, base {tuple(base.shape)}, "
                          f"g {tuple(g.shape)}")
-    if N > MAX_BLOCKS:
+    if N > MAX_BLOCKS or not 0 < ell <= BATCHED_MAX_ELL:
         raise ValueError(f"batched_lowrank_apply kernel takes at most "
-                         f"{MAX_BLOCKS} blocks, got {N}")
+                         f"{MAX_BLOCKS} blocks and 0 < ell <= "
+                         f"{BATCHED_MAX_ELL}, got N={N}, ell={ell}")
     out = torch.empty_like(g)
     if out.numel() == 0:
         return out
-    scratch = torch.empty((N, ell, m), dtype=torch.float32, device=g.device)
     err = build.launch(build.library("lowrank").repro_batched_lowrank_apply,
                        g.device, u.data_ptr(), U_DTYPES[u.dtype],
                        coeffs.data_ptr(), base.data_ptr(), g.data_ptr(),
-                       scratch.data_ptr(), out.data_ptr(), N, d, ell, m)
+                       out.data_ptr(), N, d, ell, m)
     if err != 0:
         raise RuntimeError(f"batched_lowrank_apply kernel launch failed: CUDA "
                            f"error {err} at u {tuple(u.shape)} {u.dtype}, g "

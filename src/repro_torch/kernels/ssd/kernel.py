@@ -2,11 +2,14 @@
 replaces repro/kernels/ssd/kernel.py::ssd_pallas.
 
 The wrapper takes CUDA tensors only (the registry sends CPU tensors to
-``ref.py``), checks what the kernel accepts, allocates the output, launches
-on the current stream and raises on a launch error.  ``launches`` counts
-its launches, so a run can show that its scans went through the kernel.
-Unlike the Pallas kernel it needs no padding: positions past S and heads
-past the last head tile are masked in the kernel.
+``ref.py``), checks what the kernel accepts, allocates the output and, with
+more than one chunk, the f32 scratch of the kernel's phases (each chunk's
+state but the last, and its decay), launches on the current stream and
+raises on a launch error.  ``launches`` counts its calls (one per call,
+whatever number of phases it launched), so a run can show that its scans
+went through the kernel.  Unlike the Pallas kernel it needs no padding:
+positions past S and heads past the last head tile are masked in the
+kernel.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from repro_torch.kernels import build
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64)
 MAX_STATE = 128
-MAX_BATCH = 65535       # the grid's y dimension
+MAX_BATCH = 65535       # the grid's z dimension
 launches = 0
 
 
@@ -59,10 +62,17 @@ def ssd_scan(u: torch.Tensor, dlog: torch.Tensor, Bm: torch.Tensor,
     y = torch.empty_like(u)
     if y.numel() == 0:
         return y
+    Q = min(chunk, S)
+    # the state each chunk but the last adds (the state pass turns it into
+    # the state entering the next chunk) and its decay exp(A_end)
+    slots = -(-S // Q) - 1
+    states = torch.empty((B, slots, H, P, N), dtype=torch.float32,
+                         device=u.device)
+    keep = torch.empty((B, slots, H), dtype=torch.float32, device=u.device)
     err = build.launch(build.library("ssd").repro_ssd_scan, u.device,
                        u.data_ptr(), dlog.data_ptr(), Bm.data_ptr(),
-                       Cm.data_ptr(), y.data_ptr(), B, S, H, P, N,
-                       min(chunk, S), DTYPES[u.dtype])
+                       Cm.data_ptr(), y.data_ptr(), states.data_ptr(),
+                       keep.data_ptr(), B, S, H, P, N, Q, DTYPES[u.dtype])
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err} "
                            f"at u {tuple(u.shape)}, N={N}, chunk={chunk} "

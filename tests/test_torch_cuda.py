@@ -11,7 +11,10 @@ tolerances (a half-precision apply result also one rounding step of its
 dtype), and two runs on the same inputs must give the same bits: their
 partial sums are added in a fixed order.  The batched Grams (kernels 1 and 5,
 3xTF32 on the tensor cores) keep the f32 tolerance, give the same bits on
-two runs, and the mixed one weights its output inside the kernel.  The int8 write-back's
+two runs, and the mixed one weights its output inside the kernel.  So does
+the batched apply (kernels 2 and 2', one pass in 3xTF32), held also at its
+column tile's edges and on G of mean 3, and it allocates nothing but its
+output.  The int8 write-back's
 scales agree to ``rtol = 1e-5`` (the absmax of U_new summed in another
 order), and a value may differ by 1, only where the plain version's
 U_new / scale lies within 1e-3 of a step of a .5 boundary (a few hundred
@@ -23,7 +26,9 @@ held to the tolerances of the reference's own sweeps
 (tests/test_kernels.py:210 and :230): against the plain version on the
 f32 upcast inputs, attention ``atol = 2e-5`` in f32 and 0.05 in bf16, the
 scan ``atol = 5e-6 * S`` in f32 and 0.15 in bf16.  Both kernels' sums run
-in a fixed order, so two runs give the same bits.  Their gradients (the
+in a fixed order, so two runs give the same bits (the scan's cases cross
+the seams of its three phases: one, two and 17 chunks, a ragged last
+chunk, Q < 16, head counts no multiple of its head tile).  Their gradients (the
 plain version differentiated, ``kernels/*/ops.py``) match autograd of the
 plain version on the card to ``rtol = 1e-5, atol = 1e-6``: the same
 backward on forwards that differ by the kernel's rounding.  The bf16
@@ -81,16 +86,29 @@ def test_gram_kernel_matches_plain_on_card(card, N, d, k, mean, dtype):
                                **_tol(d, dtype))
 
 
+# (N, d, ell, n) of the batched apply: ragged shapes, then the main path's;
+# then its tiles' edges (m no multiple of the column tile, d 1000, 1400 and
+# 3000 no multiple of its units, ell 12 and 17, ell over one 64-column
+# group, N 1; ell 300, 700 and 1300, whose P takes the narrower column
+# tiles of 32, 16 and 8 with an f32 U, and with an int8 one 64, 16 and 8)
+APPLY_CASES = [(1, 32, 4, 8), (3, 24, 6, 10), (7, 123, 17, 50),
+               (2, 12, 12, 768), (2, 768, 64, 12), (48, 768, 64, 768),
+               (1, 1000, 17, 45), (2, 1000, 12, 33), (1, 12, 12, 100),
+               (2, 1400, 64, 40), (1, 3000, 64, 20), (2, 300, 130, 70),
+               (1, 200, 300, 40), (1, 100, 700, 24), (1, 60, 1300, 20),
+               (1, 1024, 64, 768)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,d,ell,n", [(1, 32, 4, 8), (3, 24, 6, 10),
-                                       (7, 123, 17, 50), (2, 12, 12, 768),
-                                       (2, 768, 64, 12), (48, 768, 64, 768)])
-def test_lowrank_kernel_matches_plain_on_card(card, N, d, ell, n):
-    """f32, the one dtype the apply kernel takes."""
+@pytest.mark.parametrize("N,d,ell,n,mean", [(*c, 0.0) for c in APPLY_CASES]
+                         + [(68, 1024, 64, 768, 3.0)])
+def test_lowrank_kernel_matches_plain_on_card(card, N, d, ell, n, mean):
+    """f32, the one dtype of G the apply kernel takes; G of mean 3 at a main
+    path shape too, where the 3xTF32 products' sums are large."""
     from repro_torch.kernels.lowrank import kernel
     gen = torch.Generator(device=card).manual_seed(d)
     u = torch.randn(N, d, ell, generator=gen, device=card)
-    g = torch.randn(N, d, n, generator=gen, device=card)
+    g = torch.randn(N, d, n, generator=gen, device=card) + mean
     coeffs = torch.rand(N, ell, generator=gen, device=card)
     base = torch.rand(N, generator=gen, device=card)
     before = kernel.launches
@@ -120,6 +138,11 @@ def test_kernel_wrappers_reject_what_they_do_not_take(card):
     with pytest.raises(TypeError, match="float32"):
         lowrank_kernel.batched_lowrank_apply(u.bfloat16(), c, b,
                                              g.bfloat16())
+    wide = lowrank_kernel.BATCHED_MAX_ELL + 1
+    with pytest.raises(ValueError, match="ell"):
+        lowrank_kernel.batched_lowrank_apply(
+            torch.zeros(2, 8, wide, device=card),
+            torch.zeros(2, wide, device=card), b, g)
 
 
 # (N, d, ell, r): ragged, then the main path's shapes (left and right side
@@ -247,10 +270,9 @@ def test_project_quantize_kernel_matches_plain_on_card(card, N, d, k, r):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,d,ell,n", [(1, 32, 4, 8), (7, 123, 17, 50),
-                                       (2, 12, 12, 768), (2, 768, 64, 12),
-                                       (48, 768, 64, 768)])
-def test_int8_apply_kernel_matches_plain_on_card(card, N, d, ell, n):
+@pytest.mark.parametrize("N,d,ell,n,mean", [(*c, 0.0) for c in APPLY_CASES]
+                         + [(68, 1024, 64, 768, 3.0)])
+def test_int8_apply_kernel_matches_plain_on_card(card, N, d, ell, n, mean):
     from repro_torch.kernels import registry
     from repro_torch.kernels.lowrank import kernel
     gen = torch.Generator(device=card).manual_seed(d + 1)
@@ -258,7 +280,7 @@ def test_int8_apply_kernel_matches_plain_on_card(card, N, d, ell, n):
     scale = torch.rand(N, 1, 1, generator=gen, device=card) / 127
     coeffs = torch.rand(N, ell, generator=gen, device=card)
     base = torch.rand(N, generator=gen, device=card)
-    g = torch.randn(N, d, n, generator=gen, device=card)
+    g = torch.randn(N, d, n, generator=gen, device=card) + mean
     before = (kernel.launches, kernel.int8_launches)
     got = registry.batched_lowrank_apply_quantized(vq, scale, coeffs, base, g)
     torch.cuda.synchronize()
@@ -267,6 +289,34 @@ def test_int8_apply_kernel_matches_plain_on_card(card, N, d, ell, n):
     torch.testing.assert_close(
         got, lowrank_ref.batched_lowrank_apply_quantized_ref(
             vq, scale, coeffs, base, g), **_tol(d, "float32"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("u_dtype", ["float32", "int8"])
+def test_apply_kernel_gives_the_same_bits_and_no_scratch(card, u_dtype):
+    """At a main-path shape: two calls give the same bits (no split over d,
+    no atomics), and a call allocates its output and nothing else (the
+    one-pass kernel has no (N, ell, m) scratch)."""
+    from repro_torch.kernels.lowrank import kernel
+    N, d, ell, n = 68, 1024, 64, 768
+    gen = torch.Generator(device=card).manual_seed(17)
+    u = (_int8(N, d, ell, gen, card) if u_dtype == "int8"
+         else torch.randn(N, d, ell, generator=gen, device=card))
+    g = torch.randn(N, d, n, generator=gen, device=card)
+    coeffs = torch.rand(N, ell, generator=gen, device=card) / 127 ** 2
+    base = torch.rand(N, generator=gen, device=card)
+    got = kernel.batched_lowrank_apply(u, coeffs, base, g)
+    torch.cuda.synchronize()
+    del got
+    torch.cuda.reset_peak_memory_stats(card)
+    before = torch.cuda.memory_allocated(card)
+    got = kernel.batched_lowrank_apply(u, coeffs, base, g)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(card) - before <= \
+        got.numel() * got.element_size()
+    again = kernel.batched_lowrank_apply(u, coeffs, base, g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
@@ -473,11 +523,20 @@ def test_flash_bf16_kernel_rejects_misaligned_views(card):
 
 # (B, S, H, P, N, chunk): tests/test_kernels.py:215-219's sweep, zamba2-7b's
 # feedback shape, a chunk of 256 at N = 64 and 128, and S and H that are no
-# multiple of the chunk or the head tile
+# multiple of the chunk or the head tile; then the seams of the three
+# phases: one chunk (S = chunk, and S < chunk with Q = 70 no multiple of
+# 16), 2 and 17 chunks, a ragged last chunk at 4096 + 40, Q < 16 (chunk 8)
+# over several chunks, H no multiple of the head tile at Q = 16 and 256, N
+# 128 at P 16, and B > 1 with several chunks
 SSD_CASES = [(1, 32, 4, 16, 16, 8), (2, 64, 8, 16, 32, 16),
              (1, 48, 6, 32, 64, 16), (4, 16, 112, 64, 64, 16),
              (1, 512, 8, 64, 64, 256), (1, 512, 4, 64, 128, 256),
-             (2, 70, 5, 32, 48, 32)]
+             (2, 70, 5, 32, 48, 32),
+             (1, 256, 8, 64, 64, 256), (2, 70, 4, 64, 64, 256),
+             (1, 272, 4, 32, 32, 16), (1, 4136, 4, 64, 64, 256),
+             (2, 40, 3, 32, 64, 8), (1, 16, 7, 64, 64, 16),
+             (1, 300, 3, 64, 64, 256), (1, 512, 4, 16, 128, 256),
+             (3, 200, 6, 64, 64, 64)]
 
 
 def _ssd_inputs(card, B, S, H, P, N, dtype, seed):

@@ -24,14 +24,16 @@ interpret-mode Pallas kernel's scale may be one ulp off IEEE division.  On
 general inputs a value may differ by 1 where the two sides' U_new/scale
 straddle a .5 boundary, and the scales by ``rtol = 1e-6``.
 
-The card's batched Grams (csrc/gram.cu) multiply in 3xTF32.  Three tests
-here document that arithmetic and the kernel's tiling with copies written
-in this file, not with the package's code, so no change to the kernel can
-make them fail: a numpy emulation of the split held to the f32 tolerance at
-the main path's depths (and one tf32 product shown to miss it), tf32
-rounding to nearest, and the enumeration of the upper-triangular tiles.
-The kernel's own accuracy and tiling are held on the card
-(tests/test_torch_cuda.py), where its error reads several times the
+The card's batched Grams (csrc/gram.cu) and batched apply (csrc/lowrank.cu)
+multiply in 3xTF32.  Tests here document that arithmetic and the Gram's
+tiling with copies written in this file, not with the package's code, so no
+change to a kernel can make them fail: numpy emulations of the split held
+to the f32 tolerance at the main path's depths (and one tf32 product shown
+to miss it), for the Gram and for the apply's two products with their
+promotion every 32 deep (an int8 U with two terms), tf32 rounding to
+nearest, and the enumeration of the Gram's upper-triangular tiles.  The
+kernels' own accuracy and tiling are held on the card
+(tests/test_torch_cuda.py), where the error reads several times the
 emulation's and data of mean 3 shows the need of the accumulator's
 promotion, which the emulation cannot.
 """
@@ -459,3 +461,68 @@ def test_gram_tiles_cover_the_output_once(k):
         if ti != tj:
             writes[cols, rows] += 1
     assert (writes == 1).all()
+
+
+# ---- the batched apply on the card: 3xTF32 (csrc/lowrank.cu) -------------
+
+
+def _split(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
+
+
+def _apply_tf32(u, c, base, g, exact_u: bool, terms: int = 3,
+                depth: int = 32) -> np.ndarray:
+    """The card's apply emulated in f32: P = c o (U^T G), then
+    Y = base G + U P, each product over 32-deep slices of its reduction (d,
+    then ell) summed into an f32 total (the promotion).  With three terms,
+    hi.lo + lo.hi + hi.hi of the split operands; an int8 U (``exact_u``,
+    exact in tf32) takes U.lo + U.hi; one term is hi.hi alone."""
+    uh, ul = (u, np.zeros_like(u)) if exact_u else _split(u)
+    gh, gl = _split(g)
+
+    def product(ah, al, bh, bl, k):
+        out = np.zeros((ah.shape[0], bh.shape[1]), np.float32)
+        for i in range(0, k, depth):
+            a_h, a_l = ah[:, i:i + depth], al[:, i:i + depth]
+            b_h, b_l = bh[i:i + depth], bl[i:i + depth]
+            acc = a_h @ b_h
+            if terms == 3:
+                acc = (a_h @ b_l + a_l @ b_h) + acc
+            out += acc
+        return out
+
+    p = c[:, None] * product(uh.T, ul.T, gh, gl, u.shape[0])
+    ph, pl = _split(p)
+    return base * g + product(uh, ul, ph, pl, u.shape[1])
+
+
+@pytest.mark.parametrize("d", [768, 1024])
+@pytest.mark.parametrize("u_dtype", ["float32", "int8"])
+@pytest.mark.parametrize("mean", [0.0, 3.0])
+def test_three_tf32_products_hold_the_apply_tolerance(d, u_dtype, mean):
+    """Documents the apply kernel's arithmetic, on an emulation: at the main
+    path's d and ell = 64, on the card tests' data (U normal or int8, whose
+    scale^2 the fused path folds into c; G of mean 0 and 3), the promoted
+    3xTF32 products (two terms for an int8 U) stay within the f32 tolerance
+    1e-4 sqrt(d) + 1e-5 |Y| of float64 (at most 0.10 of it for an f32 U,
+    0.014 for an int8 one), and one tf32 product of an f32 U does not."""
+    rng = np.random.default_rng(d)
+    ell, m = 64, 48
+    c = rng.random(ell).astype(np.float32)
+    if u_dtype == "int8":
+        u = rng.integers(-127, 128, size=(d, ell)).astype(np.float32)
+        c *= np.float32((rng.random() / 127) ** 2)
+    else:
+        u = rng.normal(size=(d, ell)).astype(np.float32)
+    g = (rng.normal(size=(d, m)) + mean).astype(np.float32)
+    base = np.float32(rng.random())
+    u64, g64 = u.astype(np.float64), g.astype(np.float64)
+    want = base * g64 + u64 @ (c.astype(np.float64)[:, None] * (u64.T @ g64))
+    tol = 1e-4 * np.sqrt(d) + 1e-5 * np.abs(want)
+    exact = u_dtype == "int8"
+    three = np.abs(_apply_tf32(u, c, base, g, exact) - want) / tol
+    assert three.max() <= 0.5
+    if not exact:   # (f32 U: 76-207x the tolerance with one product)
+        one = np.abs(_apply_tf32(u, c, base, g, exact, terms=1) - want) / tol
+        assert one.max() > 1.0
