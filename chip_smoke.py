@@ -32,8 +32,17 @@ no result line:
    same bits at one main-path shape, and also held to the tolerance on
    data of mean 3; kernel 8 against its bf16 and f32 bounds); every row
    bound by f32 operations also prints that bound at the 3xTF32 rate.
+   Kernel 4 also prints its reachable bound beside the read-once one: Y
+   needs all of U^T G before its first row, so U and G are read twice but
+   for what the chip holds (ONCHIP_BYTES); and the two passes' bytes.
+   Kernel 1 also at the seven shapes of Shampoo's per-step L and R Grams at
+   full width (``shampoo_gram_calls``), on data of mean 3, one step's 8
+   calls summed beside the plain version and ``bmm``; and the copy that
+   makes each group's G^T contiguous for L's Gram.
 3. eigh: ``torch.linalg.eigh`` over one refresh's 444 Grams (a library call
-   in both packages, timed on its own).
+   in both packages, timed on its own); then one Shampoo root refresh
+   (172 matrices of 1024^2, 270 of 768^2, 2 of 12^2): eigh alone and the
+   whole inverse 4th root.
 4. main paths: ``repro_torch.launch.train`` at full-width paper-lm-100m with
    Sketchy at the launcher's defaults (peak lr 3e-4, see MAIN_PATH_ARGV) for
    12 steps (refreshes at steps 0 and 10), once with fp32 and once with int8
@@ -44,13 +53,26 @@ no result line:
    16 write-backs, 96 int8 applies, no f32 Gram or apply, and the
    second-moment bytes of the JAX reference (24,661,092).  Both: 288 flash
    attentions (TRAIN_FLASH_PER_STEP: 12 layers, each once in the forward
-   and once in the remat recompute of the backward, over 12 steps).
-5. profile: ``torch.profiler`` over one plain step of each run: device time
-   by kernel and the device's idle share.
+   and once in the remat recompute of the backward, over 12 steps).  Then
+   the paper's baselines on the same path and flags: ``--optimizer
+   shampoo`` (fp32 L and R, roots at steps 0 and 10): 96 Grams (8 a step:
+   4 pool groups, L and R), 288 flash attentions and no other kernel, and
+   the JAX reference's second-moment bytes (1,358,434,432);
+   ``--optimizer adam``: 288 flash attentions and no optimizer kernel, and
+   654,388,224 B.  Each prints its step times (refresh and plain) and peak
+   memory.
+5. profile: ``torch.profiler`` over one plain step of each of the four
+   runs: device time by kernel and the device's idle share.
 6. reference: the reduced model trained 4 steps on the card (kernels) and on
    the CPU (plain versions) from the same weights gives the same losses,
-   with fp32 and with int8 storage; the card run launches the flash kernel
-   4 x 3 times (3 layers, no remat in the reduced config).
+   with Sketchy at fp32 and int8 storage, Shampoo at fp32 and int8 and Adam;
+   the card run launches the flash kernel 4 x 3 times (3 layers, no remat
+   in the reduced config).
+6b. convex: ``repro_torch.launch.convex`` (the paper's Tbl. 3 streams and
+   grid) on the card and on the CPU: the 12 average losses and their ranks
+   agree (as tests/test_torch_oco.py holds them), and kernels 3 and 4
+   launch once per step of each FD learner (CONVEX_FD_LEARNERS; a diverged
+   run stops at its first non-finite iterate or gradient), no other.
 7. serve: ``repro_torch.launch.serve`` at full-width paper-lm-100m
    (SERVE_ARGV: step traffic over 24 ticks, the FD gradient monitor over
    the flattened lm_head, d = 25,165,824, and S-AdaGrad head adaptation
@@ -88,7 +110,8 @@ no result line:
    the adapted leaf their tied embed.
 
 The last two lines are ``{"kernels": [...]}`` and
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  Kernel 1's row there is Sketchy's main
+path; its Shampoo counts and times are on the lines of phases 2 and 4.
 """
 from __future__ import annotations
 
@@ -142,6 +165,11 @@ from repro_torch.models import model as model_lib  # noqa: E402
 # beside it; every other row bound by f32 operations keeps its f32 bound
 # there and prints its bound at 3xTF32 beside it, for ordering only.
 HBM_BYTES_PER_S = 3.35e12
+# what the card holds on chip at once: 132 SMs of 256 KiB of registers and
+# 228 KiB of shared memory, and 50 MiB of L2 (NVIDIA's H100 SXM figures):
+# the most of a tall factor that a two-product pass can keep between its
+# products instead of reading it again (kernel 4's bound)
+ONCHIP_BYTES = 132 * (256 + 228) * 1024 + 50 * 2 ** 20
 F32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 494.7e12
 TF32X3_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
@@ -157,6 +185,14 @@ INT8_ARGV = ["--second-moment-dtype", "int8"]
 # second_moment_bytes of the JAX reference at full width with the
 # launcher's defaults and int8 storage (tests/test_torch_quantize.py)
 INT8_SECOND_MOMENT_BYTES = 24_661_092
+# the paper's baselines on the same path: full-matrix Shampoo (fp32 L, R,
+# roots every 10 steps, as Sketchy's refresh) and Adam, with the JAX
+# reference's second-moment bytes at full width
+# (tests/test_torch_optimizers.py)
+SHAMPOO_ARGV = ["--optimizer", "shampoo"]
+ADAM_ARGV = ["--optimizer", "adam"]
+SHAMPOO_SECOND_MOMENT_BYTES = 1_358_434_432
+ADAM_SECOND_MOMENT_BYTES = 654_388_224
 # the serving path's FD sketches: the flattened full-width lm_head (768 x
 # 32768) at the monitor's and the adapter's default rank
 SERVE_D, SERVE_ELL = 768 * 32768, 8
@@ -424,15 +460,23 @@ def phase_single_kernels(dev, gen) -> dict:
         plain = cuda_ms(lambda: lowrank_ref.lowrank_apply_ref(u, c, b, g),
                         10)
         lib = cuda_ms(lambda: b * g + u @ (c[:, None] * (u.T @ g)), 10)
+        # the JSON's bound reads each input once; Y needs all of U^T G
+        # before its first row, so what of U and G does not stay on chip
+        # between the two products is read twice: the reachable bound is
+        # the two passes' bytes less ONCHIP_BYTES
         t_bytes, t_ops = bound_ms(4 * (d * ell + ell + 1 + 2 * d * n),
                                   4 * d * ell * n + 2 * d * n + ell * n)
-        two_pass, _ = bound_ms(4 * (2 * d * ell + 3 * d * n), 0)
+        two_pass_bytes = 4 * (2 * d * ell + 3 * d * n + ell + 1)
+        reach = bound_ms(max(two_pass_bytes - ONCHIP_BYTES, 0), 0)[0]
+        two_pass = bound_ms(two_pass_bytes, 0)[0]
         rows.append((ms, plain, lib, t_bytes, t_ops))
         print(f"lowrank_apply d={d} ell={ell} n={n}: {ms:.3f} ms, plain "
               f"{plain:.3f} ms, matmuls {lib:.3f} ms, bound "
-              f"{max(t_bytes, t_ops):.3f} ms (bytes {t_bytes:.3f}, "
-              f"operations {t_ops:.3f}); the two passes' own bytes "
-              f"(U read twice) {two_pass:.3f} ms")
+              f"{max(t_bytes, t_ops):.3f} ms (each input read once: bytes "
+              f"{t_bytes:.3f}, operations {t_ops:.3f}); reachable bound "
+              f"{max(reach, t_ops):.3f} ms ({max(reach, t_ops) / ms:.1%}; "
+              f"U and G read twice but for the {ONCHIP_BYTES} B on chip), "
+              f"two passes {two_pass:.3f} ms ({two_pass / ms:.1%})")
     out["lowrank_apply"] = dict(
         name="lowrank_apply", route="cuda",
         source="src/repro_torch/csrc/lowrank_tall.cu",
@@ -895,6 +939,102 @@ def phase_eigh(dev) -> float:
     return total
 
 
+def shampoo_gram_calls() -> list:
+    """(N, d, k) of kernel 1's calls in one Shampoo step at full width, from
+    the port's pool index: per group the Gram of G^T (L's increment, (N,
+    bs_n, bs_m)) and of G (R's, (N, bs_m, bs_n)); 8 calls, 7 shapes."""
+    cfg = registry.get_config("paper-lm-100m")
+    shapes = [tuple(s) for s in tree.flatten(model_lib.param_shapes(cfg))]
+    return [c for g in pool.build_index(tuple(shapes), BLOCK).groups
+            for c in ((g.num_blocks, g.bs_n, g.bs_m),
+                      (g.num_blocks, g.bs_m, g.bs_n))]
+
+
+def phase_shampoo_grams(dev, gen) -> None:
+    """Kernel 1 at every shape Shampoo's statistics give it at full width,
+    on data of mean 3, against its plain version at the f32 tolerance;
+    timed beside the plain version, ``bmm(A^T, A)`` and the bound (as
+    kernel 1's Sketchy rows), summed over one step's 8 calls.  Then the copy
+    that makes G^T contiguous for L's Gram, per group, against its bytes."""
+    calls = shampoo_gram_calls()
+    sums, err = dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0, flops=0.0), 0.0
+    timed = {}
+    for N, d, k in calls:
+        if (N, d, k) not in timed:
+            a = torch.randn(N, d, k, generator=gen, device=dev) + 3.0
+            got = gram_kernel.batched_gram(a)
+            torch.cuda.synchronize()
+            err = max(err, check(f"batched_gram (Shampoo) {(N, d, k)} mean 3",
+                                 got, gram_ref.batched_gram_ref(a), d))
+            ms = cuda_ms(lambda: gram_kernel.batched_gram(a), 3)
+            plain = cuda_ms(lambda: gram_ref.batched_gram_ref(a), 3)
+            lib = cuda_ms(lambda: torch.bmm(a.mT, a), 3)
+            flops = N * d * k * (k + 1)
+            t_bytes = bound_ms(4 * (N * d * k + N * k * k), 0)[0]
+            t_ops = flops / TF32X3_FLOPS_PER_S * 1e3
+            timed[(N, d, k)] = (ms, plain, lib, max(t_bytes, t_ops), flops)
+            del a, got
+            print(f"batched_gram (Shampoo) N={N} d={d} k={k}: {ms:.4f} ms "
+                  f"({_rate(flops, ms)}, {max(t_bytes, t_ops) / ms:.1%} of "
+                  f"the 3xTF32 bound), plain {plain:.4f} ms, bmm {lib:.4f} "
+                  f"ms, bound {max(t_bytes, t_ops):.4f} ms (bytes "
+                  f"{t_bytes:.4f}, 3xTF32 operations {t_ops:.4f})")
+        for key, v in zip(("ms", "plain", "lib", "bound", "flops"),
+                          timed[(N, d, k)]):
+            sums[key] += v
+    print(f"batched_gram (Shampoo), one step ({len(calls)} calls): "
+          f"{sums['ms']:.4f} ms ({_rate(sums['flops'], sums['ms'])}, "
+          f"{sums['bound'] / sums['ms']:.1%} of its 3xTF32 bound "
+          f"{sums['bound']:.4f} ms), plain {sums['plain']:.4f} ms, bmm "
+          f"{sums['lib']:.4f} ms; kernel / library "
+          f"{sums['ms'] / sums['lib']:.2f}; max abs diff {err:.3e}")
+    total, total_bound = 0.0, 0.0
+    for N, d, k in calls[1::2]:                 # each group's G
+        g = torch.randn(N, d, k, generator=gen, device=dev)
+        ms = cuda_ms(lambda: g.mT.contiguous(), 5)
+        t_bytes = bound_ms(2 * 4 * N * d * k, 0)[0]
+        total, total_bound = total + ms, total_bound + t_bytes
+        print(f"G^T copy N={N} {d}x{k}: {ms:.4f} ms (bytes bound "
+              f"{t_bytes:.4f} ms)")
+        del g
+    print(f"G^T copies, one Shampoo step: {total:.4f} ms (bytes bound "
+          f"{total_bound:.4f} ms)")
+
+
+def phase_shampoo_eigh(dev) -> None:
+    """One Shampoo root refresh at full width: ``eigh`` alone and the whole
+    inverse 4th root (core/shampoo.py::_inv_root: symmetrize, eigh, V
+    lam^-1/4 V^T) over every group's L and R stack, each the EMA-free
+    statistic of one gradient (rank-deficient where the block is not
+    square, as after the first step)."""
+    from repro_torch.core import fd, shampoo
+    gen = torch.Generator(device=dev).manual_seed(2)
+    stacks = []
+    for N, d, k in shampoo_gram_calls():
+        g = torch.randn(N, d, k, generator=gen, device=dev)
+        stacks.append(gram_ref.batched_gram_ref(g))
+        del g
+    fd._eigh(stacks[0][:1])
+    torch.cuda.synchronize()
+    eigh_s = root_s = 0.0
+    for m in stacks:
+        t0 = time.perf_counter()
+        fd._eigh(m)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        shampoo._inv_root(m, shampoo.MATRIX_EPS, -0.25)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        eigh_s, root_s = eigh_s + t1 - t0, root_s + t2 - t1
+        print(f"Shampoo root {m.shape[0]} x {m.shape[1]}^2: eigh "
+              f"{t1 - t0:.3f} s, inverse root {t2 - t1:.3f} s")
+    sizes = {}
+    for m in stacks:
+        sizes[m.shape[1]] = sizes.get(m.shape[1], 0) + m.shape[0]
+    print(f"Shampoo root refresh ({sizes} matrices by size): eigh "
+          f"{eigh_s:.3f} s of {root_s:.3f} s ({eigh_s / root_s:.1%})")
+
+
 COUNTERS = {   # launch counter -> (wrapper module, attribute)
     "batched_gram": (gram_kernel, "launches"),
     "batched_lowrank_apply": (lowrank_kernel, "launches"),
@@ -1086,12 +1226,13 @@ def phase_zamba_scan_witness(readings: list) -> None:
             f"{r.leading_eig:.4e} {r.decision}" for r in got))
 
 
-def phase_reference(dev, storage: str) -> None:
+def phase_reference(dev, storage: str, optimizer: str = "sketchy") -> None:
     """Reduced model, same weights: card (kernels) vs CPU (plain), with
-    ``storage`` second-moment storage."""
+    ``optimizer`` and ``storage`` second-moment storage."""
     argv = ["--reduced", "--steps", "4", "--seq", "32", "--batch", "4",
             "--rank", "4", "--block-size", "32", "--update-every", "2",
-            "--second-moment-dtype", storage]
+            "--second-moment-dtype", storage, "--optimizer", optimizer]
+    storage = f"{optimizer} {storage}"
     cfg = registry.get_reduced("paper-lm-100m")
     params = model_lib.init_params(cfg, torch.Generator().manual_seed(0))
     losses = {}
@@ -1119,6 +1260,55 @@ def phase_reference(dev, storage: str) -> None:
     # ~6e-6 relative on the CPU
     if worst > 1e-3:
         fail(f"card and CPU runs of the reduced model disagree ({storage})")
+
+
+# Tbl. 3's learners that sketch: each launches the single-block Gram
+# (kernel 3) and apply (kernel 4) once a step, at each point of its grid
+CONVEX_FD_LEARNERS = ("s-adagrad", "ada-fd", "fd-son", "rfd-son")
+
+
+def phase_convex(dev) -> dict:
+    """``repro_torch.launch.convex`` (Tbl. 3's streams and grid) on the card
+    with every launch count set to 0 just before and read just after, then
+    on the CPU: the 12 average losses agree within the CPU test's tolerance
+    (tests/test_torch_oco.py: 1e-4, and FD-SON on the low-rank stream,
+    chaotic, within a factor of 2), with the same ranks; kernels 3 and 4
+    launch once per FD step and no other kernel launches."""
+    from repro_torch.launch import convex
+    args = convex.parse_args([])
+    _zero_counts()
+    t0 = time.perf_counter()
+    card = convex.run(args)
+    card_s = time.perf_counter() - t0
+    launches = _counts()
+    t0 = time.perf_counter()
+    cpu = convex.run(convex.parse_args(["--device", "cpu"]))
+    cpu_s = time.perf_counter() - t0
+    steps = sum(card["steps"][name] for name in CONVEX_FD_LEARNERS)
+    if steps < len(convex.KINDS) * args.T:
+        fail(f"convex: only {steps} steps of the sketching learners")
+    expected = dict(dict.fromkeys(COUNTERS, 0), gram=steps,
+                    lowrank_apply=steps)
+    if launches != expected:
+        fail(f"convex: launches {launches}, expected {expected}")
+    worst = 0.0
+    for name, (value, rank) in ((k, v) for k, v in cpu.items()
+                                if k not in ("launches", "steps")):
+        got, got_rank = card[name]
+        print(f"convex {name}: card {got!r} (rank {got_rank}), CPU {value!r}"
+              f" (rank {rank})")
+        if got_rank != rank:
+            fail(f"convex {name}: card rank {got_rank}, CPU rank {rank}")
+        if name == "tbl3_convex_lowrank_fd-son":
+            if not value / 2 < got < value * 2:
+                fail(f"convex {name}: card {got}, CPU {value}")
+            continue
+        worst = max(worst, abs(got - value))
+        if not abs(got - value) <= 1e-4:
+            fail(f"convex {name}: card {got}, CPU {value}")
+    print(f"convex: card {card_s:.1f} s, CPU {cpu_s:.1f} s; launches "
+          f"{launches}; steps {card['steps']} (CPU {cpu['steps']}); largest difference of the 11 held rows {worst:.2e}")
+    return launches
 
 
 def phase_serve(dev, argv: list) -> tuple[dict, dict]:
@@ -1241,7 +1431,9 @@ def main() -> int:
                   f"loaded")
 
     kernels = phase_kernels(dev)
+    phase_shampoo_grams(dev, torch.Generator(device=dev).manual_seed(3))
     phase_eigh(dev)
+    phase_shampoo_eigh(dev)
     none = dict.fromkeys(COUNTERS, 0)
     flash = dict(flash_attention=12 * TRAIN_FLASH_PER_STEP)
     fp32 = phase_main_path(dev, MAIN_PATH_ARGV, dict(
@@ -1249,10 +1441,23 @@ def main() -> int:
     int8 = phase_main_path(dev, MAIN_PATH_ARGV + INT8_ARGV, dict(
         none, batched_gram_mixed=16, batched_project_quantize=16,
         batched_lowrank_apply_int8=96, **flash), INT8_SECOND_MOMENT_BYTES)
-    phase_profile(dev, MAIN_PATH_ARGV)
-    phase_profile(dev, MAIN_PATH_ARGV + INT8_ARGV)
+    # Shampoo's L and R: kernel 1 on 4 groups x 2 sides every step
+    shampoo = phase_main_path(dev, MAIN_PATH_ARGV + SHAMPOO_ARGV, dict(
+        none, batched_gram=12 * 8, **flash), SHAMPOO_SECOND_MOMENT_BYTES)
+    phase_main_path(dev, MAIN_PATH_ARGV + ADAM_ARGV, dict(none, **flash),
+                    ADAM_SECOND_MOMENT_BYTES)
+    print(f"Shampoo's main path: kernel 1 (batched_gram) launched "
+          f"{shampoo['batched_gram']} times over 12 steps (8 a step), "
+          f"flash attention {shampoo['flash_attention']}")
+    for argv in (MAIN_PATH_ARGV, MAIN_PATH_ARGV + INT8_ARGV,
+                 MAIN_PATH_ARGV + SHAMPOO_ARGV, MAIN_PATH_ARGV + ADAM_ARGV):
+        phase_profile(dev, argv)
     phase_reference(dev, "fp32")
     phase_reference(dev, "int8")
+    phase_reference(dev, "fp32", "shampoo")
+    phase_reference(dev, "int8", "shampoo")
+    phase_reference(dev, "fp32", "adam")
+    phase_convex(dev)
     served, _ = phase_serve(dev, SERVE_ARGV)
     adapted, _ = phase_serve(dev, ADAPT_ARGV)
     if served["gram"] == 0:

@@ -2,17 +2,21 @@
 path only).
 
 ``scale_by_preconditioner`` owns what every Kronecker-style optimizer
-shares: blocking, pooling of same-shaped blocks (core/pool.py), the gated
-refresh on ``count % update_every == 0``, the diagonal (RMSProp) fallback
-for vectors and scalars, norm grafting (paper App. C) and the
-``start_preconditioning_step`` gate.  The preconditioner supplies
-``init_block`` (the stats stack of a pool group), and ``refresh_batched``
-and ``precondition_batched`` over whole pool stacks, or the per-block
-``refresh`` and ``precondition``, which the engine loops over the pool dim
-(the reference vmaps them).
+shares: blocking, pooling of same-shaped blocks (core/pool.py), the
+per-step statistics update, the gated refresh on ``count % update_every ==
+0``, the diagonal (RMSProp) fallback for vectors and scalars, norm grafting
+(paper App. C) and the ``start_preconditioning_step`` gate.  The
+preconditioner supplies ``init_block`` (the stats stack of a pool group),
+and ``update_stats_batched`` (optional: every step, before the refresh),
+``refresh_batched`` and ``precondition_batched`` over whole pool stacks, or
+the per-block ``update_stats``, ``refresh`` and ``precondition``, which the
+engine loops over the pool dim (the reference vmaps them).  The
+reference's ``diagonal = True`` path (Adam, every leaf whole) is
+core/adam.py's own transformation here.
 
 Ported: synchronized inline refresh, fp32/bf16/int8 second-moment storage
-(core/quantize.py) with the fused int8 path, replicated statistics, static
+(core/quantize.py) with the fused int8 path for preconditioners that
+declare ``supports_quantized_compute``, replicated statistics, static
 rank, RMSPROP_NORMALIZED grafting with f32 accumulators or none, 1-D leaves
 as (d, 1) blocks for the OCO learners (``treat_vectors_as_columns``), and
 the diagonal fallback damped by ``GRAFT_EPS``.  Other ``EngineConfig``
@@ -21,9 +25,11 @@ them.
 
 State is plain: the step count is a Python int (the refresh gate is a host
 branch), pools map group keys to the preconditioner's stats stacks, and the
-per-leaf residue holds the diagonal accumulators and grafting norms.  The
-JAX ``Tagged``/``StateMeta`` annotations become the structure itself:
-``second_moment_bytes`` reads the pools and the diagonal accumulators.
+per-leaf residue holds the diagonal accumulators (or Adam's moments) and
+grafting norms.  The JAX ``Tagged``/``StateMeta`` roles become the stats
+NamedTuples' ``second_moments`` declarations (core/quantize.py):
+``second_moment_bytes`` reads the second-moment leaves of the pools and of
+the per-leaf stats.
 """
 from __future__ import annotations
 
@@ -102,8 +108,9 @@ class EngineConfig:
 
 class LeafState(NamedTuple):
     """Per-leaf residue that is not pooled: the diagonal accumulator of a
-    vector/scalar leaf (``stats``, in its storage layout) or the grafting
-    accumulator of a matrix leaf (``graft``, f32)."""
+    vector/scalar leaf (``stats``, in its storage layout; Adam's moments
+    of any leaf, core/adam.py), or the grafting accumulator of a matrix
+    leaf (``graft``, f32)."""
     stats: Any
     graft: Optional[torch.Tensor]
 
@@ -127,15 +134,19 @@ def graft_direction(g: torch.Tensor, acc: torch.Tensor, *, graft: str,
     return gn * torch.rsqrt(acc + GRAFT_EPS), acc
 
 
-def _batched_method(precond, name: str) -> Callable:
+def _batched_method(precond, name: str) -> Optional[Callable]:
     """``fn(stats_stack, G_stack)`` for one preconditioner method: its
     ``<name>_batched`` when it has one (one call over the whole pool stack,
     the kernel-backed hot path), else its per-block ``<name>`` over each
-    block of the pool dim, restacked (the reference's ``jax.vmap``)."""
+    block of the pool dim, restacked (the reference's ``jax.vmap``); None
+    when it has neither (an ``update_stats`` that is the identity, as
+    Sketchy's and S-AdaGrad's are in the reference)."""
     batched = getattr(precond, name + "_batched", None)
     if batched is not None:
         return batched
-    per_block = getattr(precond, name)
+    per_block = getattr(precond, name, None)
+    if per_block is None:
+        return None
 
     def loop(stats, G):
         outs = [per_block(_block(stats, n), G[n]) for n in range(G.shape[0])]
@@ -165,9 +176,13 @@ def scale_by_preconditioner(precond, cfg: EngineConfig = EngineConfig()
     """The shared direction engine over flat leaf lists (emits a descent
     direction, no lr)."""
     qdtype = cfg.second_moment_dtype
-    fused = qdtype == "int8" and cfg.quantized_epilogue != "off"
+    # the int8 containers go to the preconditioner only if it can run on
+    # them (repro/core/api.py :588-595); Shampoo's root solve needs f32
+    fused = (qdtype == "int8" and cfg.quantized_epilogue != "off"
+             and getattr(precond, "supports_quantized_compute", False))
     pool_compute = quantize.compute_view if fused \
         else quantize.dequantize_pool
+    update_stats_b = _batched_method(precond, "update_stats")
     refresh_b = _batched_method(precond, "refresh")
     precondition_b = _batched_method(precond, "precondition")
 
@@ -205,13 +220,16 @@ def scale_by_preconditioner(precond, cfg: EngineConfig = EngineConfig()
         # leaf), as the reference folds its PRNG key
         qkey = (QUANTIZE_SEED, count) if qdtype == "int8" else None
 
-        # one refresh / precondition call per shape group: pass 1 refreshes
-        # every pool, pass 2 preconditions from the refreshed pools and
-        # stores them back in their storage layout
+        # one call of each method per shape group: pass 1 updates the
+        # statistics of every pool and refreshes it when due, pass 2
+        # preconditions from the refreshed pools and stores them back in
+        # their storage layout
         due = cfg.update_every <= 1 or count % cfg.update_every == 0
         raws = {}
         for grp in index.groups:
             raw = pool_compute(state.pools[grp.key])
+            if update_stats_b is not None:
+                raw = update_stats_b(raw, packed[grp.key])
             if due:
                 raw = refresh_b(raw, packed[grp.key])
             raws[grp.key] = raw
@@ -267,16 +285,17 @@ def pool_stats(state: PrecondState, key: Optional[str] = None) -> Any:
 
 
 def second_moment_bytes(state: Any) -> int:
-    """Second-moment memory (the paper's Fig. 1 quantity): every pooled
-    sketch tensor and every diagonal accumulator of each engine state found
-    in ``state`` (a bare engine state, a named chain or an injected chain),
-    as stored (int8 values and their f32 scales under int8 storage);
-    grafting and momentum are excluded."""
+    """Second-moment memory (the paper's Fig. 1 quantity): the
+    second-moment leaves (core/quantize.py ``second_moments``) of every
+    pool stack and every per-leaf stats entry of each engine state found in
+    ``state`` (a bare engine state, a named chain or an injected chain), as
+    stored (int8 values and their f32 scales under int8 storage); grafting,
+    momentum and Shampoo's cached roots are excluded."""
     if isinstance(state, PrecondState):
-        tensors = [t for stats in state.pools.values() for t in _leaves(stats)]
-        tensors += [t for leaf in state.leaves if leaf.stats is not None
-                    for t in _leaves(leaf.stats)]
-        return sum(t.numel() * t.element_size() for t in tensors)
+        stats = list(state.pools.values()) + [
+            leaf.stats for leaf in state.leaves if leaf.stats is not None]
+        return sum(t.numel() * t.element_size() for s in stats
+                   for t in quantize.second_moment_tensors(s))
     if isinstance(state, InjectState):
         return second_moment_bytes(state.inner)
     if isinstance(state, dict):
@@ -285,6 +304,7 @@ def second_moment_bytes(state: Any) -> int:
 
 
 def _leaves(x) -> list:
+    """Every tensor of a stats tree, second moment or not."""
     if isinstance(x, torch.Tensor):
         return [x]
     return [t for item in x for t in _leaves(item)]

@@ -1,22 +1,27 @@
 """Optimizer factory: config -> full training transformation chain (port of
-repro/core/factory.py, Sketchy only).
+repro/core/factory.py).
 
 Chain layout (paper App. C), as a labelled ``named_chain`` inside
 ``inject_hyperparams`` (lr and beta2 evaluated every step):
-  clip -> precond (sketchy) -> momentum (EMA) -> weight_decay -> lr
+  clip -> precond (sketchy | shampoo | adam) -> momentum (EMA; not for
+  adam, which keeps its own first moment) -> weight_decay -> lr
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+from repro_torch.core import adam as adam_lib
 from repro_torch.core import api, schedules, transform
+from repro_torch.core import shampoo as shampoo_lib
 from repro_torch.core import sketchy as sketchy_lib
+
+OPTIMIZERS = ("sketchy", "shampoo", "adam")
 
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
-    name: str = "sketchy"              # only sketchy is ported
+    name: str = "sketchy"              # sketchy | shampoo | adam
     learning_rate: float = 1e-3
     total_steps: int = 1000
     warmup_frac: float = 0.05
@@ -25,23 +30,43 @@ class OptimizerConfig:
     weight_decay: float = 0.0
     grad_clip: Optional[float] = 1.0
     schedule: str = "warmup_cosine"    # warmup_cosine | constant
-    rank: int = 256
+    rank: int = 256                    # sketchy only
     block_size: int = 1024
-    update_every: int = 10
+    update_every: int = 10             # sketchy's refresh, shampoo's roots
     start_preconditioning_step: int = 0
     # storage of the second-moment state between steps (core/quantize.py):
-    # "fp32" | "bf16" | "int8"
+    # "fp32" | "bf16" | "int8"; sketchy and shampoo (adam's elementwise
+    # state stays f32)
     second_moment_dtype: str = "fp32"
-    # fused int8 compute (core/api.py EngineConfig): "auto" | "off" | "on"
+    # fused int8 compute (core/api.py EngineConfig): "auto" | "off" | "on";
+    # sketchy only (shampoo's root solve needs f32 factors)
     quantized_epilogue: str = "auto"
 
     def __post_init__(self):
-        if self.name != "sketchy":
-            raise NotImplementedError(
-                f"optimizer {self.name!r} is not ported yet (ROADMAP.md "
-                f"queue 1 item 5 for adam, item 10 for shampoo)")
+        if self.name not in OPTIMIZERS:
+            raise ValueError(f"unknown optimizer {self.name!r}; expected one "
+                             f"of {OPTIMIZERS}")
         if self.schedule not in ("warmup_cosine", "constant"):
             raise ValueError(f"unknown schedule {self.schedule!r}")
+
+
+def _direction(cfg: OptimizerConfig,
+               beta2) -> transform.GradientTransformation:
+    if cfg.name == "sketchy":
+        return sketchy_lib.sketchy(sketchy_lib.SketchyConfig(
+            rank_budget=sketchy_lib.RankBudget(max_k=cfg.rank),
+            block_size=cfg.block_size, beta2=beta2,
+            update_every=cfg.update_every,
+            start_preconditioning_step=cfg.start_preconditioning_step,
+            second_moment_dtype=cfg.second_moment_dtype,
+            quantized_epilogue=cfg.quantized_epilogue))
+    if cfg.name == "shampoo":
+        return shampoo_lib.shampoo(shampoo_lib.ShampooConfig(
+            block_size=cfg.block_size, beta2=beta2,
+            root_every=cfg.update_every,
+            start_preconditioning_step=cfg.start_preconditioning_step,
+            second_moment_dtype=cfg.second_moment_dtype))
+    return adam_lib.adam(adam_lib.AdamConfig(beta1=cfg.beta1, beta2=beta2))
 
 
 def make_optimizer(cfg: OptimizerConfig) -> transform.GradientTransformation:
@@ -50,15 +75,9 @@ def make_optimizer(cfg: OptimizerConfig) -> transform.GradientTransformation:
         if cfg.grad_clip:
             stages.append(("clip",
                            transform.clip_by_global_norm(cfg.grad_clip)))
-        direction = sketchy_lib.sketchy(sketchy_lib.SketchyConfig(
-            rank_budget=sketchy_lib.RankBudget(max_k=cfg.rank),
-            block_size=cfg.block_size, beta2=beta2,
-            update_every=cfg.update_every,
-            start_preconditioning_step=cfg.start_preconditioning_step,
-            second_moment_dtype=cfg.second_moment_dtype,
-            quantized_epilogue=cfg.quantized_epilogue))
-        stages.append(("precond", direction))
-        stages.append(("momentum", transform.momentum(cfg.beta1)))
+        stages.append(("precond", _direction(cfg, beta2)))
+        if cfg.name != "adam":   # adam keeps its own first moment
+            stages.append(("momentum", transform.momentum(cfg.beta1)))
         if cfg.weight_decay:
             stages.append(("weight_decay",
                            transform.add_decayed_weights(cfg.weight_decay)))

@@ -37,6 +37,8 @@ class FDState(NamedTuple):
     eigvals: torch.Tensor  # ([N,] ell) deflated eigenvalues, descending
     rho: torch.Tensor      # ([N]) accumulated escaped mass
 
+    second_moments = ("eigvecs", "eigvals", "rho")     # core/quantize.py
+
 
 def fd_init(d: int, ell: int, dtype=torch.float32, *,
             num_blocks: Optional[int] = None, device="cpu") -> FDState:

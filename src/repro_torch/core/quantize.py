@@ -6,18 +6,24 @@ refresh/precondition boundary and stores the result back.  Three storage
 modes (``EngineConfig.second_moment_dtype``):
 
   * ``"fp32"``: identity.
-  * ``"bf16"``: every FD leaf (eigenvectors, eigenvalues, rho) and every
-    diagonal-fallback accumulator cast to bfloat16.
-  * ``"int8"``: the (N, d, ell) eigenvector stacks stored as int8 values
+  * ``"bf16"``: every second-moment leaf (the FD eigenvectors, eigenvalues
+    and rho; Shampoo's L and R) and every diagonal-fallback accumulator
+    cast to bfloat16.
+  * ``"int8"``: the second-moment stacks of ndim >= 3 (the (N, d, ell)
+    eigenvector stacks, Shampoo's (N, d, d) L and R) stored as int8 values
     plus one f32 absmax scale per block, ``(N, 1, 1)``; the diagonal
     accumulators as int8 with one whole-leaf scale, ``(1,) * ndim``.  The
     eigenvalue ladder and rho stay f32: the deflation invariant
     ``s[-1] == 0`` and the ``rho * I`` compensation do not survive rounding.
 
-The reference marks the second-moment leaves with ``Tagged``/``StateMeta``;
-the port has no tags, so the role is structural: a pool stack is a tree of
-NamedTuples of tensors (``SketchyBlockStats`` of ``FDState``s), every tensor
-in it is second-moment state, and int8 takes those of ndim >= 3.
+The reference marks the second-moment leaves with ``Tagged``/``StateMeta``
+roles; the port has no tags, so a stats NamedTuple declares its
+second-moment fields in a class attribute ``second_moments`` (a tuple of
+field names; a container without one is second moment throughout).  Only
+those leaves are stored in low precision and counted by
+``api.second_moment_bytes``: Shampoo's cached roots ``PL``/``PR``
+(the reference's role ``"preconditioner"``) and Adam's ``mu`` (``"momentum"``)
+stay f32 and uncounted.
 
 Stochastic rounding takes a key: a tuple of ints, extended by ``fold_in``
 as the reference's ``jax.random.fold_in`` extends a PRNG key, and turned
@@ -114,9 +120,22 @@ def _is_node(x) -> bool:
 
 
 def _flatten(x) -> list:
+    return [leaf for _, leaf in _flatten_roles(x)]
+
+
+def _flatten_roles(x, second: bool = True) -> list:
+    """``[(is_second_moment, leaf), ...]`` in ``_flatten`` order: a field
+    is second moment when every container above it declares it so in its
+    ``second_moments`` (or declares nothing)."""
     if _is_node(x):
-        return [x]
-    return [leaf for item in x for leaf in _flatten(item)]
+        return [(second, x)]
+    declared = getattr(x, "second_moments", None)
+    names = getattr(x, "_fields", ())
+    out = []
+    for i, item in enumerate(x):
+        role = second and (declared is None or names[i] in declared)
+        out += _flatten_roles(item, role)
+    return out
 
 
 def _unflatten(like, leaves) -> Any:
@@ -130,7 +149,20 @@ def _unflatten(like, leaves) -> Any:
 
 
 def _map(fn, tree) -> Any:
-    return _unflatten(tree, [fn(i, x) for i, x in enumerate(_flatten(tree))])
+    return _unflatten(tree, [fn(x) for x in _flatten(tree)])
+
+
+def _map_second_moments(fn, tree) -> Any:
+    """``fn`` over the second-moment leaves; the others pass through."""
+    return _unflatten(tree, [fn(x) if second else x
+                             for second, x in _flatten_roles(tree)])
+
+
+def second_moment_tensors(tree) -> list:
+    """The tensors of a stats tree (or a single tensor or container) that
+    hold second-moment state, as stored: int8 values and their scales."""
+    return [t for second, x in _flatten_roles(tree) if second
+            for t in ((x,) if isinstance(x, torch.Tensor) else x)]
 
 
 def _check(dtype: str) -> None:
@@ -146,8 +178,9 @@ def quantize_pool(stats: Any, dtype: str) -> Any:
     if dtype == "fp32":
         return stats
     if dtype == "bf16":
-        return _map(lambda i, x: x.to(torch.bfloat16), stats)
-    return _map(lambda i, x: quantize_stack(x) if x.ndim >= 3 else x, stats)
+        return _map_second_moments(lambda x: x.to(torch.bfloat16), stats)
+    return _map_second_moments(
+        lambda x: quantize_stack(x) if x.ndim >= 3 else x, stats)
 
 
 def quantize_leaf_state(stats: torch.Tensor, dtype: str) -> Any:
@@ -163,7 +196,7 @@ def quantize_leaf_state(stats: torch.Tensor, dtype: str) -> Any:
 
 def dequantize_pool(stats: Any) -> Any:
     """Storage layout -> f32 compute tree (for fp32, the tree itself)."""
-    return _map(lambda i, x: dequantize_stack(*x)
+    return _map(lambda x: dequantize_stack(*x)
                 if isinstance(x, QuantizedPool) else x.float(), stats)
 
 
@@ -171,7 +204,7 @@ def compute_view(stats: Any) -> Any:
     """Storage layout -> compute tree that keeps the int8 containers, for
     the fused int8 path: the FD functions (core/fd.py) run their int8
     kernels on them, and no f32 eigenvector stack is formed."""
-    return _map(lambda i, x: x if isinstance(x, QuantizedPool)
+    return _map(lambda x: x if isinstance(x, QuantizedPool)
                 else x.float(), stats)
 
 

@@ -13,7 +13,7 @@ core/fd.py runs both on the int8 values.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple
+from typing import Any, ClassVar, NamedTuple
 
 import torch
 
@@ -62,10 +62,16 @@ class SketchyBlockStats(NamedTuple):
     left: FDState
     right: FDState
 
+    second_moments = ("left", "right")     # core/quantize.py
+
 
 @dataclasses.dataclass(frozen=True)
 class SketchyPreconditioner:
     cfg: SketchyConfig
+
+    # the refresh and the apply run on int8 eigenvectors (core/fd.py), so
+    # the engine hands them the int8 containers (api.scale_by_preconditioner)
+    supports_quantized_compute: ClassVar[bool] = True
 
     def init_block(self, grp: pool.PoolGroup, *, device) -> SketchyBlockStats:
         """Zero f32 sketch pair for every block of one pool group (the

@@ -10,7 +10,9 @@ with the reference's one for one.  Updates are returned as new tensors; only
 
 The dtype rules follow the reference: a scalar hyperparameter held as an
 f32 tensor promotes a bf16 update to f32 (``_promote``), as a non-weak f32
-array does in JAX, where a Python float keeps the update's dtype.
+array does in JAX, where a Python float keeps the update's dtype and is
+itself rounded to it first, as JAX's weak type is (``_weak``: a bf16
+momentum decays by bf16(0.9) = 0.8984375).
 """
 from __future__ import annotations
 
@@ -26,6 +28,16 @@ class GradientTransformation(NamedTuple):
 
 class EmptyState(NamedTuple):
     pass
+
+
+def _weak(c, like: torch.Tensor):
+    """A Python scalar in an op with ``like``, as JAX's weak type: rounded
+    to ``like``'s dtype when that is a half-precision float (f32 ops take
+    the scalar as it is, which is the same); a tensor passes through."""
+    if isinstance(c, torch.Tensor) \
+            or like.dtype not in (torch.bfloat16, torch.float16):
+        return c
+    return torch.tensor(c, dtype=like.dtype)
 
 
 def _promote(u: torch.Tensor, factor) -> torch.Tensor:
@@ -55,7 +67,8 @@ def scale(factor) -> GradientTransformation:
         return EmptyState()
 
     def update_fn(updates, state, params=None):
-        return [_promote(u, factor) * factor for u in updates], state
+        return [_promote(u, factor) * _weak(factor, u) for u in updates], \
+            state
 
     return GradientTransformation(init_fn, update_fn)
 
@@ -72,7 +85,7 @@ def momentum(beta1: float) -> GradientTransformation:
         return TraceState(momentum=[torch.zeros_like(p) for p in params])
 
     def update_fn(updates, state, params=None):
-        mu = [beta1 * m + (1.0 - beta1) * u.to(m.dtype)
+        mu = [_weak(beta1, m) * m + _weak(1.0 - beta1, m) * u.to(m.dtype)
               for u, m in zip(updates, state.momentum)]
         out = [m.to(u.dtype) for u, m in zip(updates, mu)]
         return out, TraceState(momentum=mu)
@@ -89,7 +102,7 @@ def add_decayed_weights(weight_decay: float) -> GradientTransformation:
     def update_fn(updates, state, params=None):
         if weight_decay == 0.0 or params is None:
             return updates, state
-        return [u + weight_decay * p.to(u.dtype)
+        return [u + _weak(weight_decay, u) * p.to(u.dtype)
                 for u, p in zip(updates, params)], state
 
     return GradientTransformation(init_fn, update_fn)

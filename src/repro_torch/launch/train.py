@@ -1,13 +1,15 @@
-"""End-to-end training launcher (port of repro/launch/train.py: the Sketchy
-training path on one device).
+"""End-to-end training launcher (port of repro/launch/train.py: the
+training path on one device, with Sketchy or the paper's baselines,
+Shampoo and Adam).
 
     python -m repro_torch.launch.train                      # on the card
-    python -m repro_torch.launch.train --reduced --device cpu
+    python -m repro_torch.launch.train --optimizer shampoo
+    python -m repro_torch.launch.train --reduced --device cpu --optimizer adam
 
 Runs on ``--device cuda`` unless told otherwise, and raises if the machine
 has no card.  The reference's flags for features not ported yet
-(checkpointing, other optimizers, refresh modes, sharded statistics,
-gradient compression) are absent.
+(checkpointing, refresh modes, sharded statistics, gradient compression)
+are absent.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ import torch
 from repro_torch import tree
 from repro_torch.configs import registry
 from repro_torch.core import api
-from repro_torch.core.factory import OptimizerConfig, make_optimizer
+from repro_torch.core.factory import (OPTIMIZERS, OptimizerConfig,
+                                      make_optimizer)
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.models import model as model_lib
 from repro_torch.train.trainer import make_train_step
@@ -34,7 +37,7 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
     p.add_argument("--arch", default="paper-lm-100m")
     p.add_argument("--reduced", action="store_true",
                    help="use the reduced smoke config")
-    p.add_argument("--optimizer", default="sketchy", choices=["sketchy"])
+    p.add_argument("--optimizer", default="sketchy", choices=OPTIMIZERS)
     p.add_argument("--steps", type=int, default=200)
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--seq", type=int, default=128)

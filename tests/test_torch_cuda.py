@@ -36,6 +36,12 @@ attention kernel (``wgmma``) is also held at its own edges (every head dim,
 sequences that fill no tile, Sk != S, one KV head, more blocks than SMs) to
 a relative error of the whole output of 1e-2 beside the atol, and raises on
 a view that is not 16-byte aligned.
+
+The paper's baselines: kernel 1 at the seven shapes of Shampoo's per-step
+L and R Grams at full width (data of mean 3, the f32 tolerance), and two
+reduced training steps of Shampoo and of Adam through the launcher on the
+card against the CPU from the same weights (losses ``rtol=1e-4``,
+parameters ``rtol=1e-3, atol=1e-4``), with their kernels' launch counts.
 """
 import numpy as np
 import pytest
@@ -634,3 +640,70 @@ def test_flash_and_ssd_wrappers_reject_what_they_do_not_take(card):
     with pytest.raises(ValueError, match="shape"):
         ssd_kernel.ssd_scan(u, dlog[:, :4], bc, bc, 4)
 
+
+
+# kernel 1 at Shampoo's per-step statistics at full width (paper-lm-100m,
+# block 1024): per pool group the Gram of G^T (L) and of G (R); the norm
+# group's L is (2, 768, 12), a 12-wide output in one partial tile, and its R
+# (2, 12, 768) sums d = 12 rows, less than one 32-row chunk
+SHAMPOO_GRAM_CASES = [(68, 768, 1024), (68, 1024, 768), (104, 1024, 768),
+                      (104, 768, 1024), (48, 768, 768), (2, 768, 12),
+                      (2, 12, 768)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,d,k", SHAMPOO_GRAM_CASES)
+def test_gram_kernel_at_shampoo_shapes_on_card(card, N, d, k):
+    """Data of mean 3, as the Sketchy main path's hardest case."""
+    from repro_torch.kernels.gram import kernel
+    gen = torch.Generator(device=card).manual_seed(N * d + k)
+    a = torch.randn(N, d, k, generator=gen, device=card) + 3.0
+    got = kernel.batched_gram(a)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, gram_ref.batched_gram_ref(a),
+                               **_tol(d, "float32"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer", ["shampoo", "adam"])
+def test_baseline_training_on_card_matches_cpu(card, optimizer):
+    """Two steps of the reduced model through ``repro_torch.launch.train``
+    (Shampoo's roots at both) on the card and on the CPU from the same
+    weights: the same losses (``rtol=1e-4``) and parameters (``rtol=1e-3``,
+    ``atol=1e-4``: Shampoo's roots of one-gradient statistics take eigh
+    noise, tests/test_torch_optimizers.py); on the card Shampoo's L and R
+    run kernel 1 (two a pool group a step), both optimizers' attention
+    kernel 7, and Adam no optimizer kernel."""
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.core import pool
+    from repro_torch.kernels.flash import kernel as flash_kernel
+    from repro_torch.kernels.gram import kernel as gram_kernel
+    from repro_torch.launch import train
+    from repro_torch.models import model
+    cfg = registry.get_reduced("paper-lm-100m")
+    params = model.init_params(cfg, torch.Generator().manual_seed(0))
+    argv = ["--reduced", "--steps", "2", "--seq", "16", "--batch", "4",
+            "--block-size", "32", "--update-every", "1", "--optimizer",
+            optimizer]
+    runs = {}
+    for device in (card, torch.device("cpu")):
+        start = tree.unflatten(params, [p.to(device)
+                                        for p in tree.flatten(params)])
+        before = (gram_kernel.launches, flash_kernel.launches)
+        runs[device.type] = train.train(
+            train.parse_args(argv + ["--device", str(device)]), start)
+        if device.type == "cuda":
+            groups = pool.build_index(tuple(
+                tuple(p.shape) for p in tree.flatten(params)), 32).groups
+            grams = 2 * 2 * len(groups) if optimizer == "shampoo" else 0
+            assert (gram_kernel.launches - before[0],
+                    flash_kernel.launches - before[1]) == \
+                (grams, 2 * cfg.num_layers)
+    (card_run, card_log), (cpu_run, cpu_log) = runs["cuda"], runs["cpu"]
+    np.testing.assert_allclose([r["loss"] for r in card_log],
+                               [r["loss"] for r in cpu_log], rtol=1e-4)
+    for got, want in zip(tree.flatten(card_run.params),
+                         tree.flatten(cpu_run.params)):
+        torch.testing.assert_close(got.detach().cpu(), want.detach(),
+                                   rtol=1e-3, atol=1e-4)
