@@ -60,14 +60,34 @@ no result line:
    the JAX reference's second-moment bytes (1,358,434,432);
    ``--optimizer adam``: 288 flash attentions and no optimizer kernel, and
    654,388,224 B.  Each prints its step times (refresh and plain) and peak
-   memory.
+   memory.  Then the engine's refresh schedules and modes and the rank
+   budget on the same path: ``--refresh-schedule staggered`` (fp32; 78
+   Grams: 8 at count 0, then 2 for each group with a due block, 96
+   applies), ``--refresh-mode async`` with int8 storage (16 / 16 / 96, its
+   peak printed beside the inline int8 run's), a ``rho_greedy`` budget of
+   7104 (half of 222 blocks x 64) with the staggered schedule and int8
+   storage (78 / 78 / 96; after the reallocation at step 10 the ranks sum
+   to 7104 within [8, 64], printed per group with the blocks that moved),
+   and Shampoo staggered and async (96 Grams); the second-moment bytes of
+   the fp32, int8 and Shampoo runs above (the pending slot and the active
+   ranks uncounted).  Every run also prints the matrices ``eigh`` took in
+   each step.
 5. profile: ``torch.profiler`` over one plain step of each of the four
-   runs: device time by kernel and the device's idle share.
+   runs: device time by kernel and the device's idle share.  Then the
+   async int8 run with ``--profile-annotations``: a plain step and the
+   refresh-launch step, with the device time of the kernels inside each
+   engine span (SPANS) and its host time.
 6. reference: the reduced model trained 4 steps on the card (kernels) and on
    the CPU (plain versions) from the same weights gives the same losses,
    with Sketchy at fp32 and int8 storage, Shampoo at fp32 and int8 and Adam;
    the card run launches the flash kernel 4 x 3 times (3 layers, no remat
-   in the reduced config).
+   in the reduced config).  Also Sketchy staggered (fp32), async (int8),
+   with a ``rho_greedy`` budget of half the reduced capacity
+   (REDUCED_BUDGET_ARGV; card and CPU reach the same active ranks), and
+   Shampoo staggered and async.  Then the reduced model's Sketchy (int8,
+   staggered) inline and async over the same gradients on the card: the
+   async state's committed pools equal the inline pools bit for bit after
+   each of 6 steps.
 6b. convex: ``repro_torch.launch.convex`` (the paper's Tbl. 3 streams and
    grid) on the card and on the CPU: the 12 average losses and their ranks
    agree (as tests/test_torch_oco.py holds them), and kernels 3 and 4
@@ -132,6 +152,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch import tree  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core import api, pool  # noqa: E402
+from repro_torch.core import fd as fd_lib  # noqa: E402
+from repro_torch.core import quantize  # noqa: E402
+from repro_torch.core import shampoo as shampoo_lib  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import registry as kernel_registry  # noqa: E402
 from repro_torch.kernels.flash import kernel as flash_kernel  # noqa: E402
@@ -193,6 +216,22 @@ SHAMPOO_ARGV = ["--optimizer", "shampoo"]
 ADAM_ARGV = ["--optimizer", "adam"]
 SHAMPOO_SECOND_MOMENT_BYTES = 1_358_434_432
 ADAM_SECOND_MOMENT_BYTES = 654_388_224
+# the engine's refresh schedules and modes and the rank budget on the same
+# path (core/api.py, core/sketchy.py): the staggered schedule (fp32), the
+# async refresh (int8), a rho_greedy budget of half the capacity (222
+# blocks x 64 / 2 = 7104, as benchmarks/run.py's half-budget row) with the
+# staggered schedule (int8), and Shampoo staggered and async; the pending
+# slot and the active ranks are counted in no byte
+FP32_SECOND_MOMENT_BYTES = 98_292_176
+STAGGERED_ARGV = ["--refresh-schedule", "staggered"]
+ASYNC_INT8_ARGV = ["--refresh-mode", "async"] + INT8_ARGV
+BUDGET_TOTAL, BUDGET_MIN_K, BUDGET_MAX_K = 7104, 8, 64
+BUDGET_ARGV = ["--rank-budget",
+               f"total={BUDGET_TOTAL},min_k={BUDGET_MIN_K},"
+               f"max_k={BUDGET_MAX_K},policy=rho_greedy"] \
+    + STAGGERED_ARGV + INT8_ARGV
+SHAMPOO_STAGGERED_ASYNC_ARGV = SHAMPOO_ARGV + STAGGERED_ARGV \
+    + ["--refresh-mode", "async"]
 # the serving path's FD sketches: the flattened full-width lm_head (768 x
 # 32768) at the monitor's and the adapter's default rank
 SERVE_D, SERVE_ELL = 768 * 32768, 8
@@ -1075,15 +1114,34 @@ def _counts() -> dict:
 
 
 def phase_main_path(dev, argv: list, expected: dict,
-                    second_moment_bytes=None) -> dict:
+                    second_moment_bytes=None, check_state=None) -> dict:
     """Train with ``argv`` with every launch count set to 0 just before and
-    read just after; ``expected`` gives each count's value."""
+    read just after; ``expected`` gives each count's value.  Also counts
+    the matrices ``eigh`` takes in each step (the FD refresh's and
+    Shampoo's roots); ``check_state(opt_state)`` checks the final state.
+    Returns the launch counts, with the peak memory under "peak"."""
+    eighs = []
+    step, eigh = train_lib.Run.step, fd_lib._eigh
+
+    def counted_step(self, i):
+        eighs.append(0)
+        return step(self, i)
+
+    def counted_eigh(C):
+        eighs[-1] += C.shape[0]
+        return eigh(C)
+
     torch.cuda.reset_peak_memory_stats(dev)
     _zero_counts()
-    run, log = train_lib.train(train_lib.parse_args(argv))
+    with mock.patch.object(train_lib.Run, "step", counted_step), \
+            mock.patch.object(fd_lib, "_eigh", counted_eigh), \
+            mock.patch.object(shampoo_lib, "_eigh", counted_eigh):
+        run, log = train_lib.train(train_lib.parse_args(argv))
     launches = _counts()
     peak = torch.cuda.max_memory_allocated(dev)
     nbytes = api.second_moment_bytes(run.opt_state)
+    if check_state is not None:
+        check_state(run.opt_state)
     del run
     label = " ".join(argv[len(MAIN_PATH_ARGV):]) or "fp32"
     losses = [r["loss"] for r in log]
@@ -1101,17 +1159,58 @@ def phase_main_path(dev, argv: list, expected: dict,
     print(f"main path ({label}) peak memory allocated: {peak} bytes")
     print(f"main path ({label}) second-moment bytes: {nbytes}")
     print(f"main path ({label}) launches: {launches}")
-    return launches
+    print(f"main path ({label}) eigh matrices per step: {eighs}")
+    return dict(launches, peak=peak)
 
 
-def _profiled(fn, title: str, labels: tuple = (), groups: dict = None
-              ) -> None:
+def check_budget(opt_state) -> None:
+    """BUDGET_ARGV's active ranks after the reallocation at step 10: the
+    budget held and every block within [min_k, max_k]; prints per group
+    the min, median and max rank and how many blocks moved from the
+    uniform allocation (7104 / 222 = 32 each)."""
+    alloc = api.rank_allocation(opt_state)
+    ks = np.concatenate([g["k"] for g in alloc["groups"].values()])
+    if int(ks.sum()) != BUDGET_TOTAL or alloc["total"] != BUDGET_TOTAL:
+        fail(f"rank budget: sum(k) = {int(ks.sum())}, expected "
+             f"{BUDGET_TOTAL}")
+    if not ((ks >= BUDGET_MIN_K) & (ks <= BUDGET_MAX_K)).all():
+        fail(f"rank budget: k outside [{BUDGET_MIN_K}, {BUDGET_MAX_K}]: "
+             f"{ks.min()}..{ks.max()}")
+    uniform = BUDGET_TOTAL // len(ks)
+    for key, g in alloc["groups"].items():
+        k = g["k"]
+        print(f"rank budget after step 10, group {key} ({len(k)} blocks): "
+              f"k min {k.min()} median {np.median(k):g} max {k.max()}, "
+              f"{int((k != uniform).sum())} blocks moved from {uniform}")
+
+
+def _device_intervals(prof, labels: tuple) -> list:
+    """(start, end) of every device event of ``prof`` but the device-side
+    copies of the caller's ranges ``labels``, in us."""
+    from torch.autograd import DeviceType
+    return sorted((e.time_range.start, e.time_range.end)
+                  for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and e.name not in labels)
+
+
+def _busy_us(intervals: list, lo: float = float("-inf"),
+             hi: float = float("inf")) -> float:
+    """The union's length of sorted ``intervals`` clipped to [lo, hi]."""
+    busy, end = 0.0, lo
+    for a, b in intervals:
+        b = min(b, hi)
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy
+
+
+def _profiled(fn, title: str, labels: tuple = (), groups: dict = None):
     """Run ``fn()`` under ``torch.profiler``; print its wall time, the
     device's busy time and idle share over it, and the device time by
     kernel (``labels``: the caller's own ranges, left out of both);
     ``groups``: name -> substrings of kernel names whose device time and
-    launches are also printed summed."""
-    from torch.autograd import DeviceType
+    launches are also printed summed.  Returns the profile."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1121,15 +1220,7 @@ def _profiled(fn, title: str, labels: tuple = (), groups: dict = None
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device busy time: the union of the device events' intervals
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and e.name not in labels)
-    busy_us, end = 0.0, float("-inf")
-    for lo, hi in spans:
-        busy_us += max(0.0, hi - max(lo, end))
-        end = max(end, hi)
-    busy_ms = busy_us / 1e3
+    busy_ms = _busy_us(_device_intervals(prof, labels)) / 1e3
     print(f"profile of {title}: wall {wall_ms:.3f} ms (profiled), "
           f"device busy {busy_ms:.3f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.3f}")
@@ -1145,6 +1236,7 @@ def _profiled(fn, title: str, labels: tuple = (), groups: dict = None
         hits = [r for r in rows if any(p in r.key for p in parts)]
         print(f"  {name}: device {sum(map(dev_us, hits)) / 1e3:.3f} ms over "
               f"{sum(r.count for r in hits)} launches")
+    return prof
 
 
 def phase_profile(dev, argv: list) -> None:
@@ -1226,23 +1318,38 @@ def phase_zamba_scan_witness(readings: list) -> None:
             f"{r.leading_eig:.4e} {r.decision}" for r in got))
 
 
-def phase_reference(dev, storage: str, optimizer: str = "sketchy") -> None:
+# the reduced model's budget at half its capacity, as benchmarks/run.py
+# :253-265 computes it for its reduced rank_budget row: rank 8 over its 144
+# blocks of block 32, total max(144 * 8 // 2, 144 * 2) = 576, min_k 2
+REDUCED_BUDGET_ARGV = ["--rank-budget",
+                       "total=576,min_k=2,max_k=8,policy=rho_greedy"]
+
+
+def phase_reference(dev, storage: str, optimizer: str = "sketchy",
+                    extra: tuple = ()) -> None:
     """Reduced model, same weights: card (kernels) vs CPU (plain), with
-    ``optimizer`` and ``storage`` second-moment storage."""
+    ``optimizer``, ``storage`` second-moment storage and the flags
+    ``extra``; under a rank budget both reach the same active ranks."""
     argv = ["--reduced", "--steps", "4", "--seq", "32", "--batch", "4",
             "--rank", "4", "--block-size", "32", "--update-every", "2",
-            "--second-moment-dtype", storage, "--optimizer", optimizer]
-    storage = f"{optimizer} {storage}"
+            "--second-moment-dtype", storage, "--optimizer", optimizer,
+            *extra]
+    storage = " ".join([optimizer, storage, *extra])
     cfg = registry.get_reduced("paper-lm-100m")
     params = model_lib.init_params(cfg, torch.Generator().manual_seed(0))
-    losses = {}
+    losses, ranks = {}, {}
     for device in (dev, torch.device("cpu")):
         start = tree.unflatten(params, [p.to(device)
                                         for p in tree.flatten(params)])
         _zero_counts()
-        _, log = train_lib.train(
+        run, log = train_lib.train(
             train_lib.parse_args(argv + ["--device", str(device)]), start)
         losses[device.type] = [r["loss"] for r in log]
+        if "--rank-budget" in extra:
+            ranks[device.type] = np.concatenate([
+                g["k"] for g in api.rank_allocation(
+                    run.opt_state)["groups"].values()])
+        del run
         if device.type == "cuda":
             # no remat in the reduced config: each layer's attention once
             # per step
@@ -1260,6 +1367,85 @@ def phase_reference(dev, storage: str, optimizer: str = "sketchy") -> None:
     # ~6e-6 relative on the CPU
     if worst > 1e-3:
         fail(f"card and CPU runs of the reduced model disagree ({storage})")
+    if ranks:
+        moved = int((ranks["cpu"] != ranks["cpu"][0]).sum())
+        print(f"reference ({storage}): active ranks sum {ranks['cpu'].sum()}"
+              f", {moved} of {len(ranks['cpu'])} blocks off block 0's")
+        if not np.array_equal(ranks["cuda"], ranks["cpu"]):
+            fail(f"card and CPU reach different active ranks ({storage}): "
+                 f"{np.flatnonzero(ranks['cuda'] != ranks['cpu'])}")
+
+
+def phase_async_equality(dev) -> None:
+    """The reduced model's Sketchy with int8 storage and the staggered
+    schedule (the fused path: kernels 5, 6 and 2'), inline and async, over
+    the same seeded gradients on the card: after each of 6 steps the async
+    state's committed pools equal the inline pools bit for bit."""
+    from repro_torch.core import sketchy as sketchy_lib
+    cfg = registry.get_reduced("paper-lm-100m")
+    params = [p.to(dev) for p in tree.flatten(model_lib.init_params(
+        cfg, torch.Generator().manual_seed(0)))]
+    txs = {mode: sketchy_lib.sketchy(sketchy_lib.SketchyConfig(
+        rank_budget=sketchy_lib.RankBudget(min_k=4, max_k=4), block_size=32,
+        update_every=2, refresh_schedule="staggered", refresh_mode=mode,
+        second_moment_dtype="int8")) for mode in ("inline", "async")}
+    states = {mode: tx.init(params) for mode, tx in txs.items()}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    _zero_counts()
+    for t in range(6):
+        grads = [torch.randn(p.shape, generator=gen, device=dev)
+                 for p in params]
+        for mode, tx in txs.items():
+            _, states[mode] = tx.update(grads, states[mode], params)
+        committed = api.committed_pools(states["async"])
+        for key, live in states["inline"].pools.items():
+            pairs = zip(quantize.second_moment_tensors(committed[key]),
+                        quantize.second_moment_tensors(live))
+            if not all(torch.equal(a, b) for a, b in pairs):
+                fail(f"async on the card: committed pools of group {key} "
+                     f"differ from the inline pools after step {t}")
+    launches = {k: v for k, v in _counts().items() if v}
+    print(f"async on the card: committed pools equal the inline pools bit "
+          f"for bit after each of 6 steps (int8, staggered; launches "
+          f"{launches})")
+    if not launches.get("batched_project_quantize"):
+        fail("async on the card: the fused int8 kernels never ran")
+
+
+# the engine's spans (EngineConfig.profile_annotations)
+SPANS = ("precond/update_stats", "precond/refresh", "precond/precondition",
+         "precond/commit", "precond/refresh_launch")
+
+
+def phase_span_profile(dev) -> None:
+    """The async int8 run with ``--profile-annotations``: device and host
+    time per engine span, in a plain step (1) and the refresh-launch step
+    (10).  A span's device time is the device's busy time inside the
+    device-side copy of its range (the profiler's user annotation, from its
+    first kernel's start to its last's end: one stream, so no other range's
+    kernels run there)."""
+    from torch.autograd import DeviceType
+    argv = MAIN_PATH_ARGV + ASYNC_INT8_ARGV + ["--profile-annotations"]
+    run = train_lib.start(train_lib.parse_args(argv))
+    labels = ("train/forward_backward", "train/optimizer") + SPANS
+    for step in range(12):
+        if step not in (1, 10):
+            run.step(step)
+            continue
+        prof = _profiled(lambda: run.step(step),
+                         f"async int8 step {step} with spans", labels)
+        kernels = _device_intervals(prof, labels)
+        for name in SPANS:
+            host = [e for e in prof.events() if e.name == name
+                    and e.device_type == DeviceType.CPU]
+            windows = [e.time_range for e in prof.events() if e.name == name
+                       and e.device_type == DeviceType.CUDA]
+            dev_us = sum(_busy_us(kernels, w.start, w.end) for w in windows)
+            print(f"  span {name}: device {dev_us / 1e3:.3f} ms over "
+                  f"{len(windows)} device ranges, host "
+                  f"{sum(e.cpu_time_total for e in host) / 1e3:.3f} ms over "
+                  f"{len(host)} ranges")
+    del run
 
 
 # Tbl. 3's learners that sketch: each launches the single-block Gram
@@ -1446,17 +1632,43 @@ def main() -> int:
         none, batched_gram=12 * 8, **flash), SHAMPOO_SECOND_MOMENT_BYTES)
     phase_main_path(dev, MAIN_PATH_ARGV + ADAM_ARGV, dict(none, **flash),
                     ADAM_SECOND_MOMENT_BYTES)
+    # the refresh schedules, modes and the rank budget: staggered, the Grams
+    # at count 0 for all 4 groups (8), then 2 for each group with a due
+    # block at counts 1-11 (3 groups x 11 + the 12x768 group at counts 9
+    # and 10: 70); the applies as ever
+    phase_main_path(dev, MAIN_PATH_ARGV + STAGGERED_ARGV, dict(
+        none, batched_gram=78, batched_lowrank_apply=96, **flash),
+        FP32_SECOND_MOMENT_BYTES)
+    async_int8 = phase_main_path(dev, MAIN_PATH_ARGV + ASYNC_INT8_ARGV, dict(
+        none, batched_gram_mixed=16, batched_project_quantize=16,
+        batched_lowrank_apply_int8=96, **flash), INT8_SECOND_MOMENT_BYTES)
+    print(f"peak memory allocated, int8 storage: async {async_int8['peak']} "
+          f"B, inline {int8['peak']} B")
+    phase_main_path(dev, MAIN_PATH_ARGV + BUDGET_ARGV, dict(
+        none, batched_gram_mixed=78, batched_project_quantize=78,
+        batched_lowrank_apply_int8=96, **flash), INT8_SECOND_MOMENT_BYTES,
+        check_budget)
+    # Shampoo's L and R every step whatever the schedule
+    phase_main_path(dev, MAIN_PATH_ARGV + SHAMPOO_STAGGERED_ASYNC_ARGV, dict(
+        none, batched_gram=12 * 8, **flash), SHAMPOO_SECOND_MOMENT_BYTES)
     print(f"Shampoo's main path: kernel 1 (batched_gram) launched "
           f"{shampoo['batched_gram']} times over 12 steps (8 a step), "
           f"flash attention {shampoo['flash_attention']}")
     for argv in (MAIN_PATH_ARGV, MAIN_PATH_ARGV + INT8_ARGV,
                  MAIN_PATH_ARGV + SHAMPOO_ARGV, MAIN_PATH_ARGV + ADAM_ARGV):
         phase_profile(dev, argv)
+    phase_span_profile(dev)
     phase_reference(dev, "fp32")
     phase_reference(dev, "int8")
     phase_reference(dev, "fp32", "shampoo")
     phase_reference(dev, "int8", "shampoo")
     phase_reference(dev, "fp32", "adam")
+    phase_reference(dev, "fp32", extra=STAGGERED_ARGV)
+    phase_reference(dev, "int8", extra=("--refresh-mode", "async"))
+    phase_reference(dev, "fp32", extra=REDUCED_BUDGET_ARGV)
+    phase_reference(dev, "fp32", "shampoo",
+                    SHAMPOO_STAGGERED_ASYNC_ARGV[len(SHAMPOO_ARGV):])
+    phase_async_equality(dev)
     phase_convex(dev)
     served, _ = phase_serve(dev, SERVE_ARGV)
     adapted, _ = phase_serve(dev, ADAPT_ARGV)

@@ -1,59 +1,70 @@
-"""The shared preconditioner engine (port of repro/core/api.py, default
-path only).
+"""The shared preconditioner engine (port of repro/core/api.py).
 
 ``scale_by_preconditioner`` owns what every Kronecker-style optimizer
 shares: blocking, pooling of same-shaped blocks (core/pool.py), the
-per-step statistics update, the gated refresh on ``count % update_every ==
-0``, the diagonal (RMSProp) fallback for vectors and scalars, norm grafting
-(paper App. C) and the ``start_preconditioning_step`` gate.  The
-preconditioner supplies ``init_block`` (the stats stack of a pool group),
-and ``update_stats_batched`` (optional: every step, before the refresh),
+per-step statistics update, the gated refresh, the diagonal (RMSProp)
+fallback for vectors and scalars, norm grafting (paper App. C) and the
+``start_preconditioning_step`` gate.  The preconditioner supplies
+``init_block`` (the stats stack of a pool group), and
+``update_stats_batched`` (optional: every step, before the refresh),
 ``refresh_batched`` and ``precondition_batched`` over whole pool stacks, or
 the per-block ``update_stats``, ``refresh`` and ``precondition``, which the
 engine loops over the pool dim (the reference vmaps them).  The
 reference's ``diagonal = True`` path (Adam, every leaf whole) is
 core/adam.py's own transformation here.
 
-Ported: synchronized inline refresh, fp32/bf16/int8 second-moment storage
-(core/quantize.py) with the fused int8 path for preconditioners that
-declare ``supports_quantized_compute``, replicated statistics, static
-rank, RMSPROP_NORMALIZED grafting with f32 accumulators or none, 1-D leaves
-as (d, 1) blocks for the OCO learners (``treat_vectors_as_columns``), and
-the diagonal fallback damped by ``GRAFT_EPS``.  Other ``EngineConfig``
-values raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+Refresh schedules: ``"synchronized"`` refreshes every block on ``count %
+update_every == 0``; ``"staggered"`` refreshes every block at count 0, then
+block b of a group when ``(count + b) % update_every == 0``.  Refresh
+modes: ``"inline"`` preconditions a step from the statistics it refreshed;
+``"async"`` preconditions from the statistics before the step's refresh,
+launches the refresh into a pending slot (``PrecondState.pending``) and
+commits it at the top of the next step, so ``committed_pools`` after step t
+equals the inline engine's pools after step t, bit for bit.  A
+preconditioner with ``finalize_init_pools`` and ``realloc_pools`` (the rank
+budget, core/sketchy.py) sees every pool stack at init and, with
+``realloc_every > 0``, every ``realloc_every * update_every`` steps after
+the refresh.
 
-State is plain: the step count is a Python int (the refresh gate is a host
-branch), pools map group keys to the preconditioner's stats stacks, and the
-per-leaf residue holds the diagonal accumulators (or Adam's moments) and
-grafting norms.  The JAX ``Tagged``/``StateMeta`` roles become the stats
-NamedTuples' ``second_moments`` declarations (core/quantize.py):
-``second_moment_bytes`` reads the second-moment leaves of the pools and of
-the per-leaf stats.
+Ported: both schedules and modes, the rank-budget hooks, fp32/bf16/int8
+second-moment storage (core/quantize.py) with the fused int8 path for
+preconditioners that declare ``supports_quantized_compute``, replicated
+statistics, RMSPROP_NORMALIZED grafting with f32 accumulators or none, 1-D
+leaves as (d, 1) blocks for the OCO learners (``treat_vectors_as_columns``),
+the diagonal fallback damped by ``GRAFT_EPS``, and the profiling spans
+(``profile_annotations``).  ``stats_reduction="sharded"`` and other
+``graft`` values raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
+
+State is plain: the step count is a Python int (the refresh gate and the
+staggered due set are host arithmetic), pools map group keys to the
+preconditioner's stats stacks, and the per-leaf residue holds the diagonal
+accumulators (or Adam's moments) and grafting norms.  The JAX
+``Tagged``/``StateMeta`` roles become the stats NamedTuples'
+``second_moments`` declarations (core/quantize.py): ``second_moment_bytes``
+reads the second-moment leaves of the pools and of the per-leaf stats; the
+pending slot, transient in the reference, is not among them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import pool, quantize
+from repro_torch.core.fd import FDState
 from repro_torch.core.transform import GradientTransformation
 
 GRAFT_EPS = 1e-8        # grafting and diag-fallback damping
 GRAFTS = ("rmsprop_normalized", "none")
+REFRESH_SCHEDULES = ("synchronized", "staggered")
+REFRESH_MODES = ("inline", "async")
+STATS_REDUCTIONS = ("replicated", "sharded")
 QUANTIZED_EPILOGUES = ("auto", "off", "on")
 QUANTIZE_SEED = 0x0517  # root of the stochastic-rounding keys, as in JAX
-
-# non-default engine values -> the ROADMAP.md item (queue 1) that ports them
-_NOT_PORTED = {
-    "refresh_schedule": ("synchronized",
-                         "queue 1 item 10 (staggered refresh)"),
-    "refresh_mode": ("inline", "queue 1 item 10 (async refresh)"),
-    "stats_reduction": ("replicated", "queue 1 item 12 (distributed FD)"),
-    "realloc_every": (0, "queue 1 item 10 (rank-budget reallocation)"),
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,7 +74,9 @@ class EngineConfig:
     update_every: int = 10          # refresh cadence (paper §6)
     start_preconditioning_step: int = 0
     graft: str = "rmsprop_normalized"   # rmsprop_normalized | none
+    # synchronized | staggered (module docstring)
     refresh_schedule: str = "synchronized"
+    # inline | async (module docstring)
     refresh_mode: str = "inline"
     # storage of the second-moment state between steps (core/quantize.py):
     # "fp32" | "bf16" | "int8"
@@ -79,7 +92,10 @@ class EngineConfig:
     # "on".)
     quantized_epilogue: str = "auto"
     stats_reduction: str = "replicated"
+    # rank-budget reallocation cadence in refresh windows (0: never)
     realloc_every: int = 0
+    # torch.profiler ranges around the engine's phases (``_span``)
+    profile_annotations: bool = False
     # OCO learners (S-AdaGrad, paper Alg. 2) precondition a d-vector with
     # one d x d sketch: 1-D leaves become a single (d, 1) matrix block
     # instead of taking the diagonal fallback
@@ -90,20 +106,23 @@ class EngineConfig:
             raise NotImplementedError(
                 f"EngineConfig.graft={self.graft!r} is not ported yet "
                 f"(ROADMAP.md queue 1 item 4); the port runs one of {GRAFTS}")
-        if self.second_moment_dtype not in quantize.SECOND_MOMENT_DTYPES:
+        for name, allowed in (
+                ("second_moment_dtype", quantize.SECOND_MOMENT_DTYPES),
+                ("quantized_epilogue", QUANTIZED_EPILOGUES),
+                ("refresh_schedule", REFRESH_SCHEDULES),
+                ("refresh_mode", REFRESH_MODES),
+                ("stats_reduction", STATS_REDUCTIONS)):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"unknown {name} {getattr(self, name)!r}; "
+                                 f"expected one of {allowed}")
+        if self.stats_reduction == "sharded":
+            raise NotImplementedError(
+                "EngineConfig.stats_reduction='sharded' is not ported yet "
+                "(ROADMAP.md queue 1 item 12, distributed FD); the port "
+                "runs stats_reduction='replicated'")
+        if self.realloc_every < 0:
             raise ValueError(
-                f"unknown second_moment_dtype {self.second_moment_dtype!r}; "
-                f"expected one of {quantize.SECOND_MOMENT_DTYPES}")
-        if self.quantized_epilogue not in QUANTIZED_EPILOGUES:
-            raise ValueError(
-                f"unknown quantized_epilogue {self.quantized_epilogue!r}; "
-                f"expected one of {QUANTIZED_EPILOGUES}")
-        for name, (ported, item) in _NOT_PORTED.items():
-            if getattr(self, name) != ported:
-                raise NotImplementedError(
-                    f"EngineConfig.{name}={getattr(self, name)!r} is not "
-                    f"ported yet (ROADMAP.md {item}); the port runs "
-                    f"{name}={ported!r}")
+                f"realloc_every must be >= 0, got {self.realloc_every}")
 
 
 class LeafState(NamedTuple):
@@ -115,11 +134,33 @@ class LeafState(NamedTuple):
     graft: Optional[torch.Tensor]
 
 
+class PendingSlot(NamedTuple):
+    """One group's refresh in flight (``refresh_mode="async"``): the stats
+    stack refreshed at step t in the live pool's storage layout, and
+    whether it holds one (False at init, where the commit keeps the live
+    stack)."""
+    stats: Any
+    valid: bool
+
+
 class PrecondState(NamedTuple):
     count: int
     pools: dict         # group key -> stats stack (leading dim N), stored
                         # in its storage layout (core/quantize.py)
     leaves: tuple       # LeafState per flat param leaf
+    pending: Optional[dict] = None   # group key -> PendingSlot under async
+
+
+def committed_pools(state: PrecondState) -> dict:
+    """The stored pools the next update preconditions from: the live pools
+    inline; under async each group's pending refresh committed over its
+    live stack, the select the next update makes first.  So after step t,
+    ``committed_pools(async_t) == inline_t.pools`` bit for bit."""
+    if state.pending is None:
+        return state.pools
+    return {key: pool.commit_select(state.pending[key].valid,
+                                    state.pending[key].stats, live)
+            for key, live in state.pools.items()}
 
 
 def graft_direction(g: torch.Tensor, acc: torch.Tensor, *, graft: str,
@@ -171,6 +212,18 @@ def _stack(items: list):
                          for i in range(len(first))))
 
 
+@contextlib.contextmanager
+def _span(name: str, enabled: bool):
+    """A ``torch.profiler.record_function`` range named as the reference's
+    span (a host range, and the device work launched inside it in a
+    trace); nothing when not ``enabled``."""
+    if not enabled:
+        yield
+        return
+    with torch.profiler.record_function(name):
+        yield
+
+
 def scale_by_preconditioner(precond, cfg: EngineConfig = EngineConfig()
                             ) -> GradientTransformation:
     """The shared direction engine over flat leaf lists (emits a descent
@@ -185,6 +238,8 @@ def scale_by_preconditioner(precond, cfg: EngineConfig = EngineConfig()
     update_stats_b = _batched_method(precond, "update_stats")
     refresh_b = _batched_method(precond, "refresh")
     precondition_b = _batched_method(precond, "precondition")
+    realloc_fn = getattr(precond, "realloc_pools", None)
+    spans = cfg.profile_annotations
 
     def index_of(tensors) -> pool.PoolIndex:
         return pool.build_index(
@@ -194,11 +249,16 @@ def scale_by_preconditioner(precond, cfg: EngineConfig = EngineConfig()
     def init_fn(params):
         index = index_of(params)
         device = params[0].device
+        stacks = {grp.key: precond.init_block(grp, device=device)
+                  for grp in index.groups}
+        # the rank budget is global: its hook sees every stack at once
+        finalize = getattr(precond, "finalize_init_pools", None)
+        if finalize is not None:
+            stacks = finalize(index.groups, stacks)
         # stored in the storage layout from the start, rounded to nearest
         # (zeros: nothing to dither)
-        pools = {grp.key: quantize.quantize_pool(
-            precond.init_block(grp, device=device), qdtype)
-            for grp in index.groups}
+        pools = {key: quantize.quantize_pool(stack, qdtype)
+                 for key, stack in stacks.items()}
         leaves = []
         for p, plan in zip(params, index.leaves):
             zeros = torch.zeros(p.shape, dtype=torch.float32, device=device)
@@ -209,7 +269,59 @@ def scale_by_preconditioner(precond, cfg: EngineConfig = EngineConfig()
             else:
                 leaves.append(LeafState(
                     stats=None, graft=None if cfg.graft == "none" else zeros))
-        return PrecondState(count=0, pools=pools, leaves=tuple(leaves))
+        pending = None
+        if cfg.refresh_mode == "async":
+            # the live pools' layout in tensors of its own (zeros), never
+            # views of the live stacks
+            pending = {key: PendingSlot(
+                stats=pool.map_stacks(torch.zeros_like, stack), valid=False)
+                for key, stack in pools.items()}
+        return PrecondState(count=0, pools=pools, leaves=tuple(leaves),
+                            pending=pending)
+
+    def refresh_group(grp: pool.PoolGroup, raw, gb: torch.Tensor,
+                      count: int):
+        """The gated refresh of one pool stack.  Staggered, the due blocks
+        (a host list, ``pool.due_blocks``) are gathered from every tensor
+        of the stack, refreshed as a sub-stack and written back out of
+        place, where the refresh changed them (not Shampoo's L and R, nor
+        the active ranks); a group with none due is left as it is.  The
+        reference pads
+        the due set to ``ceil(N / update_every)`` with a dummy slot, so its
+        kernels launch for every group at every step, where the port's
+        launch only for a group with a due block; a block's result is the
+        same."""
+        k = cfg.update_every
+        if k <= 1:
+            return refresh_b(raw, gb)
+        if cfg.refresh_schedule == "synchronized" or count == 0:
+            # count 0 of the staggered schedule warms every block up
+            return refresh_b(raw, gb) if count % k == 0 else raw
+        due = pool.due_blocks(grp, count, k)
+        if not due:
+            return raw
+        idx = torch.tensor(due, device=gb.device)
+        gathered = pool.map_stacks(lambda x: x.index_select(0, idx), raw)
+        sub = refresh_b(gathered, gb.index_select(0, idx))
+        return pool.map_stacks(
+            lambda x, g, y: x if y is g else x.index_copy(0, idx, y),
+            raw, gathered, sub)
+
+    def maybe_realloc(index: pool.PoolIndex, raws: dict, count: int) -> dict:
+        """The rank budget's reallocation over every refreshed stack at
+        once, every ``realloc_every * update_every`` steps after step 0."""
+        if cfg.realloc_every == 0 or realloc_fn is None or not index.groups:
+            return raws
+        period = max(cfg.update_every, 1) * cfg.realloc_every
+        if count == 0 or count % period != 0:
+            return raws
+        return realloc_fn(index.groups, raws)
+
+    def update_stats(raw, gb: torch.Tensor):
+        if update_stats_b is None:
+            return raw
+        with _span("precond/update_stats", spans):
+            return update_stats_b(raw, gb)
 
     def update_fn(updates, state, params=None):
         count = state.count
@@ -220,26 +332,59 @@ def scale_by_preconditioner(precond, cfg: EngineConfig = EngineConfig()
         # leaf), as the reference folds its PRNG key
         qkey = (QUANTIZE_SEED, count) if qdtype == "int8" else None
 
-        # one call of each method per shape group: pass 1 updates the
-        # statistics of every pool and refreshes it when due, pass 2
-        # preconditions from the refreshed pools and stores them back in
-        # their storage layout
-        due = cfg.update_every <= 1 or count % cfg.update_every == 0
-        raws = {}
-        for grp in index.groups:
-            raw = pool_compute(state.pools[grp.key])
-            if update_stats_b is not None:
-                raw = update_stats_b(raw, packed[grp.key])
-            if due:
-                raw = refresh_b(raw, packed[grp.key])
-            raws[grp.key] = raw
-        pooled_dirs, pools = {}, {}
-        for gi, grp in enumerate(index.groups):
-            pooled_dirs[grp.key] = precondition_b(raws[grp.key],
-                                                  packed[grp.key])
-            pools[grp.key] = quantize.requantize_pool(
-                state.pools[grp.key], raws[grp.key],
-                key=quantize.fold_in(qkey, gi))
+        pooled_dirs, pools, pending = {}, {}, None
+        if state.pending is None:
+            # pass 1 updates the statistics of every pool and refreshes it
+            # when due, pass 2 preconditions from the refreshed pools and
+            # stores them back in their storage layout
+            raws = {}
+            for grp in index.groups:
+                raw = update_stats(pool_compute(state.pools[grp.key]),
+                                   packed[grp.key])
+                with _span("precond/refresh", spans):
+                    raws[grp.key] = refresh_group(grp, raw, packed[grp.key],
+                                                  count)
+            raws = maybe_realloc(index, raws, count)
+            for gi, grp in enumerate(index.groups):
+                with _span("precond/precondition", spans):
+                    pooled_dirs[grp.key] = precondition_b(raws[grp.key],
+                                                          packed[grp.key])
+                pools[grp.key] = quantize.requantize_pool(
+                    state.pools[grp.key], raws[grp.key],
+                    key=quantize.fold_in(qkey, gi))
+        else:
+            # async: commit the refresh launched at the last step, update
+            # the statistics, precondition from them before this step's
+            # refresh, and launch that refresh into the pending slot.  The
+            # live pool keeps the pre-refresh stack and the slot the
+            # refreshed one, both stored under this step's keys, so the
+            # next commit stores bit for bit what inline stored here.
+            raws, refreshed = {}, {}
+            for grp in index.groups:
+                slot = state.pending[grp.key]
+                with _span("precond/commit", spans):
+                    committed = pool.commit_select(
+                        slot.valid, slot.stats, state.pools[grp.key])
+                raw = update_stats(pool_compute(committed), packed[grp.key])
+                with _span("precond/precondition", spans):
+                    pooled_dirs[grp.key] = precondition_b(raw,
+                                                          packed[grp.key])
+                with _span("precond/refresh_launch", spans):
+                    refreshed[grp.key] = refresh_group(
+                        grp, raw, packed[grp.key], count)
+                raws[grp.key] = raw
+            # the reallocation rides the refresh into the pending slot
+            refreshed = maybe_realloc(index, refreshed, count)
+            pending = {}
+            for gi, grp in enumerate(index.groups):
+                gkey = quantize.fold_in(qkey, gi)
+                pools[grp.key] = quantize.requantize_pool(
+                    state.pools[grp.key], raws[grp.key], key=gkey)
+                pending[grp.key] = PendingSlot(
+                    stats=quantize.requantize_pool(
+                        state.pending[grp.key].stats, refreshed[grp.key],
+                        key=gkey),
+                    valid=True)
 
         out, leaves = [], []
         for i, (g, leaf, plan) in enumerate(zip(updates, state.leaves,
@@ -268,7 +413,7 @@ def scale_by_preconditioner(precond, cfg: EngineConfig = EngineConfig()
             leaves.append(LeafState(stats=None, graft=new_graft))
 
         return out, PrecondState(count=count + 1, pools=pools,
-                                 leaves=tuple(leaves))
+                                 leaves=tuple(leaves), pending=pending)
 
     return GradientTransformation(init_fn, update_fn)
 
@@ -301,6 +446,53 @@ def second_moment_bytes(state: Any) -> int:
     if isinstance(state, dict):
         return sum(second_moment_bytes(s) for s in state.values())
     return 0
+
+
+def rank_allocation(state: Any) -> dict:
+    """The rank budget's allocation, read from any state that holds an
+    engine state (as ``second_moment_bytes`` finds them): ``{"total": K,
+    "groups": {key: {"k", "rho", "budget_share"}}}`` over every pool group
+    that holds FD sketches, with (N,) numpy arrays per group: ``k`` the
+    active ranks (a static engine's, or a state of meta tensors', the
+    capacity of its wider side), ``rho`` the escaped mass summed over the
+    sides, and ``budget_share = k / K``.  The pending slot is not read."""
+    per = {}
+
+    def visit(s):
+        if isinstance(s, PrecondState):
+            for key, stats in s.pools.items():
+                sides = [x for x in stats if isinstance(x, FDState)] \
+                    if isinstance(stats, tuple) else []
+                if sides:
+                    per[key] = (getattr(stats, "k", None), sides)
+        elif isinstance(s, InjectState):
+            visit(s.inner)
+        elif isinstance(s, dict):
+            for v in s.values():
+                visit(v)
+
+    visit(state)
+    if not per:
+        raise ValueError("no sketch state found (no pool holds FD sketches)")
+    concrete = lambda t: t.device.type != "meta"
+    ks = {}
+    for key, (k, sides) in per.items():
+        if k is not None and concrete(k):
+            ks[key] = k.cpu().numpy().astype(np.int64)
+        else:
+            n = sides[0].eigvals.shape[0]
+            cap = max(side.eigvals.shape[-1] for side in sides)
+            ks[key] = np.full((n,), cap, dtype=np.int64)
+    total = int(sum(int(k.sum()) for k in ks.values()))
+    groups = {}
+    for key, (_, sides) in sorted(per.items()):
+        k = ks[key]
+        rhos = [side.rho.double().cpu().numpy() for side in sides
+                if concrete(side.rho)]
+        rho = np.sum(rhos, axis=0) if rhos else np.zeros(k.shape)
+        groups[key] = {"k": k, "rho": rho,
+                       "budget_share": k / max(total, 1)}
+    return {"total": total, "groups": groups}
 
 
 def _leaves(x) -> list:

@@ -31,9 +31,18 @@ class OptimizerConfig:
     grad_clip: Optional[float] = 1.0
     schedule: str = "warmup_cosine"    # warmup_cosine | constant
     rank: int = 256                    # sketchy only
+    # the sketch-rank budget (sketchy only, core/sketchy.RankBudget); None
+    # keeps every block at ``rank``, a budget supersedes ``rank``
+    rank_budget: Optional[sketchy_lib.RankBudget] = None
     block_size: int = 1024
     update_every: int = 10             # sketchy's refresh, shampoo's roots
     start_preconditioning_step: int = 0
+    # refresh phasing and timing (core/api.py): "synchronized" |
+    # "staggered", "inline" | "async"; sketchy and shampoo
+    refresh_schedule: str = "synchronized"
+    refresh_mode: str = "inline"
+    # torch.profiler ranges around the engine's phases
+    profile_annotations: bool = False
     # storage of the second-moment state between steps (core/quantize.py):
     # "fp32" | "bf16" | "int8"; sketchy and shampoo (adam's elementwise
     # state stays f32)
@@ -52,20 +61,24 @@ class OptimizerConfig:
 
 def _direction(cfg: OptimizerConfig,
                beta2) -> transform.GradientTransformation:
+    refresh = dict(refresh_schedule=cfg.refresh_schedule,
+                   refresh_mode=cfg.refresh_mode,
+                   profile_annotations=cfg.profile_annotations)
     if cfg.name == "sketchy":
+        budget = cfg.rank_budget if cfg.rank_budget is not None \
+            else sketchy_lib.RankBudget(min_k=cfg.rank, max_k=cfg.rank)
         return sketchy_lib.sketchy(sketchy_lib.SketchyConfig(
-            rank_budget=sketchy_lib.RankBudget(max_k=cfg.rank),
-            block_size=cfg.block_size, beta2=beta2,
+            rank_budget=budget, block_size=cfg.block_size, beta2=beta2,
             update_every=cfg.update_every,
             start_preconditioning_step=cfg.start_preconditioning_step,
             second_moment_dtype=cfg.second_moment_dtype,
-            quantized_epilogue=cfg.quantized_epilogue))
+            quantized_epilogue=cfg.quantized_epilogue, **refresh))
     if cfg.name == "shampoo":
         return shampoo_lib.shampoo(shampoo_lib.ShampooConfig(
             block_size=cfg.block_size, beta2=beta2,
             root_every=cfg.update_every,
             start_preconditioning_step=cfg.start_preconditioning_step,
-            second_moment_dtype=cfg.second_moment_dtype))
+            second_moment_dtype=cfg.second_moment_dtype, **refresh))
     return adam_lib.adam(adam_lib.AdamConfig(beta1=cfg.beta1, beta2=beta2))
 
 

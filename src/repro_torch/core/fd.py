@@ -1,4 +1,4 @@
-"""Frequent Directions sketches (port of repro/core/fd.py, unmasked).
+"""Frequent Directions sketches (port of repro/core/fd.py).
 
 A sketch of the PSD stream ``G_t = sum_s beta2^{t-s} A_s A_s^T`` is kept in
 eigenpair form ``(U, s, rho)``: ``U (d, ell)`` orthonormal columns, ``s``
@@ -21,6 +21,11 @@ The eigenvector stack may arrive as an int8 ``QuantizedPool`` (the engine's
 fused int8 path, core/api.py): then the refresh Gram, the eigenvector
 write-back and the apply run on the int8 values through the fused kernel
 entries, and no f32 eigenvector stack is formed.
+
+The rank budget (core/sketchy.py) masks ranks: ``fd_update_batched`` with
+``active_k`` runs each block at its leading ``active_k[b]`` ladder columns
+of the stack's capacity, and ``fd_resize_batched`` moves blocks to new
+active ranks, folding the dropped eigenvalue mass into ``rho``.
 """
 from __future__ import annotations
 
@@ -67,7 +72,8 @@ def fd_update(state: FDState, new_factor: torch.Tensor,
     B = U.to(compute_dtype) * torch.sqrt(s_clamped)[None, :]
     M = torch.cat([B, new_factor.to(compute_dtype)], dim=1)
 
-    lam_top, rho_t, V, inv_sqrt = _top_eigenpairs(KERNELS.gram(M), ell)
+    lam_top, V, inv_sqrt = _top_eigenpairs(KERNELS.gram(M), ell)
+    rho_t = lam_top[..., ell - 1]
     U_new = torch.matmul(M, V[:, :ell]) * inv_sqrt[None, :]
     return FDState(eigvecs=U_new.to(U.dtype),
                    eigvals=(lam_top - rho_t).to(s.dtype),   # last entry 0
@@ -75,16 +81,23 @@ def fd_update(state: FDState, new_factor: torch.Tensor,
 
 
 def fd_update_batched(state: FDState, new_factor: torch.Tensor,
-                      beta2=1.0) -> FDState:
+                      beta2=1.0, active_k: Optional[torch.Tensor] = None
+                      ) -> FDState:
     """One FD step on every block of the stack: the PSD increment of block
     n is ``new_factor[n] @ new_factor[n].T`` (new_factor (N, d, r)).
+
+    ``active_k`` (N,) int masks ranks: block b runs at its leading
+    ``active_k[b]`` ladder columns (clipped to the capacity ``ell``); only
+    those enter the Gram, deflation subtracts ``lam[active_k[b] - 1]``, and
+    the columns past it come back zero.  ``None`` is the unmasked step.
 
     With an int8 ``QuantizedPool`` eigenvector stack the step runs on the
     int8 values (``_fd_update_batched_quantized``) and returns a new
     ``QuantizedPool``."""
     U, s, rho = state
     if isinstance(U, QuantizedPool):
-        return _fd_update_batched_quantized(U, s, rho, new_factor, beta2)
+        return _fd_update_batched_quantized(U, s, rho, new_factor, beta2,
+                                            active_k)
     ell = U.shape[-1]
     if new_factor.ndim == 2:
         new_factor = new_factor[..., None]
@@ -93,13 +106,19 @@ def fd_update_batched(state: FDState, new_factor: torch.Tensor,
     # the ladder is non-negative by construction; the clamp only guards
     # sqrt(negative) -> NaN if stored state was perturbed below zero
     s_clamped = torch.clamp(beta2 * s.to(compute_dtype), min=0.0)
+    kmask = _rank_mask(active_k, ell)
+    if kmask is not None:
+        s_clamped = torch.where(kmask, s_clamped, 0.0)
     B = U.to(compute_dtype) * torch.sqrt(s_clamped)[:, None, :]
     M = torch.cat([B, new_factor.to(compute_dtype)], dim=2)
 
-    lam_top, rho_t, V, inv_sqrt = _top_eigenpairs(KERNELS.batched_gram(M),
-                                                  ell)
+    lam_top, V, inv_sqrt = _top_eigenpairs(KERNELS.batched_gram(M), ell)
+    rho_t = _escaped_eigval(lam_top, active_k, ell)
     U_new = torch.matmul(M, V[..., :ell]) * inv_sqrt[:, None, :]
     s_new = lam_top - rho_t[..., None]            # deflate: last entry 0
+    if kmask is not None:
+        U_new = torch.where(kmask[:, None, :], U_new, 0.0)
+        s_new = torch.where(kmask, s_new, 0.0)
 
     return FDState(eigvecs=U_new.to(U.dtype), eigvals=s_new.to(s.dtype),
                    rho=(beta2 * rho + rho_t).to(rho.dtype))
@@ -107,13 +126,15 @@ def fd_update_batched(state: FDState, new_factor: torch.Tensor,
 
 def _fd_update_batched_quantized(U: QuantizedPool, s: torch.Tensor,
                                  rho: torch.Tensor, new_factor: torch.Tensor,
-                                 beta2) -> FDState:
+                                 beta2, active_k=None) -> FDState:
     """``fd_update_batched`` with the eigenvectors in int8 storage end to
     end (repro/core/fd.py :211).  The block scale and the ladder weights
     are both per column of the small factor, so they fold into one (N, ell)
     weight: ``B = dequant(Vq) sqrt(beta2 s) = Vq diag(colw)``, ``colw =
     scale * sqrt(beta2 s)``.  The refreshed eigenvectors come back
-    requantized, rounded to nearest."""
+    requantized, rounded to nearest.  A rank mask zeroes the inactive
+    columns' weights before the Gram and W's inactive output columns
+    before the write-back; the kernels are the unmasked ones."""
     vq, scale = U                            # (N, d, ell) int8, (N, 1, 1)
     N, d, ell = vq.shape
     if new_factor.ndim == 2:
@@ -121,36 +142,92 @@ def _fd_update_batched_quantized(U: QuantizedPool, s: torch.Tensor,
     A = new_factor.float().contiguous()      # (N, d, r)
 
     s_clamped = torch.clamp(beta2 * s.float(), min=0.0)
+    kmask = _rank_mask(active_k, ell)
+    if kmask is not None:
+        # zero weights zero the inactive columns of B, whatever the int8
+        # values hold there
+        s_clamped = torch.where(kmask, s_clamped, 0.0)
     colw = scale.reshape(N, 1) * torch.sqrt(s_clamped)   # (N, ell)
 
-    lam_top, rho_t, V, inv_sqrt = _top_eigenpairs(
+    lam_top, V, inv_sqrt = _top_eigenpairs(
         KERNELS.batched_gram_mixed(vq, colw, A), ell)
+    rho_t = _escaped_eigval(lam_top, active_k, ell)
     # U_new = M @ W with M = [Vq diag(colw), A]: split W by row block and
     # fold the column weights into the top half, so the projection reads
     # the raw int8 values (row-major copies: the kernel reads them so, and
     # eigh on the card returns V column-major)
     W = V[..., :ell] * inv_sqrt[:, None, :]       # (N, ell + r, ell)
+    if kmask is not None:
+        # zero output columns stay zero through the in-kernel quantization
+        W = torch.where(kmask[:, None, :], W, 0.0)
     w_top = (colw[..., None] * W[..., :ell, :]).contiguous()   # (N, ell, ell)
     w_bot = W[..., ell:, :].contiguous()          # (N, r, ell)
     values, scale_new = KERNELS.batched_project_quantize(vq, w_top, A, w_bot)
 
     s_new = lam_top - rho_t[..., None]            # deflate: last entry 0
+    if kmask is not None:
+        s_new = torch.where(kmask, s_new, 0.0)
     return FDState(eigvecs=QuantizedPool(values=values, scale=scale_new),
                    eigvals=s_new.to(s.dtype),
                    rho=(beta2 * rho + rho_t).to(rho.dtype))
 
 
+def _rank_mask(active_k: Optional[torch.Tensor], ell: int
+               ) -> Optional[torch.Tensor]:
+    """(N, ell) bool mask of the active ladder columns, or None unmasked."""
+    if active_k is None:
+        return None
+    kk = torch.clamp(active_k, 1, ell)
+    return torch.arange(ell, device=kk.device)[None, :] < kk[:, None]
+
+
+def _escaped_eigval(lam_top: torch.Tensor, active_k: Optional[torch.Tensor],
+                    ell: int) -> torch.Tensor:
+    """Per-block deflation eigenvalue (N,): ``lam[k - 1]`` at the active
+    rank, ``lam[ell - 1]`` unmasked."""
+    if active_k is None:
+        return lam_top[..., ell - 1]
+    kk = torch.clamp(active_k, 1, ell).long()
+    return torch.gather(lam_top, -1, kk[:, None] - 1)[..., 0]
+
+
 def _top_eigenpairs(C: torch.Tensor, ell: int) -> tuple:
     """Of the symmetrized Gram stack C: the top ``ell`` eigenvalues
-    descending (negatives clipped), the escaped eigenvalue ``lam[ell-1]``
-    (N,), all eigenvectors in descending order, and ``lam^-1/2`` of the top
-    ``ell`` (0 where lam <= 1e-30)."""
+    descending (negatives clipped), all eigenvectors in descending order,
+    and ``lam^-1/2`` of the top ``ell`` (0 where lam <= 1e-30)."""
     lam, V = _eigh(0.5 * (C + C.mT))              # ascending, batched
     lam = torch.clamp(lam.flip(-1), min=0.0)      # descending, clip negatives
     lam_top = lam[..., :ell]
     inv_sqrt = torch.where(lam_top > 1e-30,
                            torch.rsqrt(torch.clamp(lam_top, min=1e-30)), 0.0)
-    return lam_top, lam_top[..., ell - 1], V.flip(-1), inv_sqrt
+    return lam_top, V.flip(-1), inv_sqrt
+
+
+def fd_resize_batched(state: FDState, new_k: torch.Tensor) -> FDState:
+    """Move each block of a stack to a new active rank (N,); the shapes
+    (the capacity) never change.  Shrinking block b to ``new_k[b]`` folds
+    the dropped eigenvalues into ``rho`` exactly (``rho += sum_{i >= k}
+    s_i``, which keeps the block's FD bound) and zeroes the dropped ladder
+    and eigenvector columns; growing is free, as the columns past the old
+    rank are zero already.  An int8 ``QuantizedPool`` stack has its values
+    zeroed in place of the mask, each block's scale kept."""
+    U, s, rho = state
+    quantized = isinstance(U, QuantizedPool)
+    ell = (U.values if quantized else U).shape[-1]
+    kmask = _rank_mask(new_k, ell)                         # (N, ell)
+    s_f = s.float()
+    dropped = torch.sum(torch.where(kmask, 0.0, s_f), dim=-1)   # (N,)
+    s_new = torch.where(kmask, s_f, 0.0).to(s.dtype)
+    rho_new = (rho.float() + dropped).to(rho.dtype)
+    if quantized:
+        U_new = QuantizedPool(
+            values=torch.where(kmask[:, None, :], U.values,
+                               torch.zeros((), dtype=torch.int8,
+                                           device=U.values.device)),
+            scale=U.scale)
+    else:
+        U_new = torch.where(kmask[:, None, :], U, 0.0).to(U.dtype)
+    return FDState(eigvecs=U_new, eigvals=s_new, rho=rho_new)
 
 
 def _eigh(C: torch.Tensor):

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -98,3 +98,61 @@ def unpack_leaf(index: PoolIndex, pools: dict, leaf_id: int) -> torch.Tensor:
     stack = pools[index.groups[plan.group].key]
     blocks = stack[plan.offset:plan.offset + plan.info.num_blocks]
     return blocking.from_blocks(blocks, plan.info)
+
+
+def map_stacks(fn: Callable, *stacks) -> Any:
+    """``fn`` over the tensors of congruent stats stacks (NamedTuples of
+    tensors, nested, an int8 ``QuantizedPool`` among them), keeping the
+    structure of the first."""
+    first = stacks[0]
+    if isinstance(first, torch.Tensor):
+        return fn(*stacks)
+    return type(first)(*(map_stacks(fn, *items) for items in zip(*stacks)))
+
+
+def due_blocks(group: PoolGroup, count: int, update_every: int) -> list:
+    """The blocks of ``group`` the staggered refresh updates at step
+    ``count``: block ``b`` when ``(count + b) % update_every == 0``
+    (repro/core/pool.py ``block_ids`` is this phase's source there).  The
+    port's step count is a host int, so the due set is host arithmetic:
+    at most ``ceil(N / update_every)`` blocks, none for a group whose
+    ``N`` is below the phase."""
+    return list(range((-count) % update_every, group.num_blocks,
+                      update_every))
+
+
+def uniform_ranks(n: int, total: int, min_k: int, max_k: int, *,
+                  device=None) -> torch.Tensor:
+    """The rank budget's initial allocation: ``total`` spread over ``n``
+    blocks as evenly as possible (earlier blocks take the remainder),
+    clipped to ``[min_k, max_k]``; (n,) int32.  The caller checks
+    ``n * min_k <= total <= n * max_k``."""
+    base = total // n
+    k = base + (torch.arange(n, device=device) < (total - base * n)).long()
+    return torch.clamp(k, min_k, max_k).to(torch.int32)
+
+
+def allocate_ranks(pressure: torch.Tensor, *, total: int, min_k: int,
+                   max_k: int) -> torch.Tensor:
+    """Greedy waterfill of a fixed total rank budget by descending
+    ``pressure`` (N,): every block floored at ``min_k``, the rest of the
+    budget poured into blocks in descending pressure order, each taking up
+    to its headroom ``max_k - min_k`` before the next gets any.  One stable
+    argsort (ties break by block index, as the reference's) and a
+    cumulative sum; (N,) int32 with ``sum == total`` whenever ``N * min_k
+    <= total <= N * max_k``."""
+    n = pressure.shape[0]
+    room = torch.full((n,), max(max_k - min_k, 0), dtype=torch.int64,
+                      device=pressure.device)
+    budget = min(max(total - n * min_k, 0), int(room.sum()))
+    order = torch.argsort(-pressure, stable=True)           # descending
+    ahead = torch.cumsum(room, 0) - room                    # better-ranked
+    give_sorted = torch.minimum(torch.clamp(budget - ahead, min=0), room)
+    give = torch.zeros_like(room).scatter(0, order, give_sorted)
+    return (min_k + give).to(torch.int32)
+
+
+def commit_select(valid: bool, pending, live):
+    """The async refresh's commit (core/api.py): the pending stats stack
+    where ``valid`` (it holds a refresh), else the live one."""
+    return pending if valid else live

@@ -148,10 +148,6 @@ def _unflatten(like, leaves) -> Any:
     return build(like)
 
 
-def _map(fn, tree) -> Any:
-    return _unflatten(tree, [fn(x) for x in _flatten(tree)])
-
-
 def _map_second_moments(fn, tree) -> Any:
     """``fn`` over the second-moment leaves; the others pass through."""
     return _unflatten(tree, [fn(x) if second else x
@@ -195,17 +191,21 @@ def quantize_leaf_state(stats: torch.Tensor, dtype: str) -> Any:
 
 
 def dequantize_pool(stats: Any) -> Any:
-    """Storage layout -> f32 compute tree (for fp32, the tree itself)."""
-    return _map(lambda x: dequantize_stack(*x)
-                if isinstance(x, QuantizedPool) else x.float(), stats)
+    """Storage layout -> f32 compute tree (for fp32, the tree itself): the
+    second-moment leaves dequantized or cast to f32, every other leaf (the
+    rank budget's int32 active ranks, Shampoo's roots) as it is stored."""
+    return _map_second_moments(lambda x: dequantize_stack(*x)
+                               if isinstance(x, QuantizedPool) else x.float(),
+                               stats)
 
 
 def compute_view(stats: Any) -> Any:
     """Storage layout -> compute tree that keeps the int8 containers, for
     the fused int8 path: the FD functions (core/fd.py) run their int8
-    kernels on them, and no f32 eigenvector stack is formed."""
-    return _map(lambda x: x if isinstance(x, QuantizedPool)
-                else x.float(), stats)
+    kernels on them, and no f32 eigenvector stack is formed.  Other leaves
+    as ``dequantize_pool`` gives them."""
+    return _map_second_moments(lambda x: x if isinstance(x, QuantizedPool)
+                               else x.float(), stats)
 
 
 def requantize_pool(template: Any, raw: Any, *,

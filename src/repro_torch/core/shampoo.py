@@ -1,12 +1,14 @@
 """Blocked full-matrix Shampoo, the paper's primary baseline (port of
-repro/core/shampoo.py, synchronized inline refresh), as a preconditioner
-on the shared engine.
+repro/core/shampoo.py), as a preconditioner on the shared engine.
 
 Per block, dense factors L (bm x bm) and R (bn x bn) accumulate an EMA of
 ``G G^T`` and ``G^T G`` every step; every ``root_every`` steps the inverse
 4th roots ``PL, PR = (M + eps I)^-1/4`` are recomputed by ``eigh`` with the
 eigenvalues clamped at eps; every step the direction is ``PL G PR``.
-Second-moment memory is O(bm^2 + bn^2) a block, what Sketchy reduces.
+Second-moment memory is O(bm^2 + bn^2) a block, what Sketchy reduces.  The
+engine's refresh schedules and modes (core/api.py) gate the roots: a
+staggered schedule recomputes a group's due blocks' roots, async commits
+them a step later; L and R accumulate every step either way.
 
 ``L += G G^T`` is the Gram of ``G^T`` and ``R += G^T G`` the Gram of G, so
 both go through ``KERNELS.batched_gram`` over the whole pool stack (kernel
@@ -37,6 +39,9 @@ class ShampooConfig:
     beta2: Any = 0.999              # may be an f32 scalar tensor (injected)
     root_every: int = 10            # paper: preconditioning_compute_steps
     start_preconditioning_step: int = 0
+    refresh_schedule: str = "synchronized"  # synchronized | staggered
+    refresh_mode: str = "inline"            # inline | async (core/api.py)
+    profile_annotations: bool = False       # engine spans (core/api.py)
     second_moment_dtype: str = "fp32"   # fp32 | bf16 | int8 (quantize.py)
 
 
@@ -110,4 +115,7 @@ def shampoo(cfg: ShampooConfig = ShampooConfig()) -> GradientTransformation:
             block_size=cfg.block_size, beta2=cfg.beta2,
             update_every=cfg.root_every,
             start_preconditioning_step=cfg.start_preconditioning_step,
+            refresh_schedule=cfg.refresh_schedule,
+            refresh_mode=cfg.refresh_mode,
+            profile_annotations=cfg.profile_annotations,
             second_moment_dtype=cfg.second_moment_dtype))

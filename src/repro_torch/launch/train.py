@@ -5,11 +5,13 @@ Shampoo and Adam).
     python -m repro_torch.launch.train                      # on the card
     python -m repro_torch.launch.train --optimizer shampoo
     python -m repro_torch.launch.train --reduced --device cpu --optimizer adam
+    python -m repro_torch.launch.train --refresh-schedule staggered \
+        --refresh-mode async \
+        --rank-budget total=7104,min_k=8,max_k=64,policy=rho_greedy
 
 Runs on ``--device cuda`` unless told otherwise, and raises if the machine
 has no card.  The reference's flags for features not ported yet
-(checkpointing, refresh modes, sharded statistics, gradient compression)
-are absent.
+(checkpointing, sharded statistics, gradient compression) are absent.
 """
 from __future__ import annotations
 
@@ -27,7 +29,9 @@ from repro_torch.configs import registry
 from repro_torch.core import api
 from repro_torch.core.factory import (OPTIMIZERS, OptimizerConfig,
                                       make_optimizer)
+from repro_torch.core.sketchy import RankBudget
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.launch.flags import parse_kv_spec
 from repro_torch.models import model as model_lib
 from repro_torch.train.trainer import make_train_step
 
@@ -43,6 +47,13 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
     p.add_argument("--seq", type=int, default=128)
     p.add_argument("--lr", type=float, default=3e-3)
     p.add_argument("--rank", type=int, default=64)
+    p.add_argument("--rank-budget", default=None, metavar="SPEC",
+                   help="sketch-rank budget (sketchy only; core/sketchy."
+                        "RankBudget): key=value pairs of total, min_k, "
+                        "max_k, every, policy, e.g. 'total=2048,min_k=8,"
+                        "max_k=128,policy=rho_greedy'; the memory stays at "
+                        "max_k capacity while the active ranks move to the "
+                        "blocks of highest escaped mass; --rank is ignored")
     p.add_argument("--update-every", type=int, default=10)
     p.add_argument("--block-size", type=int, default=1024)
     p.add_argument("--second-moment-dtype", default="fp32",
@@ -58,12 +69,31 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
                         "refresh and the apply on the int8 factors through "
                         "the fused kernels (no f32 factor stack at the pool "
                         "boundary); off = always dequantize at the boundary")
+    p.add_argument("--refresh-schedule", default="synchronized",
+                   choices=["synchronized", "staggered"],
+                   help="synchronized = every block every update-every "
+                        "steps (an eigh spike); staggered = about "
+                        "N/update_every blocks a step, the same work in all")
+    p.add_argument("--refresh-mode", default="inline",
+                   choices=["inline", "async"],
+                   help="inline = the refresh preconditions its own step; "
+                        "async = it lands in a pending slot, committed at "
+                        "the next step (the direction one refresh stale)")
+    p.add_argument("--profile-annotations", action="store_true",
+                   help="torch.profiler ranges around the engine's "
+                        "update_stats / refresh / precondition / commit "
+                        "phases")
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--metrics-out", default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device; the CPU runs only when asked for")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.rank_budget:
+        args.rank_budget = parse_kv_spec(
+            args.rank_budget, RankBudget, aliases={"every": "realloc_every"},
+            error=lambda m: p.error(f"--rank-budget: {m}"))
+    return args
 
 
 @dataclasses.dataclass
@@ -100,8 +130,11 @@ def start(args: argparse.Namespace, params: Optional[dict] = None) -> Run:
         else registry.get_config(args.arch)
     tx = make_optimizer(OptimizerConfig(
         name=args.optimizer, learning_rate=args.lr, total_steps=args.steps,
-        rank=args.rank, block_size=args.block_size,
-        update_every=args.update_every, weight_decay=1e-4,
+        rank=args.rank, rank_budget=args.rank_budget,
+        block_size=args.block_size, update_every=args.update_every,
+        weight_decay=1e-4, refresh_schedule=args.refresh_schedule,
+        refresh_mode=args.refresh_mode,
+        profile_annotations=args.profile_annotations,
         second_moment_dtype=args.second_moment_dtype,
         quantized_epilogue=args.quantized_epilogue))
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,

@@ -42,6 +42,15 @@ L and R Grams at full width (data of mean 3, the f32 tolerance), and two
 reduced training steps of Shampoo and of Adam through the launcher on the
 card against the CPU from the same weights (losses ``rtol=1e-4``,
 parameters ``rtol=1e-3, atol=1e-4``), with their kernels' launch counts.
+
+The refresh modes and the rank budget: the masked FD refresh (kernel 1, or
+kernels 5 and 6 on int8 eigenvectors) and one staggered sub-stack refresh
+of the engine against the same work through the plain versions on the
+card (ladders ``rtol=1e-4`` plus 1e-4 of the largest eigenvalue;
+covariances ``U diag(s) U^T``, never raw U, within 1e-4 of their largest
+magnitude, two int8 steps under int8; the columns past a block's rank and
+the blocks not due untouched), and the async engine's committed state
+against the inline engine's after each of 6 steps, bit for bit.
 """
 import numpy as np
 import pytest
@@ -707,3 +716,161 @@ def test_baseline_training_on_card_matches_cpu(card, optimizer):
                          tree.flatten(cpu_run.params)):
         torch.testing.assert_close(got.detach().cpu(), want.detach(),
                                    rtol=1e-3, atol=1e-4)
+
+
+def _plain_on_card(monkeypatch) -> None:
+    """Route every kernel-set entry to its plain version, on the card's
+    tensors too."""
+    from repro_torch.kernels import registry
+    monkeypatch.setattr(registry, "_route",
+                        lambda t, on_card, on_cpu: on_cpu)
+
+
+def _cov(U, s) -> torch.Tensor:
+    U, s = U.double(), s.double()
+    return torch.einsum("nde,ne,nfe->ndf", U, s, U)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+def test_masked_refresh_on_card_matches_plain(card, quantized, monkeypatch):
+    """The rank budget's masked FD refresh (kernel 1, or kernels 5 and 6 on
+    int8 eigenvectors) against the same refresh through the plain versions
+    on the card, the same ``eigh``: from one warm sketch (an unmasked
+    refresh through the kernels), a masked refresh at active ranks from 1
+    to the capacity 64 (d 768, 32 new columns).  (From two warm sketches,
+    one each way, the int8 write-backs' one-step differences at .5
+    boundaries move the next ladder by up to 1 %.)
+    The ladders at the f32 tolerance of ``ell + r`` sums, the covariance
+    ``U diag(s) U^T`` (never raw U) within 1e-4 of its largest magnitude
+    (int8: one quantization step, 1/127 of it), and the columns past each
+    block's rank exactly zero in both."""
+    from repro_torch.core import fd, quantize
+    from repro_torch.kernels.gram import kernel as gram_kernel
+    from repro_torch.kernels.lowrank import kernel as lowrank_kernel
+    gen = torch.Generator(device=card).manual_seed(11)
+    N, d, ell, r = 5, 768, 64, 32
+    k = torch.tensor([1, 17, 64, 40, 8], dtype=torch.int32, device=card)
+    state = fd.fd_init(d, ell, num_blocks=N, device=card)
+    if quantized:
+        state = state._replace(eigvecs=quantize.quantize_stack(state.eigvecs))
+    state = fd.fd_update_batched(
+        state, torch.randn(N, d, 2 * ell, generator=gen, device=card), 0.99)
+    new = torch.randn(N, d, r, generator=gen, device=card)
+    runs = {}
+    for route in ("kernel", "plain"):
+        if route == "plain":
+            _plain_on_card(monkeypatch)
+        before = (gram_kernel.launches, gram_kernel.mixed_launches,
+                  lowrank_kernel.project_quantize_launches)
+        st = fd.fd_update_batched(state, new, 0.99, active_k=k)
+        torch.cuda.synchronize()
+        after = (gram_kernel.launches, gram_kernel.mixed_launches,
+                 lowrank_kernel.project_quantize_launches)
+        runs[route] = (st, [b - a for a, b in zip(before, after)])
+    (got, launched), (want, none) = runs["kernel"], runs["plain"]
+    assert launched == ([0, 1, 1] if quantized else [1, 0, 0])
+    assert none == [0, 0, 0]
+    torch.testing.assert_close(got.eigvals, want.eigvals, rtol=1e-4,
+                               atol=1e-4 * float(want.eigvals.abs().max()))
+    torch.testing.assert_close(got.rho, want.rho, rtol=1e-4,
+                               atol=1e-4 * float(want.eigvals.abs().max()))
+    U = {name: quantize.dequantize_stack(*st.eigvecs) if quantized
+         else st.eigvecs for name, st in (("got", got), ("want", want))}
+    c_got, c_want = _cov(U["got"], got.eigvals), _cov(U["want"], want.eigvals)
+    frac = 2.0 / 127 if quantized else 1e-4
+    torch.testing.assert_close(c_got, c_want, rtol=0,
+                               atol=frac * float(c_want.abs().max()))
+    for st in (got, want):
+        vals = st.eigvecs.values if quantized else st.eigvecs
+        for b in range(N):
+            assert not vals[b, :, int(k[b]):].any()
+            assert not st.eigvals[b, int(k[b]):].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["fp32", "int8"])
+def test_staggered_substack_refresh_on_card_matches_plain(card, storage,
+                                                          monkeypatch):
+    """One staggered step of the engine on the card (a sub-stack of the due
+    blocks through the kernels) against the plain refresh of the same
+    blocks on the card: the due blocks' ladders at the f32 tolerance and
+    their covariances as in the masked test above; every other block's
+    stored tensors untouched, bit for bit."""
+    from repro_torch.core import pool, quantize
+    from repro_torch.core.sketchy import (RankBudget, SketchyConfig,
+                                          SketchyPreconditioner, sketchy)
+    cfg = SketchyConfig(rank_budget=RankBudget(min_k=16, max_k=16),
+                        block_size=128, update_every=4,
+                        refresh_schedule="staggered",
+                        second_moment_dtype=storage)
+    tx = sketchy(cfg)
+    gen = torch.Generator(device=card).manual_seed(12)
+    params = [torch.zeros(640, 384, device=card)]     # 15 blocks
+    state = tx.init(params)
+    grads = [[torch.randn(640, 384, generator=gen, device=card)]
+             for _ in range(4)]
+    for g in grads[:3]:
+        _, state = tx.update(g, state, params)
+    _, after = tx.update(grads[3], state, params)     # count 3
+    grp = pool.build_index(((640, 384),), 128).groups[0]
+    due = pool.due_blocks(grp, 3, 4)
+    assert due == [1, 5, 9, 13]
+    idx = torch.tensor(due, device=card)
+    _plain_on_card(monkeypatch)
+    sub = pool.map_stacks(lambda x: x.index_select(0, idx),
+                          quantize.compute_view(state.pools[grp.key]))
+    gb = pool.pack(pool.build_index(((640, 384),), 128),
+                   [grads[3][0]])[grp.key].index_select(0, idx)
+    want = SketchyPreconditioner(cfg).refresh_batched(sub, gb)
+    got, before = after.pools[grp.key], state.pools[grp.key]
+    for side in ("left", "right"):
+        g_side, w_side = getattr(got, side), getattr(want, side)
+        ladder = float(w_side.eigvals.abs().max())
+        torch.testing.assert_close(g_side.eigvals[idx], w_side.eigvals,
+                                   rtol=1e-4, atol=1e-4 * ladder)
+        U_got = g_side.eigvecs
+        U_want = w_side.eigvecs
+        if storage == "int8":
+            U_got = quantize.dequantize_stack(*U_got)
+            U_want = quantize.dequantize_stack(*U_want)
+        c_want = _cov(U_want, w_side.eigvals)
+        torch.testing.assert_close(
+            _cov(U_got[idx], g_side.eigvals[idx]), c_want, rtol=0,
+            atol=(2.0 / 127 if storage == "int8" else 1e-4)
+            * float(c_want.abs().max()))
+    keep = torch.tensor([b for b in range(grp.num_blocks) if b not in due],
+                        device=card)
+    for a, b in zip(quantize.second_moment_tensors(got),
+                    quantize.second_moment_tensors(before)):
+        assert torch.equal(a.index_select(0, keep), b.index_select(0, keep))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["synchronized", "staggered"])
+@pytest.mark.parametrize("storage", ["fp32", "int8"])
+def test_async_step_shifted_on_card(card, schedule, storage):
+    """Sketchy inline and async over the same gradients on the card: after
+    each of 6 steps the async state's committed pools equal the inline
+    pools bit for bit (the kernels and ``eigh`` give the same bits on the
+    same inputs)."""
+    from repro_torch.core import api, quantize
+    from repro_torch.core.sketchy import RankBudget, SketchyConfig, sketchy
+    txs = {mode: sketchy(SketchyConfig(
+        rank_budget=RankBudget(min_k=16, max_k=16), block_size=128,
+        update_every=2, refresh_schedule=schedule, refresh_mode=mode,
+        second_moment_dtype=storage)) for mode in ("inline", "async")}
+    params = [torch.zeros(640, 384, device=card),
+              torch.zeros(256, 256, device=card)]
+    states = {mode: tx.init(params) for mode, tx in txs.items()}
+    gen = torch.Generator(device=card).manual_seed(13)
+    for t in range(6):
+        g = [torch.randn(p.shape, generator=gen, device=card)
+             for p in params]
+        for mode, tx in txs.items():
+            _, states[mode] = tx.update(g, states[mode], params)
+        committed = api.committed_pools(states["async"])
+        for key, live in states["inline"].pools.items():
+            for a, b in zip(quantize.second_moment_tensors(committed[key]),
+                            quantize.second_moment_tensors(live)):
+                assert torch.equal(a, b), (t, key)

@@ -3,8 +3,9 @@
 (a) ``pool.build_index`` over the full-width paper-lm-100m parameter shapes
 equals JAX's: group keys, sizes, member leaves and offsets (shapes only).
 (b) ``make_optimizer`` gives the same updates on the reduced model, update
-for update, over three refresh windows, at the launcher's options and at
-every other value of an option the port accepts.  Tolerance as in
+for update, over six steps, at the launcher's options and at every other
+value of an option the port accepts (the refresh schedules and modes and a
+``rho_greedy`` rank budget among them).  Tolerance as in
 tests/test_torch_fd.py (``rtol=1e-4``, ``atol=1e-5`` of the largest
 magnitude); the largest difference measured was 1.1e-6 of it.
 (c) ``second_moment_bytes`` equals JAX's, reduced and full width.
@@ -93,8 +94,11 @@ def _updates_match_jax(opt: dict, **tol) -> None:
     jparams = jmodel.init_params(cfg, jax.random.PRNGKey(0))
     tparams = tree.flatten(jax.tree.map(
         lambda x: torch.from_numpy(np.array(x)), jparams))
-    jtx = jfactory.make_optimizer(jfactory.OptimizerConfig(**opt))
-    ttx = tfactory.make_optimizer(tfactory.OptimizerConfig(**opt))
+    budget = opt.get("rank_budget")      # a dict: each package's RankBudget
+    jtx = jfactory.make_optimizer(jfactory.OptimizerConfig(**dict(
+        opt, rank_budget=budget and JRankBudget(**budget))))
+    ttx = tfactory.make_optimizer(tfactory.OptimizerConfig(**dict(
+        opt, rank_budget=budget and RankBudget(**budget))))
     js, ts = jtx.init(jparams), ttx.init(tparams)
     jupdate = jax.jit(jtx.update)
     rng = np.random.default_rng(0)
@@ -122,7 +126,16 @@ def test_make_optimizer_matches_jax_update_for_update():
     # grafted (unpreconditioned) directions for the first 3 steps, a longer
     # warmup and other EMA decays
     dict(start_preconditioning_step=3, warmup_frac=0.3, beta1=0.5,
-         beta2=0.99, grad_clip=0.5)])
+         beta2=0.99, grad_clip=0.5),
+    # the refresh schedules and modes (refreshes at steps 0 and 3, the
+    # staggered blocks each at its phase) and a rho_greedy budget of half
+    # the reduced model's capacity (144 blocks at rank 4), reallocated at
+    # step 3
+    dict(update_every=3, refresh_schedule="staggered"),
+    dict(update_every=3, refresh_mode="async"),
+    dict(update_every=3, refresh_schedule="staggered", refresh_mode="async"),
+    dict(update_every=3, rank_budget=dict(total=288, min_k=1, max_k=4,
+                                          policy="rho_greedy"))])
 def test_make_optimizer_options_match_jax(options):
     """Every other OptimizerConfig field the port accepts, against JAX."""
     _updates_match_jax(dict(OPT, **options))

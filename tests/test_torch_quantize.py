@@ -108,6 +108,31 @@ def test_requantize_pool_is_idempotent_and_passes_quantized_through():
     assert kept.right.eigvecs is stored.right.eigvecs
 
 
+@pytest.mark.parametrize("storage", ["fp32", "bf16", "int8"])
+def test_leaves_that_are_no_second_moment_keep_their_dtype(storage):
+    """The rank budget's int32 active ranks (a field outside the stats
+    NamedTuple's ``second_moments``) pass the storage boundary as they are,
+    as the reference passes leaves of other roles (repro/core/quantize.py
+    :195-210); the sketches take the storage's layout."""
+    from repro_torch.core.sketchy import BudgetedSketchStats
+    pair = _pool_stats(0)
+    k = torch.tensor([3, 1, 4], dtype=torch.int32)
+    stats = BudgetedSketchStats(left=pair.left, right=pair.right, k=k)
+    stored = tquantize.quantize_pool(stats, storage)
+    assert stored.k is k
+    for view in (tquantize.dequantize_pool(stored),
+                 tquantize.compute_view(stored)):
+        assert view.k.dtype == torch.int32 and torch.equal(view.k, k)
+        assert view.left.eigvals.dtype == torch.float32
+    back = tquantize.requantize_pool(
+        stored, tquantize.dequantize_pool(stored), key=(1, 2))
+    assert back.k.dtype == torch.int32 and torch.equal(back.k, k)
+    ids = lambda ts: [id(t) for t in ts]
+    assert ids(tquantize.second_moment_tensors(back)) == ids(
+        tquantize.second_moment_tensors(back.left)
+        + tquantize.second_moment_tensors(back.right))
+
+
 def test_stochastic_rounding_within_one_step_and_unbiased():
     x = _stack((2, 32, 16), 0, seed=5)
     xt = torch.from_numpy(x)
