@@ -88,6 +88,24 @@ no result line:
    staggered) inline and async over the same gradients on the card: the
    async state's committed pools equal the inline pools bit for bit after
    each of 6 steps.
+6a. checkpoint (train/checkpoint.py, the launcher's --checkpoint-dir,
+   --checkpoint-every and --resume): at full width (MAIN_PATH_ARGV), for
+   Sketchy fp32, int8, async int8, the rho_greedy budget (BUDGET_ARGV) and
+   Shampoo fp32 (CKPT_RUNS), steps 0-5 are saved, restored into a fresh
+   ``start()`` template and every leaf compared bit for bit with its dtype
+   and shape (the pending slot rebuilt empty), the leaf data on disk equal
+   to the state's bytes less the pending slot's; the save and restore
+   timed; then step 6 from the restored state must give the bits of step 6
+   from the live state (async: its pending slot reset), or differ by no
+   more than the same step run twice from the live state (the witness;
+   both printed).  Then ``python -m repro_torch.launch.train`` with a
+   checkpoint every 5 steps leaves step-5, step-10 and step-12 and no
+   tmp-; a copy of step-5 alone resumed in process prints "resumed from
+   step 5", runs batches 5-11 (batch 5 again, as the reference resumes)
+   at optimizer counts 6-12, launching kernels 1, 2 and 7 as those 7 steps
+   should (one refresh, at count 10: 8 Grams, 56 applies, 168 flash).
+   Then a reduced checkpoint from the CPU resumed on the card and on the
+   CPU (phase 6, "resumed").
 6b. convex: ``repro_torch.launch.convex`` (the paper's Tbl. 3 streams and
    grid) on the card and on the CPU: the 12 average losses and their ranks
    agree (as tests/test_torch_oco.py holds them), and kernels 3 and 4
@@ -135,9 +153,12 @@ path; its Shampoo counts and times are on the lines of phases 2 and 4.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -168,6 +189,7 @@ from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
 from repro_torch.launch import serve as serve_lib  # noqa: E402
 from repro_torch.launch import train as train_lib  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
+from repro_torch.train import checkpoint as ckpt_lib  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at its 700 W
 # limit): device memory 3.35 TB/s; f32 outside the tensor cores 67 TFLOP/s;
@@ -1325,26 +1347,41 @@ REDUCED_BUDGET_ARGV = ["--rank-budget",
                        "total=576,min_k=2,max_k=8,policy=rho_greedy"]
 
 
+REFERENCE_ARGV = ["--reduced", "--steps", "4", "--seq", "32", "--batch", "4",
+                  "--rank", "4", "--block-size", "32", "--update-every", "2"]
+
+
 def phase_reference(dev, storage: str, optimizer: str = "sketchy",
-                    extra: tuple = ()) -> None:
+                    extra: tuple = (), resume_from: str = None) -> None:
     """Reduced model, same weights: card (kernels) vs CPU (plain), with
     ``optimizer``, ``storage`` second-moment storage and the flags
-    ``extra``; under a rank budget both reach the same active ranks."""
-    argv = ["--reduced", "--steps", "4", "--seq", "32", "--batch", "4",
-            "--rank", "4", "--block-size", "32", "--update-every", "2",
-            "--second-moment-dtype", storage, "--optimizer", optimizer,
-            *extra]
-    storage = " ".join([optimizer, storage, *extra])
+    ``extra``; under a rank budget both reach the same active ranks.  With
+    ``resume_from`` (a checkpoint directory), each device resumes from a
+    copy of it."""
+    argv = REFERENCE_ARGV + ["--second-moment-dtype", storage,
+                             "--optimizer", optimizer, *extra]
+    storage = " ".join([optimizer, storage, *extra]
+                       + (["resumed"] if resume_from else []))
     cfg = registry.get_reduced("paper-lm-100m")
     params = model_lib.init_params(cfg, torch.Generator().manual_seed(0))
     losses, ranks = {}, {}
     for device in (dev, torch.device("cpu")):
         start = tree.unflatten(params, [p.to(device)
                                         for p in tree.flatten(params)])
+        resume = []
+        if resume_from:
+            resume = ["--checkpoint-dir", _fresh_dir(device.type),
+                      "--resume"]
+            shutil.copytree(resume_from, resume[1], dirs_exist_ok=True)
         _zero_counts()
         run, log = train_lib.train(
-            train_lib.parse_args(argv + ["--device", str(device)]), start)
+            train_lib.parse_args(argv + ["--device", str(device), *resume]),
+            start)
         losses[device.type] = [r["loss"] for r in log]
+        if resume_from and log[0]["step"] != \
+                ckpt_lib.latest_step(resume_from):
+            fail(f"reference ({storage}): did not resume, ran steps "
+                 f"{[r['step'] for r in log]}")
         if "--rank-budget" in extra:
             ranks[device.type] = np.concatenate([
                 g["k"] for g in api.rank_allocation(
@@ -1354,9 +1391,9 @@ def phase_reference(dev, storage: str, optimizer: str = "sketchy",
             # no remat in the reduced config: each layer's attention once
             # per step
             flash = _counts()["flash_attention"]
-            if flash != 4 * cfg.num_layers:
+            if flash != len(log) * cfg.num_layers:
                 fail(f"reference ({storage}): {flash} flash_attention "
-                     f"launches, expected {4 * cfg.num_layers}")
+                     f"launches, expected {len(log) * cfg.num_layers}")
     worst = max(abs(a - b) / abs(b)
                 for a, b in zip(losses["cuda"], losses["cpu"]))
     print(f"reference ({storage}): card losses {losses['cuda']}, CPU losses "
@@ -1410,6 +1447,235 @@ def phase_async_equality(dev) -> None:
           f"{launches})")
     if not launches.get("batched_project_quantize"):
         fail("async on the card: the fused int8 kernels never ran")
+
+
+# the checkpoint phase: full-width round trips of a mid-run save (after
+# step CKPT_STEP, so optimizer count CKPT_STEP + 1) in five configurations,
+# each followed by step CKPT_STEP + 1 from the live and the restored state
+CKPT_STEP = 5
+CKPT_RUNS = {"sketchy fp32": [], "sketchy int8": INT8_ARGV,
+             "sketchy async int8": ASYNC_INT8_ARGV,
+             "sketchy rho_greedy": BUDGET_ARGV, "shampoo fp32": SHAMPOO_ARGV}
+CKPT_ROOT = os.path.join(ROOT, "build", "checkpoints")
+
+
+def _fresh_dir(name: str) -> str:
+    d = os.path.join(CKPT_ROOT, name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return d
+
+
+def _leaf_bytes(value) -> int:
+    """A leaf's bytes: a tensor's storage, a Python int as the int32 it is
+    written as, a bool as one byte."""
+    if isinstance(value, torch.Tensor):
+        return value.numel() * value.element_size()
+    return 1 if isinstance(value, bool) else 4
+
+
+def _disk(path: str) -> tuple[int, int, int]:
+    """(data bytes of the leaf files, bytes of every file, leaf count) of
+    one checkpoint step."""
+    with open(os.path.join(path, "manifest.json")) as f:
+        recs = json.load(f)["leaves"]
+    data = sum(np.load(os.path.join(path, r["file"]), mmap_mode="r").nbytes
+               for r in recs)
+    files = sum(os.path.getsize(os.path.join(path, f))
+                for f in os.listdir(path))
+    return data, files, len(recs)
+
+
+def _copy_state(state):
+    """A copy of a state with tensors of its own, the pending slot reset
+    as a restore rebuilds it (zeros, ``valid=False``)."""
+    def one(leaf):
+        if leaf.transient:
+            return torch.zeros_like(leaf.value) \
+                if isinstance(leaf.value, torch.Tensor) \
+                else type(leaf.value)(0)
+        if isinstance(leaf.value, torch.Tensor):
+            return leaf.value.detach().clone()
+        return leaf.value
+    return ckpt_lib.map_leaves(one, state)
+
+
+def _state_diff(a, b) -> tuple[bool, float]:
+    """(bit for bit equal, largest absolute difference) of two states of
+    one structure, transient leaves included."""
+    la, lb = ckpt_lib.leaves(a), ckpt_lib.leaves(b)
+    if [x.name for x in la] != [x.name for x in lb]:
+        fail("checkpoint: states of different structure compared")
+    same, worst = True, 0.0
+    for x, y in zip(la, lb):
+        if not isinstance(x.value, torch.Tensor):
+            same &= x.value == y.value
+            continue
+        if x.value.dtype != y.value.dtype or x.value.shape != y.value.shape:
+            fail(f"checkpoint: {x.name} changed dtype or shape")
+        if not torch.equal(x.value, y.value):
+            same = False
+            worst = max(worst, float((x.value.double()
+                                      - y.value.double()).abs().max()))
+    return same, worst
+
+
+def _step_from(run, state, step: int):
+    """Train step ``step`` of ``run`` from ``state`` (consumed: the
+    parameters are updated in place); the state after it."""
+    run.params, run.opt_state = state
+    run.step(step)
+    torch.cuda.synchronize()
+    return run.params, run.opt_state
+
+
+def _round_trip(label: str, extra: list) -> None:
+    """One configuration's full-width round trip: train steps 0..CKPT_STEP,
+    save, restore into a fresh ``start()`` template, and compare every leaf
+    bit for bit (the pending slot rebuilt empty); the disk bytes against
+    the state's bytes less the pending slot's; then step CKPT_STEP + 1 from
+    the restored state against the same step from the live state, after a
+    witness of that step run twice from the live state."""
+    args = train_lib.parse_args(MAIN_PATH_ARGV + extra)
+    run = train_lib.start(args)
+    for i in range(CKPT_STEP + 1):
+        run.step(i)
+    torch.cuda.synchronize()
+    live = (run.params, run.opt_state)
+    d = _fresh_dir("round_trip")
+    t0 = time.perf_counter()
+    path = ckpt_lib.save(d, CKPT_STEP, live)
+    save_s = time.perf_counter() - t0
+    data, files, n = _disk(path)
+    fresh = train_lib.start(args)
+    template = (fresh.params, fresh.opt_state)
+    del fresh
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored, step, _ = ckpt_lib.restore(d, template)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del template
+    if step != CKPT_STEP:
+        fail(f"checkpoint ({label}): restored step {step}")
+    kept = [leaf for leaf in ckpt_lib.leaves(live) if not leaf.transient]
+    total = sum(_leaf_bytes(leaf.value) for leaf in ckpt_lib.leaves(live))
+    pending = total - sum(_leaf_bytes(leaf.value) for leaf in kept)
+    same, worst = _state_diff(restored, _copy_state(live))
+    if not same:
+        fail(f"checkpoint ({label}): the restored state differs from the "
+             f"saved one (largest difference {worst:g})")
+    if n != len(kept) or data != total - pending:
+        fail(f"checkpoint ({label}): {n} leaves and {data} B on disk, the "
+             f"state holds {len(kept)} leaves and {total} B, of which "
+             f"{pending} B pending")
+    counts = [leaf.value for leaf in ckpt_lib.leaves(restored)
+              if leaf.name.endswith(".count")]
+    if counts != [CKPT_STEP + 1] * 2 or \
+            not all(type(c) is int for c in counts):
+        fail(f"checkpoint ({label}): restored counts {counts}")
+    print(f"checkpoint ({label}): step {CKPT_STEP} of full-width "
+          f"paper-lm-100m: {n} leaves, {data} B of leaf data on disk "
+          f"({files} B in files) = the state's {total} B less {pending} B "
+          f"of pending slot; save {save_s:.3f} s, restore {restore_s:.3f} "
+          f"s; every leaf restored bit for bit with its dtype and shape "
+          f"(counts {counts}, Python ints)")
+
+    a = _step_from(run, _copy_state(live), CKPT_STEP + 1)
+    b = _step_from(run, _copy_state(live), CKPT_STEP + 1)
+    del live
+    witness_same, witness = _state_diff(a, b)
+    del b
+    r = _step_from(run, restored, CKPT_STEP + 1)
+    cont_same, cont = _state_diff(r, a)
+    text = {True: "bit for bit", False: "largest difference {:g}"}
+    print(f"checkpoint ({label}): step {CKPT_STEP + 1} from the restored "
+          f"state against the live one: {text[cont_same].format(cont)}; "
+          f"the same step twice from the live state (witness): "
+          f"{text[witness_same].format(witness)}")
+    if not (cont_same or (not witness_same and cont <= witness)):
+        fail(f"checkpoint ({label}): the continuation differs by {cont:g}, "
+             f"the witness by {witness:g}")
+    shutil.rmtree(d)
+
+
+def phase_checkpoint(dev, smi: str) -> None:
+    """Checkpoint and resume at full width (train/checkpoint.py and the
+    launcher's flags): the round trips of CKPT_RUNS; then the launcher
+    itself, ``python -m repro_torch.launch.train`` with MAIN_PATH_ARGV,
+    a checkpoint every 5 steps, which must leave step-5, step-10 and
+    step-12 and no tmp-; then a resume from a copy of step-5 alone, which
+    runs batches 5-11 (batch 5 a second time, as the reference resumes)
+    with the launch counts of those 7 steps at optimizer counts 6-12 (one
+    refresh, at count 10); then a reduced resumed run on the card against
+    the CPU (phase_reference)."""
+    for label, extra in CKPT_RUNS.items():
+        _round_trip(label, extra)
+        torch.cuda.empty_cache()
+
+    d = _fresh_dir("launcher")
+    argv = MAIN_PATH_ARGV + ["--checkpoint-dir", d, "--checkpoint-every", "5"]
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *argv],
+        capture_output=True, text=True, timeout=600, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    if out.returncode != 0:
+        fail(f"checkpoint: the launcher failed:\n{out.stdout}{out.stderr}")
+    listing = sorted(os.listdir(d))
+    print(f"checkpoint: python -m repro_torch.launch.train {' '.join(argv)}"
+          f" ran in {time.perf_counter() - t0:.1f} s and left {listing}")
+    if listing != ["step-10", "step-12", "step-5"]:
+        fail(f"checkpoint: the launcher left {listing}")
+    resume = _fresh_dir("resume")
+    shutil.copytree(os.path.join(d, "step-5"), os.path.join(resume, "step-5"))
+    shutil.rmtree(d)
+    with open(os.path.join(resume, "step-5", "manifest.json")) as f:
+        rec = next(r for r in json.load(f)["leaves"]
+                   if r["name"] == "1::.inner::precond::.count")
+    count = int(np.load(os.path.join(resume, "step-5", rec["file"])))
+    steps = 12 - 5
+    refreshes = sum(1 for c in range(count, count + steps) if c % 10 == 0)
+    expected = dict(dict.fromkeys(COUNTERS, 0), batched_gram=8 * refreshes,
+                    batched_lowrank_apply=8 * steps,
+                    flash_attention=TRAIN_FLASH_PER_STEP * steps)
+    buf = io.StringIO()
+    _zero_counts()
+    with contextlib.redirect_stdout(buf):
+        log = train_lib.main(MAIN_PATH_ARGV + [
+            "--checkpoint-dir", resume, "--checkpoint-every", "5",
+            "--resume"])
+    launches = _counts()
+    printed = buf.getvalue()
+    print(printed, end="")
+    losses = [r["loss"] for r in log]
+    print(f"checkpoint: resumed from step-5 (optimizer count {count}): "
+          f"batches {[r['step'] for r in log]}, losses {losses}, launches "
+          f"{launches}")
+    if "resumed from step 5" not in printed:
+        fail("checkpoint: the resumed launcher did not print 'resumed from "
+             "step 5'")
+    if count != 6 or [r["step"] for r in log] != list(range(5, 12)):
+        fail(f"checkpoint: resumed at count {count} over batches "
+             f"{[r['step'] for r in log]}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"checkpoint: non-finite resumed loss: {losses}")
+    if launches != expected:
+        fail(f"checkpoint: resumed launches {launches}, expected {expected}")
+    if sorted(os.listdir(resume)) != ["step-10", "step-12", "step-5"]:
+        fail(f"checkpoint: the resumed launcher left "
+             f"{sorted(os.listdir(resume))}")
+    shutil.rmtree(resume)
+
+    # a reduced checkpoint from the CPU, resumed on the card and the CPU
+    reduced = _fresh_dir("reduced")
+    train_lib.train(train_lib.parse_args(REFERENCE_ARGV + [
+        "--second-moment-dtype", "fp32", "--device", "cpu",
+        "--checkpoint-dir", reduced, "--checkpoint-every", "2"]))
+    shutil.rmtree(os.path.join(reduced, "step-4"))
+    phase_reference(dev, "fp32", resume_from=reduced)
+    shutil.rmtree(CKPT_ROOT)
+    print(f"checkpoint phase on: {smi}")
 
 
 # the engine's spans (EngineConfig.profile_annotations)
@@ -1669,6 +1935,7 @@ def main() -> int:
     phase_reference(dev, "fp32", "shampoo",
                     SHAMPOO_STAGGERED_ASYNC_ARGV[len(SHAMPOO_ARGV):])
     phase_async_equality(dev)
+    phase_checkpoint(dev, smi)
     phase_convex(dev)
     served, _ = phase_serve(dev, SERVE_ARGV)
     adapted, _ = phase_serve(dev, ADAPT_ARGV)

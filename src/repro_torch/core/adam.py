@@ -32,6 +32,7 @@ class AdamLeafStats(NamedTuple):
     nu: torch.Tensor    # diagonal second moment
 
     second_moments = ("nu",)     # core/quantize.py; mu is momentum
+    roles = {"mu": "momentum"}   # train/checkpoint.py
 
 
 def adam(cfg: AdamConfig = AdamConfig()) -> GradientTransformation:

@@ -43,7 +43,10 @@ accumulators (or Adam's moments) and grafting norms.  The JAX
 ``Tagged``/``StateMeta`` roles become the stats NamedTuples'
 ``second_moments`` declarations (core/quantize.py): ``second_moment_bytes``
 reads the second-moment leaves of the pools and of the per-leaf stats; the
-pending slot, transient in the reference, is not among them.
+pending slot, transient in the reference, is not among them.  The other
+roles a checkpoint records (count, grafting, momentum, ...) are declared
+beside them in ``roles``, and the pending slot in ``transient``
+(train/checkpoint.py).
 """
 from __future__ import annotations
 
@@ -133,6 +136,9 @@ class LeafState(NamedTuple):
     stats: Any
     graft: Optional[torch.Tensor]
 
+    # checkpoint roles (train/checkpoint.py), as the reference's StateMeta
+    roles = {"stats": "second_moment", "graft": "grafting"}
+
 
 class PendingSlot(NamedTuple):
     """One group's refresh in flight (``refresh_mode="async"``): the stats
@@ -149,6 +155,11 @@ class PrecondState(NamedTuple):
                         # in its storage layout (core/quantize.py)
     leaves: tuple       # LeafState per flat param leaf
     pending: Optional[dict] = None   # group key -> PendingSlot under async
+
+    # checkpoint roles (train/checkpoint.py); the pending slot is derived
+    # state, never written and rebuilt empty on restore
+    roles = {"count": "count", "pools": "second_moment"}
+    transient = ("pending",)
 
 
 def committed_pools(state: PrecondState) -> dict:
@@ -524,6 +535,8 @@ class InjectState(NamedTuple):
     count: int
     hyperparams: dict    # name -> f32 scalar tensor
     inner: Any
+
+    roles = {"count": "count", "hyperparams": "hyperparam"}
 
 
 def inject_hyperparams(inner_factory: Callable[..., GradientTransformation]):

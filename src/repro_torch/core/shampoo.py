@@ -53,7 +53,9 @@ class ShampooBlockStats(NamedTuple):
     PR: torch.Tensor     # cached R^-1/4
 
     # core/quantize.py; the roots are the reference's role "preconditioner"
+    # (train/checkpoint.py)
     second_moments = ("L", "R")
+    roles = {"PL": "preconditioner", "PR": "preconditioner"}
 
 
 def _inv_root(m: torch.Tensor, eps: float, power: float) -> torch.Tensor:

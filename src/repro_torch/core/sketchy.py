@@ -105,6 +105,7 @@ class BudgetedSketchStats(NamedTuple):
     k: torch.Tensor
 
     second_moments = ("left", "right")     # core/quantize.py
+    roles = {"k": "count"}                 # train/checkpoint.py
 
 
 def _sketch_pressure(fd: FDState) -> torch.Tensor:

@@ -76,6 +76,8 @@ def scale(factor) -> GradientTransformation:
 class TraceState(NamedTuple):
     momentum: list
 
+    roles = {"momentum": "momentum"}     # train/checkpoint.py
+
 
 def momentum(beta1: float) -> GradientTransformation:
     """EMA momentum in the parameter dtype (the paper's

@@ -8,10 +8,20 @@ Shampoo and Adam).
     python -m repro_torch.launch.train --refresh-schedule staggered \
         --refresh-mode async \
         --rank-budget total=7104,min_k=8,max_k=64,policy=rho_greedy
+    python -m repro_torch.launch.train --checkpoint-dir ck --resume
 
 Runs on ``--device cuda`` unless told otherwise, and raises if the machine
-has no card.  The reference's flags for features not ported yet
-(checkpointing, sharded statistics, gradient compression) are absent.
+has no card.  The reference's flags for features not ported yet (sharded
+statistics, gradient compression) are absent.
+
+Checkpoints follow the reference's loop (repro/launch/train.py :135-177):
+an ``AsyncCheckpointer`` saves ``(params, opt_state)`` as ``step-s`` after
+step s ran, every ``--checkpoint-every`` steps (not at step 0), and as
+``step-<steps>`` at the end.  ``--resume`` restores the latest and the loop
+starts at its label s, so batch s is applied a second time, at optimizer
+count s + 1: a resumed run takes one step more than an uninterrupted one.
+That is the reference's behavior (ROADMAP.md queue 3), kept so that both
+packages resume alike.  A ``StragglerMonitor`` times each step.
 """
 from __future__ import annotations
 
@@ -19,7 +29,6 @@ import argparse
 import dataclasses
 import json
 import os
-import time
 from typing import Any, Callable, Optional
 
 import torch
@@ -33,6 +42,8 @@ from repro_torch.core.sketchy import RankBudget
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.launch.flags import parse_kv_spec
 from repro_torch.models import model as model_lib
+from repro_torch.train import checkpoint as ckpt_lib
+from repro_torch.train.elastic import StragglerMonitor
 from repro_torch.train.trainer import make_train_step
 
 
@@ -83,6 +94,12 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
                    help="torch.profiler ranges around the engine's "
                         "update_stats / refresh / precondition / commit "
                         "phases")
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=50)
+    p.add_argument("--resume", action="store_true",
+                   help="restore the latest checkpoint under "
+                        "--checkpoint-dir, if there is one, and go on from "
+                        "its step")
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--metrics-out", default=None)
     p.add_argument("--seed", type=int, default=0)
@@ -150,30 +167,47 @@ def start(args: argparse.Namespace, params: Optional[dict] = None) -> Run:
 
 def train(args: argparse.Namespace, params: Optional[dict] = None
           ) -> tuple[Run, list]:
-    """Run ``args.steps`` training steps; returns the run (final parameters
-    and optimizer state) and one metrics record per step: step, loss,
-    grad_norm, time_s (host clock around the step, after the device
-    finished it)."""
+    """Run training steps up to ``args.steps`` (from a checkpoint's step
+    with ``--resume``); returns the run (final parameters and optimizer
+    state) and one metrics record per step run: step, loss, grad_norm,
+    time_s (host clock around the step, after the device finished it)."""
     run = start(args, params)
+    start_step, ckpt = 0, None
+    if args.checkpoint_dir:
+        ckpt = ckpt_lib.AsyncCheckpointer(args.checkpoint_dir)
+        if args.resume \
+                and ckpt_lib.latest_step(args.checkpoint_dir) is not None:
+            (run.params, run.opt_state), start_step, _ = ckpt_lib.restore(
+                args.checkpoint_dir, (run.params, run.opt_state))
+            print(f"resumed from step {start_step}")
     n_params = sum(p.numel() for p in tree.flatten(run.params))
     print(f"arch={run.cfg.name} params={n_params / 1e6:.1f}M "
           f"optimizer={args.optimizer} device={run.device} "
           f"second_moment={args.second_moment_dtype} "
           f"({api.second_moment_bytes(run.opt_state)} bytes)")
+    monitor = StragglerMonitor()
     log = []
-    for step in range(args.steps):
-        t0 = time.perf_counter()
+    for step in range(start_step, args.steps):
+        monitor.start()
         metrics = run.step(step)
         loss = float(metrics["loss"])
         if run.device.type == "cuda":
             torch.cuda.synchronize(run.device)
-        dt = time.perf_counter() - t0
+        dt = monitor.stop()
         record = {"step": step, "loss": loss,
                   "grad_norm": float(metrics["grad_norm"]), "time_s": dt}
         log.append(record)
         if step % args.log_every == 0 or step == args.steps - 1:
             print(f"step {step:5d} loss {loss:.4f} "
                   f"gnorm {record['grad_norm']:.3f} {dt * 1e3:.0f}ms")
+        if ckpt and step and step % args.checkpoint_every == 0:
+            ckpt.save(step, (run.params, run.opt_state))
+    if ckpt:
+        ckpt.save(args.steps, (run.params, run.opt_state))
+        ckpt.wait()
+    if monitor.flagged:
+        print(f"straggler steps flagged: {monitor.flagged} "
+              f"(median {monitor.median * 1e3:.0f}ms)")
     if args.metrics_out:
         os.makedirs(os.path.dirname(args.metrics_out) or ".", exist_ok=True)
         with open(args.metrics_out, "w") as f:

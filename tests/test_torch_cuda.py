@@ -51,6 +51,10 @@ covariances ``U diag(s) U^T``, never raw U, within 1e-4 of their largest
 magnitude, two int8 steps under int8; the columns past a block's rank and
 the blocks not due untouched), and the async engine's committed state
 against the inline engine's after each of 6 steps, bit for bit.
+
+Checkpoints: the reduced model's fp32 and int8 states saved and restored
+on the card bit for bit, and the next step from the restored state bit for
+bit the live state's (or within the difference of that step run twice).
 """
 import numpy as np
 import pytest
@@ -874,3 +878,69 @@ def test_async_step_shifted_on_card(card, schedule, storage):
             for a, b in zip(quantize.second_moment_tensors(committed[key]),
                             quantize.second_moment_tensors(live)):
                 assert torch.equal(a, b), (t, key)
+
+
+def _state_bits(a, b) -> tuple:
+    """(bit for bit equal, largest absolute difference) of two states."""
+    from repro_torch.train import checkpoint as ckpt
+    la, lb = ckpt.leaves(a), ckpt.leaves(b)
+    assert [x.name for x in la] == [x.name for x in lb]
+    same, worst = True, 0.0
+    for x, y in zip(la, lb):
+        if not isinstance(x.value, torch.Tensor):
+            same &= x.value == y.value
+        elif not torch.equal(x.value, y.value):
+            same = False
+            worst = max(worst, float((x.value.double()
+                                      - y.value.double()).abs().max()))
+    return same, worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["fp32", "int8"])
+def test_checkpoint_round_trip_and_continuation_on_card(card, tmp_path,
+                                                        storage):
+    """The reduced model trained 3 steps on the card, saved and restored
+    into a fresh template: every leaf comes back bit for bit, on the card;
+    step 3 from the restored state equals step 3 from the live one bit for
+    bit, or within the difference of the same step run twice from the live
+    state (a witness of what the card repeats)."""
+    from repro_torch.launch import train as train_lib
+    from repro_torch.train import checkpoint as ckpt
+    args = train_lib.parse_args([
+        "--reduced", "--steps", "6", "--seq", "16", "--batch", "4",
+        "--rank", "4", "--block-size", "32", "--update-every", "2",
+        "--second-moment-dtype", storage])
+    run = train_lib.start(args)
+    for i in range(3):
+        run.step(i)
+    live = (run.params, run.opt_state)
+    ckpt.save(str(tmp_path), 2, live)
+    fresh = train_lib.start(args)
+    restored, step, _ = ckpt.restore(str(tmp_path),
+                                     (fresh.params, fresh.opt_state))
+    assert step == 2
+    assert _state_bits(restored, live) == (True, 0.0)
+    # on the template's devices: the card, but the chain's hyperparameters
+    # (host scalars, as the engine makes them)
+    devices = [(leaf.value.device, want.value.device) for leaf, want in
+               zip(ckpt.leaves(restored), ckpt.leaves(live))
+               if isinstance(leaf.value, torch.Tensor)]
+    assert all(got == want for got, want in devices)
+    assert sum(got.type == "cuda" for got, _ in devices) > 40
+
+    def copy(state):
+        return ckpt.map_leaves(
+            lambda leaf: leaf.value.detach().clone()
+            if isinstance(leaf.value, torch.Tensor) else leaf.value, state)
+
+    def step_from(state):
+        run.params, run.opt_state = state
+        run.step(3)
+        torch.cuda.synchronize()
+        return run.params, run.opt_state
+
+    a, b = step_from(copy(live)), step_from(copy(live))
+    witness_same, witness = _state_bits(a, b)
+    same, diff = _state_bits(step_from(restored), a)
+    assert same or (not witness_same and diff <= witness), (diff, witness)

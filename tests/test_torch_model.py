@@ -89,3 +89,68 @@ def test_params_from_numpy_rejects_a_wrong_tree():
     bad = dict(good, final_norm=np.zeros(7, np.float32))
     with pytest.raises(ValueError, match="shape"):
         convert.params_from_numpy(cfg, bad)
+
+
+def test_bf16_python_float_sites_round_as_jax(monkeypatch):
+    """The model's sites where a Python float meets a bf16 tensor: the RMS
+    norm's eps and its ``1 + scale``, RoPE's theta and the causal
+    attention's ``hd ** -0.5`` compute in f32 in both packages (JAX's weak
+    type never rounds them to bf16), so a bf16 activation comes out with
+    the reference's bits.  The residuals add tensors, and the embedding
+    scale is a config the port refuses.
+
+    The attention scale is held at the logits, the softmax's input, in
+    training and in decode, at a head dim of 128: its ``hd ** -0.5``
+    rounded to bf16 would move every logit by 1.1e-4 of itself, and the
+    logits agree with the reference's to 2^-20 of the largest (f32 sums
+    taken in other orders)."""
+    from repro.models import attention as jattention
+    from repro.models import layers as jlayers
+    from repro_torch.models import attention as tattention
+    from repro_torch.models import layers as tlayers
+    rng = np.random.default_rng(4)
+
+    def both(*shape, scale=1.0):
+        x = (rng.normal(size=shape) * scale).astype(np.float32)
+        return (jnp.asarray(x, jnp.bfloat16),
+                torch.from_numpy(x).to(torch.bfloat16))
+
+    def bits(j, t):
+        np.testing.assert_array_equal(
+            np.asarray(jnp.asarray(j, jnp.float32)), t.float().numpy())
+
+    (xj, xt), (sj, st) = both(2, 16, 64, scale=3.0), both(64, scale=0.1)
+    bits(jlayers.rms_norm(xj, sj, 1e-6), tlayers.rms_norm(xt, st, 1e-6))
+    (qj, qt) = both(2, 16, 4, 32)
+    pos = np.tile(np.arange(16), (2, 1))
+    bits(jlayers.apply_rope(qj, jnp.asarray(pos), 10000.0),
+         tlayers.apply_rope(qt, torch.from_numpy(pos), 10000.0))
+    cfg_j = dataclasses.replace(jregistry.get_reduced("paper-lm-100m"),
+                                dtype="bfloat16")
+    cfg_t = dataclasses.replace(tregistry.get_reduced("paper-lm-100m"),
+                                dtype="bfloat16")
+    seen_j, seen_t = [], []
+    softmax_j, softmax_t = jax.nn.softmax, torch.softmax
+    monkeypatch.setattr(jax.nn, "softmax", lambda s, axis: (
+        seen_j.append(np.asarray(s)), softmax_j(s, axis=axis))[1])
+    monkeypatch.setattr(torch, "softmax", lambda s, dim: (
+        seen_t.append(s.numpy()), softmax_t(s, dim=dim))[1])
+    H, KV, hd = 4, 2, 128
+    (qj, qt), (kj, kt), (vj, vt) = (both(2, 16, H, hd), both(2, 16, KV, hd),
+                                    both(2, 16, KV, hd))
+    jattention.causal_attention(cfg_j, qj, kj, vj, unroll=True)
+    tattention.causal_attention(cfg_t, qt, kt, vt)
+    pos = np.array([5, 11])
+    jattention._attend_math(qj[:, :1].reshape(2, 1, KV, H // KV, hd), kj, vj,
+                            jnp.asarray(pos))
+    tattention._attend(qt[:, :1].reshape(2, 1, KV, H // KV, hd), kt, vt,
+                       torch.from_numpy(pos))
+    train_j = seen_j[0].reshape(2, H, 16, 16)      # (B, KV, G, q, k)
+    for want, got in ((train_j, seen_t[0]), (seen_j[1], seen_t[1])):
+        live = want > -1e29
+        tol = 2.0 ** -20 * np.abs(want[live]).max()
+        np.testing.assert_array_equal(got > -1e29, live)
+        np.testing.assert_allclose(got[live], want[live], rtol=0, atol=tol)
+        # a scale rounded to bf16 would not pass
+        off = float(jnp.asarray(hd ** -0.5, jnp.bfloat16)) / hd ** -0.5
+        assert np.abs(want[live] * off - want[live]).max() > 50 * tol
