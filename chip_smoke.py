@@ -20,7 +20,11 @@ no result line:
    same bits.  Flash attention (kernel 7) and the SSD chunk scan (kernel
    8) at the dense training, zamba2-7b feedback and S = 4096 shapes
    (FLASH_MAIN, SSD_MAIN; mamba2-370m's too for the scan) and the
-   reference's ragged sweeps, in f32 and bf16, at the reference's
+   reference's ragged sweeps, and at head dim 256 (gemma-2b's S 4096 and
+   128 and the phase 7d gradient's shape, FLASH_HD256) and, untimed, at
+   every other shape phases 7c and 7d give it (``flash_full_width``), in
+   f32 and bf16, at
+   the reference's
    tolerances and a relative error of the whole output (MODEL_RTOL), two
    runs giving the same bits; attention timed beside
    ``scaled_dot_product_attention`` (the scan has no single PyTorch call;
@@ -146,19 +150,43 @@ no result line:
    eigenvalue and decision per window) side by side.
 8b. serve reference of the reduced zamba2-7b and mamba2-370m, as phase 8,
    the adapted leaf their tied embed.
+7c. serve deepseek-moe-16b: MOE_SERVE_ARGV at full width (28 layers, the
+   first dense, then 64 routed experts top-6 and 2 shared; 16,375,728,128
+   bf16 parameters; the monitor and the adapter over the untied lm_head, d
+   = 209,715,200), counts as in phase 7 (28 flash launches per feedback
+   gradient, kernels 3, 4 and 7 each at least once); prints the (token,
+   expert) assignments dropped for capacity, and the peak allocated and
+   reserved beside the card's memory.
+7d. dense full width (DENSE_FULL): phi3-mini-3.8b (hd 96) and gemma-2b (hd
+   256, one KV head, tied embed) whole, qwen2.5-32b (qkv bias) and qwen3-32b
+   (qk norm) with 8 of their 64 layers (65.5 GB of weights and a gradient's
+   activations do not fit one card): the engine's one-shot demo (4 requests
+   x 8 new tokens), then feedback gradients with respect to the head leaf
+   at B 4, S 512: one to warm up and DENSE_FULL_CALLS timed with CUDA
+   events (median), with kernel 7's launches (gemma's 36 a gradient at hd
+   256: 18 layers, forward and remat recompute).
+8c. card against CPU of the reduced NEW_ARCHS (the four above,
+   deepseek-moe-16b and kimi-k2-1t-a32b, whose 1.03 T parameters fit no
+   card): logits, a
+   teacher-forced decode and one Sketchy step (rank 8, block 32, a refresh
+   at the step).
 
 The last two lines are ``{"kernels": [...]}`` and
-``{"ok": true, "device": {...}}``.  Kernel 1's row there is Sketchy's main
-path; its Shampoo counts and times are on the lines of phases 2 and 4.
+``{"ok": true, "device": {...}}``; kernel 7 has a second row there at head
+dim 256 (its launches phase 7d's gemma-2b gradients').  Kernel 1's row
+there is Sketchy's main path; its Shampoo counts and times are on the
+lines of phases 2 and 4.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -188,7 +216,9 @@ from repro_torch.kernels.ssd import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
 from repro_torch.launch import serve as serve_lib  # noqa: E402
 from repro_torch.launch import train as train_lib  # noqa: E402
+from repro_torch.models import cache as cache_lib  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.train import checkpoint as ckpt_lib  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at its 700 W
@@ -265,6 +295,34 @@ ADAPT_ARGV = ["--no-reduced", "--traffic", "shape=constant,rate=1.0,ticks=4",
 REDUCED_SERVE_ARGV = ["--traffic", "shape=step,rate=1.0,ticks=12,step_at=6",
                       "--monitor", "window=3,ell=8,top_k=3",
                       "--adapt", "lr=0.1,beta2=0.95"]
+# the moe family at full width: deepseek-moe-16b (28 layers, the first
+# dense, 64 routed experts top-6 and 2 shared, 16,375,728,128 bf16
+# parameters), the monitor and the adapter over its untied lm_head (2,048 x
+# 102,400; 71-76 GB at peak with the weights, PERF.md)
+MOE_SERVE_ARGV = ["--arch", "deepseek-moe-16b", "--no-reduced", "--traffic",
+                  "shape=step,rate=1.0,ticks=16,step_at=8",
+                  "--monitor", "window=4,ell=8", "--adapt",
+                  "lr=0.1,beta2=0.95"]
+# the dense configs with one feature each at full width: (arch, layers kept;
+# None keeps all): qwen2.5-32b's and qwen3-32b's 65.5 GB of weights and a
+# gradient's activations do not fit one card, so they keep 8 of 64 layers
+DENSE_FULL = [("phi3-mini-3.8b", None), ("gemma-2b", None),
+              ("qwen2.5-32b", 8), ("qwen3-32b", 8)]
+DENSE_FULL_BATCH, DENSE_FULL_SEQ = 4, 512
+# timed feedback gradients per dense full-width arch, after one warm-up
+DENSE_FULL_CALLS = 5
+# the flattened full-width lm_head of deepseek-moe-16b (2,048 x 102,400),
+# phase 7c's monitored and adapted leaf: kernels 3 and 4 at (MOE_D, 9) and
+# (MOE_D, 8, 1) in its run
+MOE_D = 2048 * 102400
+# the serving launcher's feedback batch (launch/serve.py): batch 4, seq 16
+SERVE_FEEDBACK_BATCH, SERVE_FEEDBACK_SEQ = 4, 16
+# the architectures of ROADMAP.md queue 1 items 13(a) and 13(b), reduced,
+# card against CPU (kimi-k2-1t-a32b's 1.03 T parameters fit no card)
+NEW_ARCHS = ["phi3-mini-3.8b", "qwen2.5-32b", "qwen3-32b", "gemma-2b",
+             "deepseek-moe-16b", "kimi-k2-1t-a32b"]
+NEW_ARCH_ARGV = ["--reduced", "--steps", "1", "--seq", "16", "--batch", "4",
+                 "--rank", "8", "--block-size", "32", "--update-every", "1"]
 # the hybrid family at full width: zamba2-7b's tied embed (32,000 x 3,584)
 # is the monitored and adapted leaf
 ZAMBA_SERVE_ARGV = ["--arch", "zamba2-7b", "--no-reduced", "--traffic",
@@ -479,10 +537,12 @@ def _same_bits(name: str, fn) -> torch.Tensor:
 def phase_single_kernels(dev, gen) -> dict:
     """Phase 2's rows of the single-block kernels of the serving path, at
     its shape (the flattened lm_head: d = SERVE_D, ell = 8, one gradient
-    column) and a few ragged ones, against the plain versions in float64."""
+    column, the timed row), at deepseek-moe-16b's (d = MOE_D, phase 7c)
+    and a few ragged ones, against the plain versions in float64."""
     out = {}
     rows, err = [], 0.0
-    for d, k in [(SERVE_D, SERVE_ELL + 1), (33, 9), (100, 30), (4097, 17)]:
+    for d, k in [(SERVE_D, SERVE_ELL + 1), (MOE_D, SERVE_ELL + 1), (33, 9),
+                 (100, 30), (4097, 17)]:
         a = torch.randn(d, k, generator=gen, device=dev)
         got = _same_bits(f"gram {(d, k)}", lambda: gram_kernel.gram(a))
         err = max(err, check(f"gram {(d, k)}", got,
@@ -503,8 +563,8 @@ def phase_single_kernels(dev, gen) -> dict:
         **_sums(rows))
 
     rows, err = [], 0.0
-    for d, ell, n in [(SERVE_D, SERVE_ELL, 1), (24, 6, 1), (123, 17, 5),
-                      (1000, 300, 3)]:
+    for d, ell, n in [(SERVE_D, SERVE_ELL, 1), (MOE_D, SERVE_ELL, 1),
+                      (24, 6, 1), (123, 17, 5), (1000, 300, 3)]:
         u = torch.randn(d, ell, generator=gen, device=dev)
         g = torch.randn(d, n, generator=gen, device=dev)
         c = torch.rand(ell, generator=gen, device=dev)
@@ -551,6 +611,28 @@ def phase_single_kernels(dev, gen) -> dict:
 # JSON row) and a long sequence; then tests/test_kernels.py:196-201's sweep
 FLASH_MAIN = [(8, 12, 12, 128, 64, True), (4, 32, 32, 16, 112, True),
               (1, 32, 32, 4096, 112, True)]
+# kernel 7 at gemma-2b's head dim 256 (MQA): S 4096 (its JSON row), S 128,
+# and the full-width dense phase's feedback gradient
+FLASH_HD256 = [(1, 8, 1, 4096, 256, True), (1, 8, 1, 128, 256, True),
+               (DENSE_FULL_BATCH, 8, 1, DENSE_FULL_SEQ, 256, True)]
+
+
+def flash_full_width() -> list:
+    """Kernel 7's shapes in phases 7c and 7d, read from the configs:
+    deepseek-moe-16b's feedback gradient (the serving launcher's feedback
+    batch) and each DENSE_FULL arch's gradient at DENSE_FULL_BATCH x
+    DENSE_FULL_SEQ (gemma-2b's is FLASH_HD256's last)."""
+    runs = [("deepseek-moe-16b", SERVE_FEEDBACK_BATCH, SERVE_FEEDBACK_SEQ)]
+    runs += [(arch, DENSE_FULL_BATCH, DENSE_FULL_SEQ)
+             for arch, _ in DENSE_FULL]
+    shapes = []
+    for arch, B, S in runs:
+        cfg = registry.get_config(arch)
+        shapes.append((B, cfg.num_heads, cfg.num_kv_heads, S, cfg.head_dim,
+                       True))
+    return shapes
+
+
 FLASH_SWEEP = [(1, 2, 2, 64, 16, True), (2, 4, 2, 96, 32, True),
                (1, 8, 1, 128, 64, True), (2, 2, 2, 80, 16, False)]
 # kernel 8 (B, S, H, P, N, chunk): zamba2-7b's feedback gradient (the JSON
@@ -606,11 +688,17 @@ def phase_model_kernels(dev, gen) -> dict:
     over 3.35 TB/s, or the operations at the rate of the unit the kernel
     multiplies in (bf16 on the tensor cores, 989 TFLOP/s, for both; the
     scan's f32 bound beside it), whichever is larger; the JSON row is the
-    serving main path's shape, one call.  The launch-bound shapes also
-    print their device time alone (a CUDA graph of 50 calls)."""
+    serving main path's shape, one call, and attention at head dim 256 has
+    a row of its own (FLASH_HD256, its S 4096 shape).  Every shape that
+    phases 7c and 7d give kernel 7 (``flash_full_width``) is checked too,
+    untimed.  The launch-bound
+    shapes also print their device time alone (a CUDA graph of 50
+    calls)."""
     out = {}
-    rows, err = [], 0.0
-    cases = [(c, torch.bfloat16) for c in FLASH_MAIN] + \
+    rows, rows_hd256, err, err_hd256 = [], [], 0.0, 0.0
+    full_width = [c for c in flash_full_width() if c not in FLASH_HD256]
+    cases = [(c, torch.bfloat16) for c in FLASH_MAIN + FLASH_HD256
+             + full_width] + \
         [(c, dt) for c in FLASH_SWEEP for dt in (torch.float32,
                                                   torch.bfloat16)]
     for (B, Hq, Hkv, S, hd, causal), dt in cases:
@@ -621,18 +709,24 @@ def phase_model_kernels(dev, gen) -> dict:
             q, k, v, causal=causal))
         want = flash_ref.attention_ref(q.float(), k.float(), v.float(),
                                        causal=causal)
-        err = max(err, _agree(label, got, want, FLASH_ATOL[dt]))
+        diff = _agree(label, got, want, FLASH_ATOL[dt])
         del want
-        if (B, Hq, Hkv, S, hd, causal) not in FLASH_MAIN:
+        main = (B, Hq, Hkv, S, hd, causal)
+        if main in FLASH_HD256:
+            err_hd256 = max(err_hd256, diff)
+        else:
+            err = max(err, diff)
+        if main not in FLASH_MAIN + FLASH_HD256:
             continue
         # 200 launches at the launch-bound main-path shapes (over 20 their
         # times moved up to 2x between runs), kernel and sdpa in turns,
         # each the lower of its two runs
         reps = 10 if S > 1024 else 200
+        gqa = Hq != Hkv
         ms, lib = _in_turns(
             lambda: flash_kernel.flash_attention(q, k, v, causal=causal),
             lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=causal), reps)
+                q, k, v, is_causal=causal, enable_gqa=gqa), reps)
         plain = cuda_ms(lambda: flash_ref.attention_ref(q, k, v,
                                                         causal=causal), reps)
         if S <= 1024:   # launch-bound: the device's share, without the host
@@ -640,15 +734,16 @@ def phase_model_kernels(dev, gen) -> dict:
                 q, k, v, causal=causal))
             dev_lib = graph_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, is_causal=causal))
-            print(f"flash_attention B={B} H={Hq} S={S} device time per "
-                  f"call (CUDA graph of 50): kernel {dev_kernel * 1e3:.2f} "
-                  f"us, sdpa {dev_lib * 1e3:.2f} us")
+                    q, k, v, is_causal=causal, enable_gqa=gqa))
+            print(f"flash_attention B={B} H={Hq} S={S} hd={hd} device time "
+                  f"per call (CUDA graph of 50): kernel "
+                  f"{dev_kernel * 1e3:.2f} us, sdpa {dev_lib * 1e3:.2f} us")
         pairs = S * (S + 1) // 2 if causal else S * S
         t_bytes, t_ops = bound_ms(2 * (2 * B * Hq * S * hd
                                        + 2 * B * Hkv * S * hd),
                                   4 * B * Hq * pairs * hd, BF16_FLOPS_PER_S)
-        rows.append(((B, Hq, S, hd), ms, plain, lib, t_bytes, t_ops))
+        (rows_hd256 if main in FLASH_HD256 else rows).append(
+            ((B, Hq, S, hd), ms, plain, lib, t_bytes, t_ops))
         flops = 4 * B * Hq * pairs * hd
         print(f"flash_attention B={B} H={Hq} S={S} hd={hd} bf16: {ms:.4f} "
               f"ms ({_rate(flops, ms)}, {max(t_bytes, t_ops) / ms:.1%} of "
@@ -661,6 +756,11 @@ def phase_model_kernels(dev, gen) -> dict:
         source="src/repro_torch/csrc/flash.cu",
         replaces="src/repro/kernels/flash/kernel.py:80",
         max_abs_err=err, **_row(rows[1]))
+    out["flash_attention_hd256"] = dict(
+        name="flash_attention_hd256", route="cuda",
+        source="src/repro_torch/csrc/flash.cu",
+        replaces="src/repro/kernels/flash/kernel.py:80",
+        max_abs_err=err_hd256, **_row(rows_hd256[0]))
 
     rows, err = [], 0.0
     cases = [(c, torch.bfloat16) for c in SSD_MAIN] + \
@@ -1112,14 +1212,15 @@ COUNTERS = {   # launch counter -> (wrapper module, attribute)
 
 def per_gradient(cfg) -> dict:
     """Launches of kernels 7 and 8 in one serving feedback gradient of
-    ``cfg``: one per attention (each dense layer, or each site of the
-    hybrid family's shared block) and one per mamba layer in the forward,
+    ``cfg``: one per attention (each dense or moe layer, or each site of
+    the hybrid family's shared block) and one per mamba layer in the
+    forward,
     and as many again in the backward's recompute when ``cfg.remat`` is on
     and the gradient flows back through the layers, which it does when the
     adapted leaf is the tied embedding (an untied head's gradient stops at
     the head)."""
     passes = 2 if cfg.remat and cfg.tie_embeddings else 1
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return dict(flash_attention=cfg.num_layers * passes, ssd_scan=0)
     return dict(flash_attention=len(cfg.shared_attn_layers()) * passes,
                 ssd_scan=cfg.num_layers * passes)
@@ -1857,6 +1958,174 @@ def phase_serve_reference(dev, arch: str = "paper-lm-100m") -> None:
              f"disagree")
 
 
+def phase_moe_serve(dev) -> dict:
+    """Phase 7c: MOE_SERVE_ARGV at full width through ``phase_serve``
+    (deepseek-moe-16b: 28 flash attentions per feedback gradient, the
+    untied head's gradient stopping at the head; the single-block Gram once
+    an observation or adaptation step, the apply once an adaptation step;
+    kernels 3, 4 and 7 each at least once), then the (token, expert)
+    assignments that the moe layers dropped for capacity over the run's
+    calls (decode: 4 lanes, capacity int(1.25 * 4 * 6 / 64) + 1 = 1; the
+    feedback gradients' 64 tokens, capacity 8; counted around
+    ``moe._slot_tables``), and the peak allocated and reserved beside the
+    card's memory.  Returns the launch counts."""
+    drops, slot_tables = [], moe_lib._slot_tables
+
+    def counted(E, k, capacity, gate_w, gate_idx, T):
+        out = slot_tables(E, k, capacity, gate_w, gate_idx, T)
+        drops.append(T * k - (out[0] < T).sum())
+        return out
+
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    with mock.patch.object(moe_lib, "_slot_tables", counted):
+        launches, report = phase_serve(dev, MOE_SERVE_ARGV)
+    peak = torch.cuda.max_memory_allocated(dev)
+    reserved = torch.cuda.max_memory_reserved(dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    print(f"serve (deepseek-moe-16b): peak allocated {peak} B, peak "
+          f"reserved {reserved} B, of the card's {total} B: headroom "
+          f"{total - reserved} B beyond the peak reserved")
+    dropped = int(sum(drops))
+    for name in ("gram", "lowrank_apply", "flash_attention"):
+        if launches[name] == 0:
+            fail(f"serve (deepseek-moe-16b): {name} was never launched")
+    print(f"serve (deepseek-moe-16b): {held} bytes allocated before the "
+          f"phase (in its peak); {dropped} (token, expert) "
+          f"assignments dropped for capacity over the run's moe calls; "
+          f"kernel 3 (gram) {launches['gram']}, kernel 4 (lowrank_apply) "
+          f"{launches['lowrank_apply']}, kernel 7 (flash_attention) "
+          f"{launches['flash_attention']} launches")
+    del report
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_dense_full(dev, arch: str, layers) -> dict:
+    """Phase 7d: ``arch`` at full width (``layers`` of its layers when not
+    None, the rest cut), bf16, seeded weights: the serving engine's
+    one-shot demo (4 requests of 8-token prompts, 8 new tokens each, as
+    ``launch.serve`` without traffic), then one feedback gradient of the
+    loss with respect to the head leaf (``lm_head``, or the tied ``embed``)
+    at B 4, S 512, after one call that warms up, DENSE_FULL_CALLS calls
+    timed with CUDA events (median, min, max), with the flash kernel's
+    launches counted over them (``per_gradient`` each) and no other kernel.
+    Every token, logit and gradient value must be finite and the loss
+    near log(V) (random weights).  Returns the launch counts."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.serve import Engine, Request, ServeConfig
+    cfg = registry.get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    label = f"{arch}" + (f", {layers} of its layers" if layers else "")
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model_lib.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    n_params = sum(p.numel() for p in tree.flatten(params))
+    engine = Engine(cfg, params, ServeConfig(batch=4, max_seq=64, seed=0))
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    handles = [engine.submit(Request(
+        prompt=rng.integers(0, cfg.vocab_size, size=(8,), dtype=np.int32),
+        max_new_tokens=8)) for _ in range(4)]
+    engine.drain()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    if not all(h.done and len(h.tokens) == 8 for h in handles):
+        fail(f"dense full width ({label}): not every request was served")
+    del engine
+    leaf = "lm_head" if "lm_head" in params else "embed"
+    batch = {k: torch.from_numpy(v).long().to(dev) for k, v in SyntheticLM(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=DENSE_FULL_SEQ,
+                   global_batch=DENSE_FULL_BATCH, seed=1)).batch(0).items()}
+    times = []
+    for i in range(1 + DENSE_FULL_CALLS):   # the first call warms up
+        if i == 1:
+            _zero_counts()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        head = params[leaf].detach().requires_grad_(True)
+        loss = model_lib.loss_fn(cfg, dict(params, **{leaf: head}), batch)
+        (g,) = torch.autograd.grad(loss, [head])
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    launches = _counts()
+    expected = dict(dict.fromkeys(COUNTERS, 0), **{
+        k: DENSE_FULL_CALLS * v for k, v in per_gradient(cfg).items()})
+    if launches != expected:
+        fail(f"dense full width ({label}): launches {launches}, expected "
+             f"{expected}")
+    loss = float(loss.detach())
+    if not (math.isfinite(loss) and bool(torch.isfinite(g).all())
+            and abs(loss - math.log(cfg.vocab_size)) < 3.0):
+        fail(f"dense full width ({label}): loss {loss}, gradient finite "
+             f"{bool(torch.isfinite(g).all())}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"dense full width ({label}; hd {cfg.head_dim}, {n_params} bf16 "
+          f"parameters): 4 requests x 8 tokens in {serve_s:.2f} s; feedback "
+          f"gradient through {leaf} at B {DENSE_FULL_BATCH}, S "
+          f"{DENSE_FULL_SEQ}: median {statistics.median(times[1:]):.1f} ms "
+          f"over {DENSE_FULL_CALLS} calls (CUDA events; min "
+          f"{min(times[1:]):.1f}, max {max(times[1:]):.1f}; first call "
+          f"{times[0]:.1f} ms), loss {loss:.4f}, flash_attention "
+          f"{launches['flash_attention']} launches in the {DENSE_FULL_CALLS} "
+          f"calls; peak memory allocated {peak} bytes")
+    del params, head, g
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_new_arch_reference(dev, arch: str) -> None:
+    """Phase 8c: the reduced ``arch`` (each of NEW_ARCHS) on the card
+    (kernels) and on the CPU (plain versions) from the same weights: the
+    forward's logits and a teacher-forced decode within 1e-4 (f32), the
+    card's decode within 1e-4 of its forward, and one Sketchy step through
+    ``launch.train`` (NEW_ARCH_ARGV: rank 8, block 32, a refresh at the
+    step): the same loss (relative 1e-4) and parameters (1e-3 relative,
+    1e-4 absolute).  The card's forward launches kernel 7 once a layer."""
+    cfg = registry.get_reduced(arch)
+    params = model_lib.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(2, 10)))
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        p = tree.unflatten(params, [x.to(device)
+                                    for x in tree.flatten(params)])
+        _zero_counts()
+        with torch.no_grad():
+            logits = model_lib.forward(cfg, p, {"tokens": toks.to(device)})
+        flash = _counts()["flash_attention"]
+        if device.type == "cuda" and flash != cfg.num_layers:
+            fail(f"new arch reference ({arch}): {flash} flash launches in "
+                 f"the forward, expected {cfg.num_layers}")
+        c = cache_lib.init_cache(cfg, 2, 16, device=device)
+        steps = [cache_lib.decode_step(cfg, p, c, {"token": toks[:, t:t + 1]
+                                                   .to(device)}, t)[0]
+                 for t in range(toks.shape[1])]
+        run, log = train_lib.train(train_lib.parse_args(
+            NEW_ARCH_ARGV + ["--arch", arch, "--device", str(device)]), p)
+        out[device.type] = (logits.cpu(), torch.cat(steps, 1).cpu(),
+                            log[0]["loss"], [x.detach().cpu() for x in
+                                             tree.flatten(run.params)])
+        del run
+    (lc, dc, loss_c, pc), (l0, d0, loss_0, p0) = out["cuda"], out["cpu"]
+    diffs = [float((a - b).abs().max()) for a, b in ((lc, l0), (dc, d0),
+                                                     (dc, lc))]
+    worst = max(float(((a - b).abs() - 1e-3 * b.abs()).max())
+                for a, b in zip(pc, p0))
+    print(f"new arch reference ({arch}): logits card - CPU {diffs[0]:.2e}, "
+          f"decode card - CPU {diffs[1]:.2e}, card decode - forward "
+          f"{diffs[2]:.2e}; Sketchy step loss {loss_c:.6f} / {loss_0:.6f}, "
+          f"parameters over 1e-3 relative by at most {worst:.2e}")
+    for (a, b), name in zip(((lc, l0), (dc, d0), (dc, lc)),
+                            ("logits", "decode", "card decode vs forward")):
+        if not torch.allclose(a, b, rtol=1e-4, atol=1e-4):
+            fail(f"new arch reference ({arch}): {name} disagree")
+    if abs(loss_c - loss_0) > 1e-4 * abs(loss_0) or worst > 1e-4:
+        fail(f"new arch reference ({arch}): the Sketchy step disagrees")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1937,8 +2206,8 @@ def main() -> int:
     phase_async_equality(dev)
     phase_checkpoint(dev, smi)
     phase_convex(dev)
-    served, _ = phase_serve(dev, SERVE_ARGV)
-    adapted, _ = phase_serve(dev, ADAPT_ARGV)
+    served = phase_serve(dev, SERVE_ARGV)[0]
+    adapted = phase_serve(dev, ADAPT_ARGV)[0]
     if served["gram"] == 0:
         fail("serve: the monitored run launched no single-block Gram")
     if adapted["lowrank_apply"] == 0:
@@ -1957,13 +2226,23 @@ def main() -> int:
     phase_zamba_scan_witness(readings)
     phase_serve_reference(dev, "zamba2-7b")
     phase_serve_reference(dev, "mamba2-370m")
+    moe = phase_moe_serve(dev)
+    dense = {arch: phase_dense_full(dev, arch, layers)
+             for arch, layers in DENSE_FULL}
+    for arch in NEW_ARCHS:
+        phase_new_arch_reference(dev, arch)
 
+    hd256 = kernels.pop("flash_attention_hd256")
     for name in kernels:
         kernels[name]["launches"] = fp32[name] or int8[name]
     kernels["gram"]["launches"] = served["gram"]
     kernels["lowrank_apply"]["launches"] = adapted["lowrank_apply"]
     kernels["flash_attention"]["launches"] = zamba["flash_attention"]
     kernels["ssd_scan"]["launches"] = zamba["ssd_scan"]
+    kernels["flash_attention_hd256"] = dict(
+        hd256, launches=dense["gemma-2b"]["flash_attention"])
+    print(f"deepseek-moe-16b serving: flash_attention "
+          f"{moe['flash_attention']}, gram {moe['gram']} launches")
     print(smi)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

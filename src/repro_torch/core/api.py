@@ -459,6 +459,24 @@ def second_moment_bytes(state: Any) -> int:
     return 0
 
 
+def _find_sketches(s: Any, per: dict) -> None:
+    """Every pool group of ``s`` that holds FD sketches, into ``per`` as
+    key -> (active ranks or None, the sketches).  Recursion at module
+    level: a nested function that calls itself is a reference cycle, which
+    keeps the sketches until the cyclic collector runs."""
+    if isinstance(s, PrecondState):
+        for key, stats in s.pools.items():
+            sides = [x for x in stats if isinstance(x, FDState)] \
+                if isinstance(stats, tuple) else []
+            if sides:
+                per[key] = (getattr(stats, "k", None), sides)
+    elif isinstance(s, InjectState):
+        _find_sketches(s.inner, per)
+    elif isinstance(s, dict):
+        for v in s.values():
+            _find_sketches(v, per)
+
+
 def rank_allocation(state: Any) -> dict:
     """The rank budget's allocation, read from any state that holds an
     engine state (as ``second_moment_bytes`` finds them): ``{"total": K,
@@ -468,21 +486,7 @@ def rank_allocation(state: Any) -> dict:
     capacity of its wider side), ``rho`` the escaped mass summed over the
     sides, and ``budget_share = k / K``.  The pending slot is not read."""
     per = {}
-
-    def visit(s):
-        if isinstance(s, PrecondState):
-            for key, stats in s.pools.items():
-                sides = [x for x in stats if isinstance(x, FDState)] \
-                    if isinstance(stats, tuple) else []
-                if sides:
-                    per[key] = (getattr(stats, "k", None), sides)
-        elif isinstance(s, InjectState):
-            visit(s.inner)
-        elif isinstance(s, dict):
-            for v in s.values():
-                visit(v)
-
-    visit(state)
+    _find_sketches(state, per)
     if not per:
         raise ValueError("no sketch state found (no pool holds FD sketches)")
     concrete = lambda t: t.device.type != "meta"

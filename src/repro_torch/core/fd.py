@@ -69,12 +69,18 @@ def fd_update(state: FDState, new_factor: torch.Tensor,
     compute_dtype = torch.promote_types(U.dtype, torch.float32)
 
     s_clamped = torch.clamp(beta2 * s.to(compute_dtype), min=0.0)
-    B = U.to(compute_dtype) * torch.sqrt(s_clamped)[None, :]
-    M = torch.cat([B, new_factor.to(compute_dtype)], dim=1)
+    # M = [U sqrt(s), new_factor] written in place, and U_new scaled in
+    # place: at the serving monitor's d (209,715,200 for deepseek-moe-16b's
+    # head) each (d, ell) temporary is 6.7 GB
+    M = torch.empty((U.shape[0], ell + new_factor.shape[1]),
+                    dtype=compute_dtype, device=U.device)
+    torch.mul(U.to(compute_dtype), torch.sqrt(s_clamped)[None, :],
+              out=M[:, :ell])
+    M[:, ell:] = new_factor
 
     lam_top, V, inv_sqrt = _top_eigenpairs(KERNELS.gram(M), ell)
     rho_t = lam_top[..., ell - 1]
-    U_new = torch.matmul(M, V[:, :ell]) * inv_sqrt[None, :]
+    U_new = torch.matmul(M, V[:, :ell]).mul_(inv_sqrt[None, :])
     return FDState(eigvecs=U_new.to(U.dtype),
                    eigvals=(lam_top - rho_t).to(s.dtype),   # last entry 0
                    rho=(beta2 * rho + rho_t).to(rho.dtype))

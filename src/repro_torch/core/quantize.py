@@ -139,13 +139,16 @@ def _flatten_roles(x, second: bool = True) -> list:
 
 
 def _unflatten(like, leaves) -> Any:
-    it = iter(leaves)
+    return _build(like, iter(leaves))
 
-    def build(x):
-        if _is_node(x):
-            return next(it)
-        return type(x)(*(build(item) for item in x))
-    return build(like)
+
+def _build(x, it) -> Any:
+    # recursion at module level: a nested function that calls itself is a
+    # reference cycle, which would hold ``leaves`` (a sketch of 6.7 GB at
+    # deepseek-moe-16b's head) until the cyclic collector runs
+    if _is_node(x):
+        return next(it)
+    return type(x)(*(_build(item, it) for item in x))
 
 
 def _map_second_moments(fn, tree) -> Any:

@@ -13,9 +13,11 @@
 // online softmax of _flash_kernel).  On the port's main paths it is every
 // full-sequence attention of the model (models/attention.py
 // causal_attention), in bf16: paper-lm-100m training (B 8, H 12, S 128,
-// hd 64) and zamba2-7b's shared attention block in the serving feedback
-// gradient (B 4, H 32, S 16, hd 112).  The wrapper (kernels/flash/kernel.py
-// ``plan``) picks the kernel by dtype; each dtype has exactly one.
+// hd 64), zamba2-7b's shared attention block in the serving feedback
+// gradient (B 4, H 32, S 16, hd 112), deepseek-moe-16b's (B 4, H 16, S 16,
+// hd 128) and gemma-2b's (hd 256, one KV head).  The wrapper
+// (kernels/flash/kernel.py ``plan``) picks the kernel by dtype; each dtype
+// has exactly one, instantiated for every head dim it takes.
 //
 // bf16: flash_wgmma_kernel.  Bound: the operations, 4 hd multiply-adds per
 // kept (query, key) pair at the tensor cores' 989 TFLOP/s in bf16, the type
@@ -32,7 +34,11 @@
 // over the four lanes that hold it; P rounded to bf16 in registers, which
 // is exactly wgmma's A-from-registers fragment, so O += P V runs as four
 // m64n{hd}k16 steps with V (B) in its natural (key, hd) layout, MN-major,
-// read with the transpose bit.  Shared tiles use the 32-byte swizzle:
+// read with the transpose bit.  At hd 256 (gemma-2b) O is held as two
+// 128-wide halves, each its own m64n128k16 steps on its half of V's columns
+// (128 f32 accumulator registers a thread in all; Q's 64 or 128 rows and
+// two stages of K and V take 160 or 192 KB, so one CTA a SM, of two
+// warpgroups).  Shared tiles use the 32-byte swizzle:
 // 16-element atoms, so every hd that is a multiple of 16 (112 = 7 x 16)
 // fits with no padding.  Copies: Q once, K and V through a two-stage ring
 // filled by 16-byte cp.async with zero fill past the sequence, the next tile
@@ -53,7 +59,7 @@
 // columns tx + 16 j, the rows' running max and normalizer (reduced across
 // the 16 threads of a row by warp shuffles) and the output columns
 // tx + 16 j of those rows.  Key tiles wholly above the diagonal are skipped.
-// No main path runs attention in f32.
+// No main path runs attention in f32.  At hd 256 its tiles take 214 KB.
 #include "tile.cuh"
 #include "hopper.cuh"
 
@@ -294,9 +300,14 @@ __global__ void __launch_bounds__(128 * WG)
   load_tile<kKeys, HD, NT>(sv_, vb, sv.s, 0, Sk);
   repro::cp_async_commit();
 
-  float acc[HD / 2];
+  // O in NH column halves of HW (one when hd <= 128)
+  constexpr int NH = HD > 128 ? 2 : 1, HW = HD / NH;
+  float acc[NH][HW / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  for (int hh = 0; hh < NH; ++hh) {
+#pragma unroll
+    for (int i = 0; i < HW / 2; ++i) acc[hh][i] = 0.f;
+  }
   float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
 
   for (int t = 0; t < tiles; ++t) {
@@ -374,7 +385,12 @@ __global__ void __launch_bounds__(128 * WG)
       m_a = mn_a;
       m_b = mn_b;
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) acc[i] *= (i & 2) ? alpha_b : alpha_a;
+      for (int hh = 0; hh < NH; ++hh) {
+#pragma unroll
+        for (int i = 0; i < HW / 2; ++i) {
+          acc[hh][i] *= (i & 2) ? alpha_b : alpha_a;
+        }
+      }
 
       // P in bf16 as wgmma's A fragments: k16 slice j is S's column
       // blocks 2j and 2j + 1
@@ -389,13 +405,19 @@ __global__ void __launch_bounds__(128 * WG)
       repro::wgmma_fence();
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        repro::wgmma_rs<HD>(
-            acc, pa[j],
-            repro::smem_desc(sv_ + st * kKVBytes + j * 512, kKeys * 32, 256));
+#pragma unroll
+        for (int hh = 0; hh < NH; ++hh) {  // V's columns hh HW .. + HW - 1
+          repro::wgmma_rs<HW>(
+              acc[hh], pa[j],
+              repro::smem_desc(sv_ + st * kKVBytes + hh * HW * kKeys * 2 +
+                                   j * 512,
+                               kKeys * 32, 256));
+        }
       }
       repro::wgmma_commit();
       repro::wgmma_wait_all();
-      repro::fence_regs(acc);
+#pragma unroll
+      for (int hh = 0; hh < NH; ++hh) repro::fence_regs(acc[hh]);
     }
     __syncthreads();  // every reader of this stage is done before refill
   }
@@ -404,16 +426,19 @@ __global__ void __launch_bounds__(128 * WG)
   const float inv_a = 1.f / (l_a == 0.f ? 1.f : l_a);
   const float inv_b = 1.f / (l_b == 0.f ? 1.f : l_b);
 #pragma unroll
-  for (int i = 0; i < HD / 8; ++i) {
-    const int col = 8 * i + col_t;
-    if (row_a < S) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + row_a * so.s + col) =
-          __floats2bfloat162_rn(acc[4 * i] * inv_a, acc[4 * i + 1] * inv_a);
-    }
-    if (row_b < S) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + row_b * so.s + col) =
-          __floats2bfloat162_rn(acc[4 * i + 2] * inv_b,
-                                acc[4 * i + 3] * inv_b);
+  for (int hh = 0; hh < NH; ++hh) {
+#pragma unroll
+    for (int i = 0; i < HW / 8; ++i) {
+      const int col = hh * HW + 8 * i + col_t;
+      const float* a = acc[hh] + 4 * i;
+      if (row_a < S) {
+        *reinterpret_cast<__nv_bfloat162*>(ob + row_a * so.s + col) =
+            __floats2bfloat162_rn(a[0] * inv_a, a[1] * inv_a);
+      }
+      if (row_b < S) {
+        *reinterpret_cast<__nv_bfloat162*>(ob + row_b * so.s + col) =
+            __floats2bfloat162_rn(a[2] * inv_b, a[3] * inv_b);
+      }
     }
   }
 }
@@ -462,16 +487,17 @@ int launch_hd(const void* q, const void* k, const void* v, void* o,
 
 // q (B, S, Hq, hd), k and v (B, Sk, Hkv, hd), o like q, each given by its
 // batch, sequence and head strides in elements.  hd a multiple of 16 up to
-// 128; dtype 0 = f32 (SIMT kernel), 1 = bf16 (wgmma kernel, block_m query
-// rows per CTA: 64 or 128; base and strides 16-byte aligned).  Returns the
-// CUDA error of the launch.
+// 128, or 256; dtype 0 = f32 (SIMT kernel), 1 = bf16 (wgmma kernel,
+// block_m query rows per CTA: 64 or 128; base and strides 16-byte
+// aligned).  Returns the CUDA error of the launch.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, long long qsb,
     long long qss, long long qsh, long long ksb, long long kss,
     long long ksh, long long vsb, long long vss, long long vsh,
     long long osb, long long oss, long long osh, int B, int Hq, int Hkv,
     int S, int Sk, int hd, int causal, int dtype, int block_m, void* stream) {
-  if (hd % 16 != 0 || hd < 16 || hd > 128 || Hkv <= 0 || Hq % Hkv != 0 ||
+  if (hd % 16 != 0 || hd < 16 || (hd > 128 && hd != 256) || Hkv <= 0 ||
+      Hq % Hkv != 0 ||
       (dtype != 0 && dtype != 1) ||
       (dtype == 1 && block_m != 64 && block_m != 128)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -492,6 +518,7 @@ extern "C" int repro_flash_attention(
     REPRO_FLASH_HD(6)
     REPRO_FLASH_HD(7)
     REPRO_FLASH_HD(8)
+    REPRO_FLASH_HD(16)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

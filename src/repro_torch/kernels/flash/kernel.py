@@ -27,6 +27,7 @@ SMEM_LIMIT = 232_448    # dynamic shared memory a Hopper block can use
 KEYS = 64               # keys per K/V tile (both kernels)
 ALIGN = 16              # bytes: the bf16 kernel's cp.async chunks
 SMS = 132               # the H100's streaming multiprocessors
+HEAD_DIMS = tuple(range(16, 129, 16)) + (256,)
 launches = 0
 
 
@@ -47,7 +48,9 @@ def plan(dtype: torch.dtype, B: int, Hq: int, S: int, hd: int) -> Plan:
     kernel, one warpgroup (128 threads) per 64 query rows, 128 rows a block
     where that still gives two blocks per SM (B * Hq * ceil(S / 128) >=
     2 * 132) and 64 otherwise (short sequences, few heads: twice the blocks,
-    each with a shorter chain of key tiles), grid (B * Hq, query tiles),
+    each with a shorter chain of key tiles), but 128 at hd 256 when S > 64
+    (its tiles allow one block a SM whatever the rows, so the block takes
+    two warpgroups), grid (B * Hq, query tiles),
     shared Q and two stages of K and V tiles in bf16 plus 256 bytes of
     alignment.  Raises where a grid dimension would overflow."""
     if dtype == torch.float32:
@@ -55,7 +58,8 @@ def plan(dtype: torch.dtype, B: int, Hq: int, S: int, hd: int) -> Plan:
         p = Plan("simt_f32", 64, 256, grid,
                  4 * (2 * 64 * (hd + 1) + 64 * hd + 64 * 65))
     elif dtype == torch.bfloat16:
-        block_m = 128 if B * Hq * math.ceil(S / 128) >= 2 * SMS else 64
+        block_m = 128 if B * Hq * math.ceil(S / 128) >= 2 * SMS or \
+            (hd > 128 and S > 64) else 64
         grid = (B * Hq, math.ceil(S / block_m), 1)
         p = Plan("wgmma_bf16", block_m, 2 * block_m, grid,
                  2 * (block_m * hd + 4 * KEYS * hd) + 256)
@@ -82,8 +86,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Attention forward for CUDA q (B, Hq, S, hd) and k, v (B, Hkv, Sk, hd)
     of one dtype (f32 or bf16), Hq % Hkv == 0, hd a multiple of 16 up to
-    128, each with a contiguous last dim and any other strides (the model's
-    (B, S, H, hd) tensors arrive as transposed views and are read in place;
+    128 or 256 (``HEAD_DIMS``), each with a contiguous last dim and any
+    other strides (the model's (B, S, H, hd) tensors arrive as transposed
+    views and are read in place;
     in bf16 the base and strides 16-byte aligned, ``check_aligned``).
     Causal attention needs S == Sk (query i sees keys j <= i).  Returns
     (B, Hq, S, hd) in q's dtype, stored (B, S, Hq, hd)."""
@@ -110,9 +115,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             or Hq % Hkv:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if hd % 16 or not 16 <= hd <= 128:
+    if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes a head dim that is "
-                         f"a multiple of 16 up to 128, got {hd}")
+                         f"a multiple of 16 up to 128, or 256, got {hd}")
     if causal and S != Sk:
         raise ValueError(f"causal flash_attention kernel needs S == Sk, got "
                          f"{S} and {Sk}")

@@ -3,30 +3,45 @@ feedback gradient (port of repro/models/attention.py ``causal_attention``
 :167) through the flash kernel, and one-token decode against a cache for
 serving (``attention_decode`` :207) in plain tensor ops, as the reference
 writes it (its XLA ``_chunk_attend``).  Queries are grouped, so KV heads are
-never repeated in memory."""
+never repeated in memory.  ``qkv_bias`` (qwen2.5) adds a bias to q, k and v
+before the head reshape; ``qk_norm`` (qwen3) RMS-normalizes q and k over
+the head dim before RoPE; decode projects through the same code."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, rms_norm
 
 NEG_INF = -1e30
 
 
 def attn_params_shape(cfg: ModelConfig) -> dict:
     D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    return {"wq": (D, H * hd), "wk": (D, KV * hd), "wv": (D, KV * hd),
-            "wo": (H * hd, D)}
+    shapes = {"wq": (D, H * hd), "wk": (D, KV * hd), "wv": (D, KV * hd),
+              "wo": (H * hd, D)}
+    if cfg.qkv_bias:
+        shapes.update({"bq": (H * hd,), "bk": (KV * hd,), "bv": (KV * hd,)})
+    if cfg.qk_norm:
+        shapes.update({"q_norm": (hd,), "k_norm": (hd,)})
+    return shapes
 
 
 def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions):
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = torch.matmul(x, p["wq"]).reshape(B, S, H, hd)
-    k = torch.matmul(x, p["wk"]).reshape(B, S, KV, hd)
-    v = torch.matmul(x, p["wv"]).reshape(B, S, KV, hd)
+    q = torch.matmul(x, p["wq"])
+    k = torch.matmul(x, p["wk"])
+    v = torch.matmul(x, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, KV, hd)
+    v = v.reshape(B, S, KV, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

@@ -1,13 +1,17 @@
-"""Decode caches and the one-token decode step of the dense, ssm and hybrid
-families (port of repro/models/cache.py :26-72, :84-112, :145-223).
+"""Decode caches and the one-token decode step of the dense, moe, ssm and
+hybrid families (port of repro/models/cache.py :26-72, :84-112, :145-223).
 
 Cache layouts, stacked over layers (batch is axis 1 of every tensor):
-  dense:  attention k/v (L, B, Smax, KV, hd)
+  dense, moe: attention k/v (L, B, Smax, KV, hd), the moe family's dense
+          layers first
   ssm:    ssm (L, B, H, P, N) in f32 and conv (L, B, W-1, conv_dim)
   hybrid: the ssm layout for all L layers, and attention k/v only at the
           shared-attention sites (n_sites, B, Smax, KV, hd)
-in the model's dtype except the f32 SSM state.  The moe, vlm and audio
-families are not ported yet (ROADMAP.md queue 1 item 13).  The reference
+in the model's dtype except the f32 SSM state.  The vlm and audio
+families are not ported yet (ROADMAP.md queue 1 items 13(c), 13(d)).  The
+moe family decodes its dense layers against ``k[:fd]``, ``v[:fd]`` and its
+moe layers against ``k[fd:]``, ``v[fd:]``, the moe sublayer in place of
+the MLP (reference :127-130, :145-171).  The reference
 returns new caches from every call; here the decode step and
 ``reset_lanes`` write into the cache tensors in place (one cache per
 engine, no copy per token) and return the same dict.
@@ -18,11 +22,12 @@ from typing import Dict
 
 import torch
 
+from repro_torch import tree
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import model as model_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import gated_mlp, rms_norm
+from repro_torch.models.layers import rms_norm
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int
@@ -30,11 +35,11 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int
     if cfg.family not in model_lib.FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} cache layout is not ported yet "
-            f"(ROADMAP.md queue 1 item 13); the port serves the "
+            f"(ROADMAP.md queue 1 items 13(c), 13(d)); the port serves the "
             f"{', '.join(model_lib.FAMILIES)} families")
     L, B = cfg.num_layers, batch
     kv = (max_seq, cfg.num_kv_heads, cfg.head_dim)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return {"k": (L, B) + kv, "v": (L, B) + kv}
     shapes = {
         "ssm": (L, B, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
@@ -72,11 +77,12 @@ def reset_lanes(cache: Dict[str, torch.Tensor],
 def _dense_layer_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
                         cache_k: torch.Tensor, cache_v: torch.Tensor,
                         pos) -> torch.Tensor:
+    """A dense or moe layer (by its parameters) against its cache."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     x = x + attn_lib.attention_decode(cfg, p["attn"], h, cache_k, cache_v,
                                       pos)
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + gated_mlp(cfg, p["mlp"], h)
+    return x + model_lib.mlp_sublayer(cfg, p, h)
 
 
 def _mamba_layer_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -99,13 +105,18 @@ def decode_step(cfg: ModelConfig, params: dict, cache: Dict[str, torch.Tensor],
     Returns (logits (B, 1, V), cache), the cache updated in place."""
     model_lib.check_supported(cfg)
     x = model_lib.embed_tokens(cfg, params, {"tokens": batch["token"]})
+    if cfg.family in ("dense", "moe"):
+        i = 0
+        for stacked in model_lib.stacks(params):
+            for j in range(tree.flatten(stacked)[0].shape[0]):
+                x = _dense_layer_decode(cfg, model_lib.layer(stacked, j), x,
+                                        cache["k"][i], cache["v"][i], pos)
+                i += 1
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return model_lib.project_logits(cfg, params, x), cache
     sites = cfg.shared_attn_layers()
     for i in range(cfg.num_layers):
         p_i = model_lib.layer(params["layers"], i)
-        if cfg.family == "dense":
-            x = _dense_layer_decode(cfg, p_i, x, cache["k"][i],
-                                    cache["v"][i], pos)
-            continue
         if i in sites:
             s = sites.index(i)
             x = _dense_layer_decode(cfg, params["shared_attn"], x,

@@ -14,7 +14,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import rms_norm, silu
 
 
 def ssm_params_shape(cfg: ModelConfig) -> dict:
@@ -40,7 +40,7 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
     out = xp[:, 0:S] * w[0]
     for i in range(1, W):
         out = out + xp[:, i:i + S] * w[i]
-    return F.silu(out + b)
+    return silu(out + b)
 
 
 def ssd(u: torch.Tensor, dlog: torch.Tensor, Bm: torch.Tensor,
@@ -74,7 +74,7 @@ def mamba_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     y = ssd(u * dt[..., None].to(u.dtype), dt * A, Bm, Cm, cfg.ssm_chunk)
     y = y + p["ssm_D"].to(y.dtype)[None, None, :, None] * u
     y = y.reshape(B, S, din)
-    y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
+    y = rms_norm(y * silu(z), p["gate_norm"], cfg.norm_eps)
     return torch.matmul(y, p["out_proj"])
 
 
@@ -96,7 +96,7 @@ def mamba_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
     conv_out = window[:, 0] * w[0]
     for i in range(1, w.shape[0]):
         conv_out = conv_out + window[:, i] * w[i]
-    conv_out = F.silu(conv_out + p["conv_b"])[:, None]   # (B, 1, conv_dim)
+    conv_out = silu(conv_out + p["conv_b"])[:, None]   # (B, 1, conv_dim)
     new_conv_state = window[:, 1:]
 
     xc = conv_out[..., :din]
@@ -113,5 +113,5 @@ def mamba_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
     y = torch.einsum("bhpn,bn->bhp", new_state, Cm.float())
     y = y + p["ssm_D"].float()[None, :, None] * xh
     y = y.reshape(B, 1, din).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
+    y = rms_norm(y * silu(z), p["gate_norm"], cfg.norm_eps)
     return torch.matmul(y, p["out_proj"]), new_state, new_conv_state

@@ -27,13 +27,16 @@ def structure(tree: Any) -> Any:
 def unflatten(like: Any, leaves: list) -> Any:
     """A tree shaped like ``like`` holding ``leaves`` in ``flatten`` order."""
     it: Iterator = iter(leaves)
-
-    def build(node):
-        if isinstance(node, dict):
-            return {key: build(node[key]) for key in sorted(node)}
-        return next(it)
-
-    out = build(like)
+    out = _build(like, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree has positions")
     return out
+
+
+def _build(node: Any, it: Iterator) -> Any:
+    # recursion at module level: a nested function that calls itself is a
+    # reference cycle, which keeps what it holds until the cyclic collector
+    # runs
+    if isinstance(node, dict):
+        return {key: _build(node[key], it) for key in sorted(node)}
+    return next(it)

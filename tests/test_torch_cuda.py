@@ -52,10 +52,16 @@ magnitude, two int8 steps under int8; the columns past a block's rank and
 the blocks not due untouched), and the async engine's committed state
 against the inline engine's after each of 6 steps, bit for bit.
 
+The dense configs with one feature each and the moe configs (reduced):
+logits, a teacher-forced decode and one Sketchy step on the card against
+the CPU, through chip_smoke.py's phase 8c (one implementation for both).  Flash attention also at gemma-2b's head dim 256.
+
 Checkpoints: the reduced model's fp32 and int8 states saved and restored
 on the card bit for bit, and the next step from the restored state bit for
 bit the live state's (or within the difference of that step run twice).
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -446,11 +452,12 @@ def test_single_wrappers_reject_what_they_do_not_take(card):
 
 # (B, Hq, Hkv, S, hd, causal): tests/test_kernels.py:196-201's sweep, the
 # dense training shape, zamba2-7b's feedback shape, head dims 48 and 128,
-# and a ragged one
+# a ragged one, and gemma-2b's head dim 256 (MQA) at S 128 and ragged
 FLASH_CASES = [(1, 2, 2, 64, 16, True), (2, 4, 2, 96, 32, True),
                (1, 8, 1, 128, 64, True), (2, 2, 2, 80, 16, False),
                (8, 12, 12, 128, 64, True), (4, 32, 32, 16, 112, True),
-               (2, 6, 3, 130, 48, True), (1, 2, 1, 70, 128, False)]
+               (2, 6, 3, 130, 48, True), (1, 2, 1, 70, 128, False),
+               (1, 8, 1, 128, 256, True), (2, 4, 1, 70, 256, False)]
 
 
 def _flash_inputs(card, B, Hq, Hkv, S, hd, dtype, seed):
@@ -485,9 +492,13 @@ def test_flash_kernel_matches_plain_on_card(card, B, Hq, Hkv, S, hd, causal,
 # every head dim at S 130 (no multiple of the 128-row query tile or the
 # 64-key tile), hd 112 at S 4096, not causal with Sk != S, GQA with one KV
 # head, B * Hq = 160 blocks (over the card's 132 SMs), and S <= 64 (a
-# 64-row block, one warpgroup)
+# 64-row block, one warpgroup); head dim 256 also at gemma-2b's S 4096
+# and at S <= 64
 FLASH_BF16_CASES = [(1, 4, 2, 130, 130, hd, True)
-                    for hd in range(16, 129, 16)]
+                    for hd in list(range(16, 129, 16)) + [256]]
+FLASH_BF16_CASES += [(1, 8, 1, 4096, 4096, 256, True),
+                     (2, 8, 1, 40, 40, 256, True),
+                     (1, 4, 1, 200, 333, 256, False)]
 FLASH_BF16_CASES += [(1, 32, 32, 4096, 4096, 112, True),
                      (2, 4, 4, 200, 72, 64, False),
                      (1, 4, 2, 200, 333, 112, False),
@@ -720,6 +731,38 @@ def test_baseline_training_on_card_matches_cpu(card, optimizer):
                          tree.flatten(cpu_run.params)):
         torch.testing.assert_close(got.detach().cpu(), want.detach(),
                                    rtol=1e-3, atol=1e-4)
+
+
+NEW_ARCHS = ["phi3-mini-3.8b", "qwen2.5-32b", "qwen3-32b", "gemma-2b",
+             "deepseek-moe-16b", "kimi-k2-1t-a32b"]
+
+
+def _chip_smoke():
+    """chip_smoke.py at the repo's root, imported as a module (its phases
+    run nothing at import)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_archs_on_card_match_cpu(card, arch):
+    """The reduced dense configs with one feature each and the moe configs,
+    on the card (kernel 7 in the forward, once a layer) and on the CPU from
+    the same weights, through chip_smoke.py's phase 8c
+    (``phase_new_arch_reference``, which raises on a disagreement): logits
+    and a teacher-forced decode within ``rtol=1e-4, atol=1e-4``, and one
+    Sketchy step through ``repro_torch.launch.train`` (rank 8, block 32, a
+    refresh at the step): the same loss (relative 1e-4) and parameters
+    (``rtol=1e-3, atol=1e-4``)."""
+    smoke = _chip_smoke()
+    assert arch in smoke.NEW_ARCHS
+    smoke.phase_new_arch_reference(card, arch)
 
 
 def _plain_on_card(monkeypatch) -> None:

@@ -118,7 +118,7 @@ PLAN_SHAPES = [(8, 12, 128), (4, 32, 16), (1, 32, 4096), (2, 6, 130),
                (5, 32, 100), (1, 2, 64), (1, 2, 65), (3, 1, 1)]
 
 
-@pytest.mark.parametrize("hd", range(16, 129, 16))
+@pytest.mark.parametrize("hd", fkernel.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_flash_plan_fits_and_covers(hd, dtype):
     tdt = DTYPES[dtype][1]
@@ -132,7 +132,9 @@ def test_flash_plan_fits_and_covers(hd, dtype):
         else:
             assert p.kernel == "wgmma_bf16"
             two_per_sm = B * Hq * -(-S // 128) >= 2 * fkernel.SMS
-            assert p.block_m == (128 if two_per_sm else 64)
+            # at hd 256 one block a SM fits anyway: two warpgroups in it
+            wide = hd > 128 and S > 64
+            assert p.block_m == (128 if two_per_sm or wide else 64)
             assert p.threads == 128 * (p.block_m // 64)   # a warpgroup a 64
             bh, tiles, one = p.grid
             assert (bh, one) == (B * Hq, 1)

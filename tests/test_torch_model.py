@@ -97,7 +97,8 @@ def test_bf16_python_float_sites_round_as_jax(monkeypatch):
     attention's ``hd ** -0.5`` compute in f32 in both packages (JAX's weak
     type never rounds them to bf16), so a bf16 activation comes out with
     the reference's bits.  The residuals add tensors, and the embedding
-    scale is a config the port refuses.
+    scale rounds its scalar to bf16 as the reference's does
+    (tests/test_torch_layers.py).
 
     The attention scale is held at the logits, the softmax's input, in
     training and in decode, at a head dim of 128: its ``hd ** -0.5``

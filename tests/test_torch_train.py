@@ -5,8 +5,8 @@
 final parameters of the reference's launch/train path from the same
 weights; loss ``rtol=1e-4``, parameters ``rtol=1e-3, atol=1e-5``.
 (c) The same run with the model in bf16 (the full-width dtype) at the
-launcher's peak lr 3e-3 tracks the reference's bf16 run: loss ``rtol=1e-2``
-and, per parameter, a difference under a fifth of how far training moved
+launcher's peak lr 3e-3 tracks the reference's bf16 run: loss ``rtol=5e-3``
+and, per parameter, a difference under a tenth of how far training moved
 it (bf16 rounds each update differently in the two packages).  With int8
 second-moment storage on the fused path it tracks the reference's fused
 run: loss ``rtol=1e-4`` and, per parameter, a difference under 0.02 of the
@@ -110,8 +110,10 @@ def test_reduced_training_matches_jax():
 def test_reduced_bf16_training_tracks_jax():
     """bf16 casts of the port (gradients to f32 in the engine, directions
     back to bf16, bf16 momentum, f32 promotion by the lr and clip scalars)
-    against the reference's, at the launcher's default peak lr.  Measured:
-    loss 1.1e-3 relative, parameter difference 0.06 of the change."""
+    against the reference's, at the launcher's default peak lr.  Measured
+    with the activations rounding as the reference's: loss 1.5e-3
+    relative, parameter difference 0.045 of the change (1.0e-3 and 0.053
+    with one rounding each, when this test held 1e-2 and 0.2)."""
     args = tlaunch.parse_args(ARGV)
     init, jlosses, jfinal = _jax_run(args, "bfloat16")
     cfg = dataclasses.replace(tregistry.get_reduced(args.arch),
@@ -128,14 +130,14 @@ def test_reduced_bf16_training_tracks_jax():
                  for k, v in data.batch(step).items()}
         params, state, metrics = step_fn(params, state, batch)
         losses.append(float(metrics["loss"]))
-    np.testing.assert_allclose(losses, jlosses, rtol=1e-2)
+    np.testing.assert_allclose(losses, jlosses, rtol=5e-3)
     for got, want, start in zip(tree.flatten(params), jax.tree.leaves(jfinal),
                                 jax.tree.leaves(init)):
         assert got.dtype == torch.bfloat16
         got = got.detach().float().numpy()
         want, start = want.astype(np.float32), start.astype(np.float32)
         assert np.linalg.norm(got - want) <= \
-            0.2 * np.linalg.norm(want - start)
+            0.1 * np.linalg.norm(want - start)
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
