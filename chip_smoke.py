@@ -6,9 +6,10 @@ Phases, in order; any failure ends the run with a non-zero exit code and
 no result line:
 
 1. device: the card's name and power limit; TF32 off; build every CUDA
-   kernel from src/repro_torch/csrc; the registers, static shared memory
-   and spills ``ptxas`` gave each kernel of kernels 1, 2, 2', 5, 6, 7 and
-   8.
+   kernel from src/repro_torch/csrc (phase 9a's embeddings table drawn on
+   the host meanwhile); the registers, static shared memory and spills
+   ``ptxas`` gave each kernel of kernels 1, 2, 2', 5, 6, 7 and 8.  Each
+   phase prints the seconds since the build started as it ends.
 2. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at every shape the Sketchy training step gives it (fp32
    storage for the Gram and the f32 apply, int8 storage for the mixed Gram,
@@ -22,7 +23,8 @@ no result line:
    (FLASH_MAIN, SSD_MAIN; mamba2-370m's too for the scan) and the
    reference's ragged sweeps, and at head dim 256 (gemma-2b's S 4096 and
    128 and the phase 7d gradient's shape, FLASH_HD256) and, untimed, at
-   every other shape phases 7c and 7d give it (``flash_full_width``), in
+   every other shape phases 7c, 7d, 9a and 9b give it
+   (``flash_full_width``), in
    f32 and bf16, at
    the reference's
    tolerances and a relative error of the whole output (MODEL_RTOL), two
@@ -144,10 +146,7 @@ no result line:
    remat recompute: the tied embed's gradient flows back through every
    layer); kernels 3, 4, 7 and 8 each at least once, no training kernel.
    Then profiles one full-width feedback gradient, with kernel 8's device
-   time and launches in it summed; then serves the same run twice more,
-   the scan's plain version and then the kernel's f32 instantiation in the
-   bf16 kernel's place, and prints the three runs' monitor readings (leading
-   eigenvalue and decision per window) side by side.
+   time and launches in it summed.
 8b. serve reference of the reduced zamba2-7b and mamba2-370m, as phase 8,
    the adapted leaf their tied embed.
 7c. serve deepseek-moe-16b: MOE_SERVE_ARGV at full width (28 layers, the
@@ -167,9 +166,29 @@ no result line:
    256: 18 layers, forward and remat recompute).
 8c. card against CPU of the reduced NEW_ARCHS (the four above,
    deepseek-moe-16b and kimi-k2-1t-a32b, whose 1.03 T parameters fit no
-   card): logits, a
+   card, qwen2-vl-72b and musicgen-large), each on its family's inputs
+   (tokens, embeddings, or tokens of 4 codebooks): logits, a
    teacher-forced decode and one Sketchy step (rank 8, block 32, a refresh
    at the step).
+9a. train full width (TRAIN_FULL): ``repro_torch.launch.train --arch
+   qwen2-vl-72b`` (1 of its 80 layers; the vision frontend a stub, the
+   pipeline's embeddings in) and ``musicgen-large`` (12 of 48 layers, 4
+   codebooks), Sketchy at the launcher's defaults, 3 steps, peak lr 3e-5
+   and 3e-4 (TRAIN_FULL_LR), the depth cut through a patched
+   ``registry.get_config``, the caching allocator's expandable segments on
+   for this phase alone; every launch count set to 0 just before and read
+   just after (kernel 1 twice a pool group at the refresh, kernel 2 twice a
+   group a step, kernel 7 twice a layer a step); the losses finite, near
+   log V and falling, every weight matrix moved, no leaf by more than the
+   grafted step allows, batch 0's loss lower after the run than at step 0;
+   the second-moment bytes the reference's; prints the step times, each
+   ``eigh``'s time, the peak memory allocated and reserved.
+9b. vlm and audio full width (VLM_AUDIO_FULL): qwen2-vl-72b with 8 layers
+   and musicgen-large whole, bf16, through the model and cache modules
+   (the engine serves token-input archs only): a forward at B 4, S 512,
+   a 16-token teacher-forced decode against it (DECODE_BF16_RTOL), and
+   phase 7d's timed feedback gradients through ``lm_head`` with kernel 7's
+   launches (once a layer a gradient).
 
 The last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``; kernel 7 has a second row there at head
@@ -189,6 +208,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from unittest import mock
 
@@ -201,6 +221,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch import tree  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core import api, pool  # noqa: E402
+from repro_torch.core.factory import OptimizerConfig  # noqa: E402
 from repro_torch.core import fd as fd_lib  # noqa: E402
 from repro_torch.core import quantize  # noqa: E402
 from repro_torch.core import shampoo as shampoo_lib  # noqa: E402
@@ -317,10 +338,11 @@ DENSE_FULL_CALLS = 5
 MOE_D = 2048 * 102400
 # the serving launcher's feedback batch (launch/serve.py): batch 4, seq 16
 SERVE_FEEDBACK_BATCH, SERVE_FEEDBACK_SEQ = 4, 16
-# the architectures of ROADMAP.md queue 1 items 13(a) and 13(b), reduced,
-# card against CPU (kimi-k2-1t-a32b's 1.03 T parameters fit no card)
+# the architectures of ROADMAP.md queue 1 items 13(a)-(d), reduced, card
+# against CPU (kimi-k2-1t-a32b's 1.03 T parameters fit no card)
 NEW_ARCHS = ["phi3-mini-3.8b", "qwen2.5-32b", "qwen3-32b", "gemma-2b",
-             "deepseek-moe-16b", "kimi-k2-1t-a32b"]
+             "deepseek-moe-16b", "kimi-k2-1t-a32b", "qwen2-vl-72b",
+             "musicgen-large"]
 NEW_ARCH_ARGV = ["--reduced", "--steps", "1", "--seq", "16", "--batch", "4",
                  "--rank", "8", "--block-size", "32", "--update-every", "1"]
 # the hybrid family at full width: zamba2-7b's tied embed (32,000 x 3,584)
@@ -329,6 +351,35 @@ ZAMBA_SERVE_ARGV = ["--arch", "zamba2-7b", "--no-reduced", "--traffic",
                     "shape=step,rate=1.0,ticks=16,step_at=8",
                     "--monitor", "window=4,ell=8", "--adapt",
                     "lr=0.1,beta2=0.95"]
+# the vlm and audio families trained at full width through launch.train
+# (phase 9a), Sketchy at the launcher's defaults (rank 64, block 1024,
+# update_every 10, batch 8 x seq 128, fp32 storage), 3 steps (a refresh at
+# count 0, then two plain steps): (arch, layers kept, pool groups, the JAX
+# reference's second-moment bytes at that depth,
+# tests/test_torch_vlm_audio.py).  The refresh holds M, its Gram and its
+# eigenvectors for every block of a group at once (core/fd.py), which
+# bounds the depth one card trains: qwen2-vl-72b's one layer and
+# 1,192-block head make 2,032 blocks of 1024^2; musicgen-large keeps 12 of
+# its 48 layers, 804 blocks (PERF.md §4)
+TRAIN_FULL = [("qwen2-vl-72b", 1, 1, 1_066_549_120),
+              ("musicgen-large", 12, 2, 420_906_720)]
+TRAIN_FULL_STEPS = 3
+TRAIN_FULL_ARGV = ["--steps", str(TRAIN_FULL_STEPS), "--log-every", "1"]
+# each run's peak lr: the main path's 3e-4, but 3e-5 for qwen2-vl-72b,
+# whose loss at 3e-4 rose from 12.78 to 20.09 in the one step that moves
+# the weights (the reference's falls and then rises at that lr at d_model
+# 2048, vlm_width_lr_cpu.py; whether it would rise as the port's does at
+# the full 8,192 is not shown, PERF.md §7)
+TRAIN_FULL_LR = {"qwen2-vl-72b": "3e-5", "musicgen-large": "3e-4"}
+# phase 9b, the same families' model at full width, driven directly (the
+# serving engine takes token-input archs only): (arch, layers kept; None
+# keeps all); qwen2-vl-72b cut as phase 7d cuts the qwens
+VLM_AUDIO_FULL = [("qwen2-vl-72b", 8), ("musicgen-large", None)]
+# phase 9b's teacher-forced decode: its first positions against the
+# forward's logits, relative to their norm (bf16 through every layer, the
+# decode's attention in plain ops and the forward's in kernel 7)
+VLM_AUDIO_DECODE = 16
+DECODE_BF16_RTOL = 5e-2
 # launches of the flash attention kernel in one training step of
 # MAIN_PATH_ARGV: each of the 12 layers' attention once in the forward and
 # once more in the backward's recompute (remat; every parameter needs a
@@ -618,13 +669,18 @@ FLASH_HD256 = [(1, 8, 1, 4096, 256, True), (1, 8, 1, 128, 256, True),
 
 
 def flash_full_width() -> list:
-    """Kernel 7's shapes in phases 7c and 7d, read from the configs:
+    """Kernel 7's shapes in phases 7c, 7d, 9a and 9b, read from the configs:
     deepseek-moe-16b's feedback gradient (the serving launcher's feedback
-    batch) and each DENSE_FULL arch's gradient at DENSE_FULL_BATCH x
-    DENSE_FULL_SEQ (gemma-2b's is FLASH_HD256's last)."""
+    batch), each DENSE_FULL and VLM_AUDIO_FULL arch's gradient at
+    DENSE_FULL_BATCH x DENSE_FULL_SEQ (gemma-2b's is FLASH_HD256's last)
+    and each TRAIN_FULL arch's training step at the launcher's batch and
+    sequence (qwen2-vl-72b's GQA 64/8 at hd 128, musicgen-large's MHA
+    32/32 at hd 64)."""
+    train = train_lib.parse_args([])
     runs = [("deepseek-moe-16b", SERVE_FEEDBACK_BATCH, SERVE_FEEDBACK_SEQ)]
     runs += [(arch, DENSE_FULL_BATCH, DENSE_FULL_SEQ)
-             for arch, _ in DENSE_FULL]
+             for arch, _ in DENSE_FULL + VLM_AUDIO_FULL]
+    runs += [(arch, train.batch, train.seq) for arch, *_ in TRAIN_FULL]
     shapes = []
     for arch, B, S in runs:
         cfg = registry.get_config(arch)
@@ -690,8 +746,8 @@ def phase_model_kernels(dev, gen) -> dict:
     scan's f32 bound beside it), whichever is larger; the JSON row is the
     serving main path's shape, one call, and attention at head dim 256 has
     a row of its own (FLASH_HD256, its S 4096 shape).  Every shape that
-    phases 7c and 7d give kernel 7 (``flash_full_width``) is checked too,
-    untimed.  The launch-bound
+    phases 7c, 7d, 9a and 9b give kernel 7 (``flash_full_width``) is
+    checked too, untimed.  The launch-bound
     shapes also print their device time alone (a CUDA graph of 50
     calls)."""
     out = {}
@@ -1220,7 +1276,7 @@ def per_gradient(cfg) -> dict:
     adapted leaf is the tied embedding (an untied head's gradient stops at
     the head)."""
     passes = 2 if cfg.remat and cfg.tie_embeddings else 1
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in model_lib.ATTENTION_STACKS:
         return dict(flash_attention=cfg.num_layers * passes, ssd_scan=0)
     return dict(flash_attention=len(cfg.shared_attn_layers()) * passes,
                 ssd_scan=cfg.num_layers * passes)
@@ -1413,32 +1469,6 @@ def phase_zamba_gradient_profile(dev, params: dict) -> None:
     _profiled(lambda: adapter.grad(params, batch),
               "a full-width zamba2-7b feedback gradient",
               groups={"kernel 8 (csrc/ssd.cu)": SSD_KERNELS})
-
-
-def phase_zamba_scan_witness(readings: list) -> None:
-    """ZAMBA_SERVE_ARGV's run again, twice, with the bf16 scan kernel of
-    phase 7b replaced: by its plain version (f32 throughout, y cast to
-    bf16), then by the same kernel's f32 instantiation on the inputs upcast
-    (csrc/ssd.cu's phases and sums with no bf16 rounding of the decayed
-    scores, the carried state and the decayed u).  Prints each run's
-    leading eigenvalue and decision per monitor window beside ``readings``,
-    the bf16 kernel's: a decision that only the bf16 run takes follows the
-    roundings that its f32 instantiation leaves out."""
-    def f32_kernel(u, dlog, Bm, Cm, chunk):
-        return ssd_kernel.ssd_scan(u.float(), dlog, Bm.float(), Cm.float(),
-                                   chunk).to(u.dtype)
-
-    rows = {"bf16 kernel": readings}
-    for label, scan in (("plain scan", ssd_ref.ssd_ref),
-                        ("f32 kernel", f32_kernel)):
-        with mock.patch.object(kernel_registry, "ssd_scan", scan):
-            report = serve_lib.serve(serve_lib.parse_args(ZAMBA_SERVE_ARGV))
-        rows[label] = report["readings"]
-        del report
-        torch.cuda.empty_cache()
-    for label, got in rows.items():
-        print(f"serve (zamba2-7b), {label}: " + ", ".join(
-            f"{r.leading_eig:.4e} {r.decision}" for r in got))
 
 
 # the reduced model's budget at half its capacity, as benchmarks/run.py
@@ -2012,7 +2042,6 @@ def phase_dense_full(dev, arch: str, layers) -> dict:
     launches counted over them (``per_gradient`` each) and no other kernel.
     Every token, logit and gradient value must be finite and the loss
     near log(V) (random weights).  Returns the launch counts."""
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.serve import Engine, Request, ServeConfig
     cfg = registry.get_config(arch)
     if layers is not None:
@@ -2034,10 +2063,43 @@ def phase_dense_full(dev, arch: str, layers) -> dict:
     if not all(h.done and len(h.tokens) == 8 for h in handles):
         fail(f"dense full width ({label}): not every request was served")
     del engine
+    batch = _full_batch(cfg, dev, seed=1)
+    report, launches = _head_gradients(f"dense full width ({label})", cfg,
+                                       params, batch)
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"dense full width ({label}; hd {cfg.head_dim}, {n_params} bf16 "
+          f"parameters): 4 requests x 8 tokens in {serve_s:.2f} s; "
+          f"{report}; peak memory allocated {peak} bytes")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _full_batch(cfg, dev, seed: int) -> dict:
+    """The pipeline's batch 0 at DENSE_FULL_BATCH x DENSE_FULL_SEQ on the
+    card: tokens (B, S) or (B, S, K), or the vlm's f32 embeddings, as
+    launch.train draws them."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    data = SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=DENSE_FULL_SEQ,
+        global_batch=DENSE_FULL_BATCH, seed=seed,
+        num_codebooks=cfg.num_codebooks,
+        embed_dim=0 if cfg.embed_inputs else cfg.d_model))
+    return {k: torch.from_numpy(v).to(dev, torch.float32 if v.dtype.kind
+                                      == "f" else torch.long)
+            for k, v in data.batch(0).items()}
+
+
+def _head_gradients(label: str, cfg, params: dict, batch: dict
+                    ) -> tuple[str, dict]:
+    """Feedback gradients of the loss with respect to the head leaf
+    (``lm_head``, or the tied ``embed``) on ``batch``: one call that warms
+    up, then DENSE_FULL_CALLS timed with CUDA events, with every kernel's
+    launches counted over them (``per_gradient`` each of kernels 7 and 8,
+    no other).  Fails unless the loss is finite and near log(V) (random
+    weights) and the gradient finite.  Returns a report line and the
+    launch counts."""
     leaf = "lm_head" if "lm_head" in params else "embed"
-    batch = {k: torch.from_numpy(v).long().to(dev) for k, v in SyntheticLM(
-        DataConfig(vocab_size=cfg.vocab_size, seq_len=DENSE_FULL_SEQ,
-                   global_batch=DENSE_FULL_BATCH, seed=1)).batch(0).items()}
     times = []
     for i in range(1 + DENSE_FULL_CALLS):   # the first call warms up
         if i == 1:
@@ -2054,55 +2116,64 @@ def phase_dense_full(dev, arch: str, layers) -> dict:
     expected = dict(dict.fromkeys(COUNTERS, 0), **{
         k: DENSE_FULL_CALLS * v for k, v in per_gradient(cfg).items()})
     if launches != expected:
-        fail(f"dense full width ({label}): launches {launches}, expected "
-             f"{expected}")
+        fail(f"{label}: launches {launches}, expected {expected}")
     loss = float(loss.detach())
-    if not (math.isfinite(loss) and bool(torch.isfinite(g).all())
+    finite = bool(torch.isfinite(g).all())
+    if not (math.isfinite(loss) and finite
             and abs(loss - math.log(cfg.vocab_size)) < 3.0):
-        fail(f"dense full width ({label}): loss {loss}, gradient finite "
-             f"{bool(torch.isfinite(g).all())}")
-    peak = torch.cuda.max_memory_allocated(dev)
-    print(f"dense full width ({label}; hd {cfg.head_dim}, {n_params} bf16 "
-          f"parameters): 4 requests x 8 tokens in {serve_s:.2f} s; feedback "
-          f"gradient through {leaf} at B {DENSE_FULL_BATCH}, S "
-          f"{DENSE_FULL_SEQ}: median {statistics.median(times[1:]):.1f} ms "
-          f"over {DENSE_FULL_CALLS} calls (CUDA events; min "
-          f"{min(times[1:]):.1f}, max {max(times[1:]):.1f}; first call "
-          f"{times[0]:.1f} ms), loss {loss:.4f}, flash_attention "
-          f"{launches['flash_attention']} launches in the {DENSE_FULL_CALLS} "
-          f"calls; peak memory allocated {peak} bytes")
-    del params, head, g
-    torch.cuda.empty_cache()
-    return launches
+        fail(f"{label}: loss {loss}, gradient finite {finite}")
+    return (f"feedback gradient through {leaf} at B {DENSE_FULL_BATCH}, S "
+            f"{DENSE_FULL_SEQ}: median {statistics.median(times[1:]):.1f} "
+            f"ms over {DENSE_FULL_CALLS} calls (CUDA events; min "
+            f"{min(times[1:]):.1f}, max {max(times[1:]):.1f}; first call "
+            f"{times[0]:.1f} ms), loss {loss:.4f}, flash_attention "
+            f"{launches['flash_attention']} launches in the "
+            f"{DENSE_FULL_CALLS} calls"), launches
+
+
+# a forward batch's input key -> the decode step's (models/cache.py)
+DECODE_KEY = {"tokens": "token", "embeds": "embed"}
+
+
+def _model_inputs(cfg, rng, B: int, S: int) -> tuple[str, torch.Tensor]:
+    """Inputs for ``cfg``'s own family, with their forward batch key:
+    tokens (B, S), tokens (B, S, K) with K codebooks, or f32 embeddings
+    (B, S, D) without ``embed_inputs``."""
+    if not cfg.embed_inputs:
+        return "embeds", torch.from_numpy(
+            (rng.normal(size=(B, S, cfg.d_model)) * 0.1).astype(np.float32))
+    shape = (B, S, cfg.num_codebooks) if cfg.num_codebooks else (B, S)
+    return "tokens", torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, size=shape))
 
 
 def phase_new_arch_reference(dev, arch: str) -> None:
     """Phase 8c: the reduced ``arch`` (each of NEW_ARCHS) on the card
-    (kernels) and on the CPU (plain versions) from the same weights: the
-    forward's logits and a teacher-forced decode within 1e-4 (f32), the
-    card's decode within 1e-4 of its forward, and one Sketchy step through
-    ``launch.train`` (NEW_ARCH_ARGV: rank 8, block 32, a refresh at the
-    step): the same loss (relative 1e-4) and parameters (1e-3 relative,
-    1e-4 absolute).  The card's forward launches kernel 7 once a layer."""
+    (kernels) and on the CPU (plain versions) from the same weights, on
+    its family's own inputs (``_model_inputs``): the forward's logits and a
+    teacher-forced decode within 1e-4 (f32), the card's decode within 1e-4
+    of its forward, and one Sketchy step through ``launch.train``
+    (NEW_ARCH_ARGV: rank 8, block 32, a refresh at the step): the same
+    loss (relative 1e-4) and parameters (1e-3 relative, 1e-4 absolute).
+    The card's forward launches kernel 7 once a layer."""
     cfg = registry.get_reduced(arch)
     params = model_lib.init_params(cfg, torch.Generator().manual_seed(0))
-    toks = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, size=(2, 10)))
+    key, inputs = _model_inputs(cfg, np.random.default_rng(1), 2, 10)
     out = {}
     for device in (dev, torch.device("cpu")):
         p = tree.unflatten(params, [x.to(device)
                                     for x in tree.flatten(params)])
         _zero_counts()
         with torch.no_grad():
-            logits = model_lib.forward(cfg, p, {"tokens": toks.to(device)})
+            logits = model_lib.forward(cfg, p, {key: inputs.to(device)})
         flash = _counts()["flash_attention"]
         if device.type == "cuda" and flash != cfg.num_layers:
             fail(f"new arch reference ({arch}): {flash} flash launches in "
                  f"the forward, expected {cfg.num_layers}")
         c = cache_lib.init_cache(cfg, 2, 16, device=device)
-        steps = [cache_lib.decode_step(cfg, p, c, {"token": toks[:, t:t + 1]
-                                                   .to(device)}, t)[0]
-                 for t in range(toks.shape[1])]
+        steps = [cache_lib.decode_step(cfg, p, c, {
+            DECODE_KEY[key]: inputs[:, t:t + 1].to(device)}, t)[0]
+            for t in range(inputs.shape[1])]
         run, log = train_lib.train(train_lib.parse_args(
             NEW_ARCH_ARGV + ["--arch", arch, "--device", str(device)]), p)
         out[device.type] = (logits.cpu(), torch.cat(steps, 1).cpu(),
@@ -2126,6 +2197,236 @@ def phase_new_arch_reference(dev, arch: str) -> None:
         fail(f"new arch reference ({arch}): the Sketchy step disagrees")
 
 
+@contextlib.contextmanager
+def _cut_depth(layers: int):
+    """``registry.get_config`` returning configs cut to ``layers`` layers,
+    their widths kept: how phase 9a cuts the depth of what
+    ``launch.train`` builds, which has no depth flag (nor has the
+    reference's)."""
+    get = registry.get_config
+    with mock.patch.object(registry, "get_config", lambda name: dataclasses
+                           .replace(get(name), num_layers=layers)):
+        yield
+
+
+@contextlib.contextmanager
+def _expandable_segments():
+    """The caching allocator with expandable segments for phase 9a only:
+    qwen2-vl-72b's refresh frees (2,032, 1088, 1088) f32 stacks of 9.6 GB,
+    the grafting then asks for 5 GB tensors, and with whole segments 15.7
+    GiB stayed reserved but unusable and the step ran out of memory (PERF.md
+    §6).  The cached segments are released on the way in and out, so the
+    phases before and after run on the allocator's defaults."""
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+
+
+def phase_train_full(dev, arch: str, layers: int, groups: int,
+                     second_moment_bytes: int) -> dict:
+    """Phase 9a: ``arch`` trained at full width with ``layers`` of its
+    layers through ``repro_torch.launch.train`` (TRAIN_FULL_ARGV: Sketchy
+    at the launcher's defaults, 3 steps, the peak lr of TRAIN_FULL_LR),
+    under ``_expandable_segments``, every launch count set to 0 just before
+    and read just after: the refresh at count 0 launches kernel 1 once a
+    side of each of the ``groups`` pool groups, kernel 2 twice a group
+    every step, kernel 7 twice a layer every step (the forward and the
+    remat recompute); no other kernel.  Each ``eigh`` call is timed on the
+    host clock between two synchronizations.  Fails unless every loss is
+    finite and near log(V) (random weights; musicgen's averages its 4
+    codebooks), the last step's loss is below the first's, every weight
+    matrix moved and no leaf by more than the grafted step allows, the loss
+    of batch 0 under the trained weights is below step 0's (the same batch
+    before any update), and the second-moment bytes are the reference's.
+    Prints the step times, ``eigh``'s, the peak memory allocated and
+    reserved, the losses, the updates' sizes and the bytes; returns the
+    launch counts with the peaks."""
+    label = f"train full width ({arch}, {layers} of its layers)"
+    args = train_lib.parse_args(TRAIN_FULL_ARGV + [
+        "--arch", arch, "--lr", TRAIN_FULL_LR[arch]])
+    cfg = dataclasses.replace(registry.get_config(arch), num_layers=layers)
+    eigh, eighs = fd_lib._eigh, []
+
+    def timed_eigh(C):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = eigh(C)
+        torch.cuda.synchronize(dev)
+        eighs.append((C.shape[0], time.perf_counter() - t0))
+        return out
+
+    with _expandable_segments():
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_counts()
+        with _cut_depth(layers), mock.patch.object(fd_lib, "_eigh",
+                                                   timed_eigh):
+            run, log = train_lib.train(args)
+        launches = _counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        reserved = torch.cuda.max_memory_reserved(dev)
+        nbytes = api.second_moment_bytes(run.opt_state)
+        run.opt_state = None
+        with torch.no_grad():
+            trained_loss = float(model_lib.loss_fn(cfg, run.params,
+                                                   run.batch(0)))
+        # the seeded initialization again, leaf by leaf against the
+        # trained weights: the RMS of each leaf's update over 3 steps, and
+        # which leaves are weight matrices (two dims a layer or more)
+        init = model_lib.init_params(cfg, torch.Generator(
+            device=dev).manual_seed(args.seed), device=dev)
+        leaves = tree.flatten(run.params)
+        stacked = {id(p) for p in tree.flatten(run.params["layers"])}
+        matrix = [p.dim() - (id(p) in stacked) >= 2 for p in leaves]
+        updates = [float(torch.linalg.vector_norm((a - b).detach().float()))
+                   / math.sqrt(a.numel())
+                   for a, b in zip(leaves, tree.flatten(init))]
+        n_params = sum(p.numel() for p in leaves)
+        del run, init, leaves
+    steps = TRAIN_FULL_STEPS
+    expected = dict(dict.fromkeys(COUNTERS, 0), batched_gram=2 * groups,
+                    batched_lowrank_apply=2 * groups * steps,
+                    flash_attention=2 * layers * steps)
+    losses = [r["loss"] for r in log]
+    log_v = math.log(cfg.vocab_size)
+    print(f"{label}: {n_params} bf16 parameters, lr {args.lr}; step times "
+          f"(s) {[r['time_s'] for r in log]} (refresh at step 0); eigh "
+          f"{[f'{n} matrices in {t:.3f} s' for n, t in eighs]}; losses "
+          f"{losses} (log V {log_v:.4f}); batch 0 after the run "
+          f"{trained_loss} (step 0: {losses[0]}); update RMS per leaf "
+          f"{min(updates):.3e}-{max(updates):.3e}, {updates.count(0.0)} of "
+          f"{len(updates)} leaves unmoved ({sum(matrix)} weight matrices, "
+          f"all moved); peak memory allocated "
+          f"{peak} B, reserved {reserved} B of "
+          f"{torch.cuda.get_device_properties(dev).total_memory} B; "
+          f"second-moment bytes {nbytes}; launches {launches}")
+    if not all(math.isfinite(x) and abs(x - log_v) < 3.0 for x in losses):
+        fail(f"{label}: losses {losses}, log V {log_v}")
+    if not losses[-1] < losses[0]:
+        fail(f"{label}: the loss did not fall, {losses}")
+    # a vector leaf may stay: in bf16 an update under half the spacing of
+    # its entries rounds away (the stacked norm scales and biases are drawn
+    # at unit scale, as the reference draws them), and the key bias has no
+    # gradient (the softmax ignores a shift shared by every key)
+    if not all(u > 0.0 for u, m in zip(updates, matrix) if m):
+        fail(f"{label}: a weight matrix never moved, {updates}")
+    # each block's direction has the norm of its grafted RMSProp direction,
+    # whose entries are at most 1/sqrt(1 - beta2) in size; the EMA momentum
+    # at step t keeps 1 - beta1^t of that; weight decay (1e-4 of weights
+    # near 1 at most) adds under 1 %.  A larger RMS means the
+    # initialization drawn again is not the run's.
+    opt = OptimizerConfig()
+    most = 1.01 * args.lr * sum(1 - opt.beta1 ** t for t in range(
+        1, steps + 1)) / math.sqrt(1 - opt.beta2)
+    if not max(updates) < most:
+        fail(f"{label}: an update's RMS {max(updates)} is over {most}")
+    if not trained_loss < losses[0]:
+        fail(f"{label}: batch 0's loss {trained_loss} after the run, "
+             f"{losses[0]} before")
+    if launches != expected:
+        fail(f"{label}: launches {launches}, expected {expected}")
+    if nbytes != second_moment_bytes:
+        fail(f"{label}: second-moment bytes {nbytes}, expected "
+             f"{second_moment_bytes}")
+    return dict(launches, peak=peak, reserved=reserved)
+
+
+def phase_vlm_audio_full(dev, arch: str, layers) -> dict:
+    """Phase 9b: ``arch`` at full width (``layers`` of its layers when not
+    None), bf16, seeded weights, through ``model_lib`` and ``cache_lib``
+    (the serving engine refuses these archs, as the reference's does): a
+    forward at DENSE_FULL_BATCH x DENSE_FULL_SEQ on the pipeline's inputs
+    (``_full_batch``: the vlm's embeddings, musicgen's (B, S, 4) tokens;
+    the launcher's seed, so the vlm's 4.98 GB embeddings table drawn in
+    phase 9a is drawn once), finite; a teacher-forced decode of its first
+    VLM_AUDIO_DECODE positions against the forward's logits within
+    DECODE_BF16_RTOL of their norm; then the feedback gradients of phase 7d
+    (``_head_gradients``).  Returns the gradients' launch counts."""
+    cfg = registry.get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    label = f"vlm/audio full width ({arch}" + (
+        f", {layers} of its layers)" if layers else ")")
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model_lib.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    n_params = sum(p.numel() for p in tree.flatten(params))
+    batch = _full_batch(cfg, dev, seed=train_lib.parse_args([]).seed)
+    key = "embeds" if "embeds" in batch else "tokens"
+    _zero_counts()
+    with torch.no_grad():
+        logits = model_lib.forward(cfg, params, batch)
+    torch.cuda.synchronize()
+    flash = _counts()["flash_attention"]
+    B, S = batch["labels"].shape[:2]
+    if tuple(logits.shape) != tuple(batch["labels"].shape) + (
+            cfg.vocab_size,) or not bool(torch.isfinite(logits).all()) \
+            or flash != cfg.num_layers:
+        fail(f"{label}: forward logits {tuple(logits.shape)}, finite "
+             f"{bool(torch.isfinite(logits).all())}, flash launches {flash}")
+    n = VLM_AUDIO_DECODE
+    want = logits[:, :n].float()
+    del logits
+    cache = cache_lib.init_cache(cfg, B, n, device=dev)
+    t0 = time.perf_counter()
+    got = torch.cat([cache_lib.decode_step(
+        cfg, params, cache, {DECODE_KEY[key]: batch[key][:, t:t + 1]}, t)[0]
+        for t in range(n)], 1).float()
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    del cache
+    err = got - want
+    rel = float(err.norm() / want.norm())
+    same_top = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    print(f"{label}: teacher-forced decode of {n} positions vs the forward "
+          f"at B {B}, S {S}: relative error {rel:.3e} (tolerance "
+          f"{DECODE_BF16_RTOL}), max abs diff {float(err.abs().max()):.3e} "
+          f"of logits up to {float(want.abs().max()):.3e}, same argmax "
+          f"{same_top:.4f}; {n} steps in {decode_s:.2f} s")
+    if not rel <= DECODE_BF16_RTOL:
+        fail(f"{label}: decode disagrees with the forward")
+    del got, want, err
+    report, launches = _head_gradients(label, cfg, params, batch)
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"{label} ({n_params} bf16 parameters; hd {cfg.head_dim}): "
+          f"{report}; peak memory allocated {peak} bytes")
+    del params, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def start_table_draws() -> list:
+    """Start drawing the embeddings table of every TRAIN_FULL arch that
+    takes embeddings (qwen2-vl-72b's 1.25 G normals, tens of seconds on
+    the host) in a thread, to run beside the kernel build, before any phase
+    is timed; ``data.pipeline.embedding_table`` keeps it for phases 9a and
+    9b.  Returns the threads."""
+    from repro_torch.data import pipeline as data_lib
+    seed = train_lib.parse_args([]).seed
+    draws = []
+    for arch, *_ in TRAIN_FULL:
+        cfg = registry.get_config(arch)
+        if not cfg.embed_inputs:
+            draws.append(threading.Thread(
+                target=data_lib.embedding_table,
+                args=(seed, cfg.vocab_size, cfg.d_model),
+                name=f"{arch}'s embeddings table ({cfg.vocab_size} x "
+                     f"{cfg.d_model} f32)"))
+            draws[-1].start()
+    return draws
+
+
+def lap(t0: float):
+    """``done(phase)`` prints the seconds since ``t0`` as ``phase`` ends:
+    where the script's time goes."""
+    def done(phase: str) -> None:
+        print(f"[{time.perf_counter() - t0:.1f} s] phase {phase} done")
+    return done
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2142,19 +2443,27 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+    draws = start_table_draws()
     build.build_all()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    for draw in draws:
+        draw.join()
+        print(f"{draw.name} drawn beside the build, on the host: ready "
+              f"{time.perf_counter() - t0:.1f} s after the build started")
     # kernels 1, 5, 7, 6, 8, 2 and 2'
     for lib in ("gram", "flash", "project_quantize", "ssd", "lowrank"):
         for fn, regs, smem, spill_st, spill_ld in build.resources(lib):
             print(f"{lib}: {fn}: {regs} registers, {smem} B static shared "
                   f"memory, spills {spill_st} B stored / {spill_ld} B "
                   f"loaded")
+    done = lap(t0)
+    done("1")
 
     kernels = phase_kernels(dev)
     phase_shampoo_grams(dev, torch.Generator(device=dev).manual_seed(3))
     phase_eigh(dev)
     phase_shampoo_eigh(dev)
+    done("2, 3")
     none = dict.fromkeys(COUNTERS, 0)
     flash = dict(flash_attention=12 * TRAIN_FLASH_PER_STEP)
     fp32 = phase_main_path(dev, MAIN_PATH_ARGV, dict(
@@ -2189,10 +2498,12 @@ def main() -> int:
     print(f"Shampoo's main path: kernel 1 (batched_gram) launched "
           f"{shampoo['batched_gram']} times over 12 steps (8 a step), "
           f"flash attention {shampoo['flash_attention']}")
+    done("4")
     for argv in (MAIN_PATH_ARGV, MAIN_PATH_ARGV + INT8_ARGV,
                  MAIN_PATH_ARGV + SHAMPOO_ARGV, MAIN_PATH_ARGV + ADAM_ARGV):
         phase_profile(dev, argv)
     phase_span_profile(dev)
+    done("5")
     phase_reference(dev, "fp32")
     phase_reference(dev, "int8")
     phase_reference(dev, "fp32", "shampoo")
@@ -2204,8 +2515,11 @@ def main() -> int:
     phase_reference(dev, "fp32", "shampoo",
                     SHAMPOO_STAGGERED_ASYNC_ARGV[len(SHAMPOO_ARGV):])
     phase_async_equality(dev)
+    done("6")
     phase_checkpoint(dev, smi)
+    done("6a")
     phase_convex(dev)
+    done("6b")
     served = phase_serve(dev, SERVE_ARGV)[0]
     adapted = phase_serve(dev, ADAPT_ARGV)[0]
     if served["gram"] == 0:
@@ -2214,23 +2528,33 @@ def main() -> int:
         fail("serve: the adapting run launched no single-block apply")
     phase_serve_profile(dev)
     phase_serve_reference(dev)
+    done("7, 8")
     zamba, report = phase_serve(dev, ZAMBA_SERVE_ARGV)
     for name in ("gram", "lowrank_apply", "flash_attention", "ssd_scan"):
         if zamba[name] == 0:
             fail(f"serve (zamba2-7b): {name} was never launched")
-    params, readings = report["params"], report["readings"]
+    params = report["params"]
     del report
     phase_zamba_gradient_profile(dev, params)
     del params
     torch.cuda.empty_cache()
-    phase_zamba_scan_witness(readings)
     phase_serve_reference(dev, "zamba2-7b")
     phase_serve_reference(dev, "mamba2-370m")
+    done("7b, 8b")
     moe = phase_moe_serve(dev)
+    done("7c")
     dense = {arch: phase_dense_full(dev, arch, layers)
              for arch, layers in DENSE_FULL}
+    done("7d")
     for arch in NEW_ARCHS:
         phase_new_arch_reference(dev, arch)
+    done("8c")
+    trained = {arch: phase_train_full(dev, arch, *rest)
+               for arch, *rest in TRAIN_FULL}
+    done("9a")
+    vlm_audio = {arch: phase_vlm_audio_full(dev, arch, layers)
+                 for arch, layers in VLM_AUDIO_FULL}
+    done("9b")
 
     hd256 = kernels.pop("flash_attention_hd256")
     for name in kernels:
@@ -2243,6 +2567,10 @@ def main() -> int:
         hd256, launches=dense["gemma-2b"]["flash_attention"])
     print(f"deepseek-moe-16b serving: flash_attention "
           f"{moe['flash_attention']}, gram {moe['gram']} launches")
+    for arch in trained:
+        print(f"{arch} trained at full width: {trained[arch]}; its "
+              f"feedback gradients: flash_attention "
+              f"{vlm_audio[arch]['flash_attention']}")
     print(smi)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,13 @@
-"""What is live on the card at the peak of chip_smoke.py's phase 7c
-(deepseek-moe-16b served at full width with the monitor and the adapter).
+"""What is live on the card at the peak of a phase of chip_smoke.py: 7c
+(deepseek-moe-16b served at full width with the monitor and the adapter),
+or 9a (the vlm and audio families trained at full width, each run of
+TRAIN_FULL traced apart).
 
-    python3 memory_peak.py alone    # the phase first in its process
-    python3 memory_peak.py script   # the whole chip_smoke.py, phase 7c traced
+    python3 memory_peak.py alone [PHASE]   # the phase first in its process
+    python3 memory_peak.py script [PHASE]  # the whole chip_smoke.py, the
+                                           # phase traced
+
+PHASE is ``moe`` (7c, the default) or ``train-full`` (9a).
 
 Records the caching allocator's history over the phase
 (``torch.cuda.memory._record_memory_history``), replays its allocations and
@@ -55,28 +60,38 @@ def report(tag: str) -> None:
 
 
 def traced(phase, tag: str):
-    def run(dev):
+    def run(dev, *args):
         torch.cuda.memory._record_memory_history(max_entries=3_000_000,
                                                  stacks="python")
-        out = phase(dev)
-        report(tag)
+        out = phase(dev, *args)
+        report(f"{tag} {' '.join(map(str, args[:2]))}".strip())
         torch.cuda.memory._record_memory_history(enabled=None)
         return out
     return run
 
 
+# PHASE -> (chip_smoke's function, the argument tuples of its calls)
+PHASES = {"moe": ("phase_moe_serve", [()]),
+          "train-full": ("phase_train_full", chip_smoke.TRAIN_FULL)}
+
+
 def main() -> int:
-    if not torch.cuda.is_available() or sys.argv[1:] not in (["alone"],
-                                                              ["script"]):
+    argv = sys.argv[1:]
+    if not torch.cuda.is_available() or not argv \
+            or argv[0] not in ("alone", "script") \
+            or argv[1:] not in ([], ["moe"], ["train-full"]):
         print(__doc__, file=sys.stderr)
         return 1
-    if sys.argv[1] == "script":
-        chip_smoke.phase_moe_serve = traced(chip_smoke.phase_moe_serve,
-                                            "script")
+    name, calls = PHASES[argv[1] if argv[1:] else "moe"]
+    if argv[0] == "script":
+        setattr(chip_smoke, name, traced(getattr(chip_smoke, name),
+                                         "script"))
         return chip_smoke.main()
     torch.backends.cuda.matmul.allow_tf32 = False
     chip_smoke.build.build_all()
-    traced(chip_smoke.phase_moe_serve, "alone")(torch.device("cuda", 0))
+    for args in calls:
+        traced(getattr(chip_smoke, name), "alone")(torch.device("cuda", 0),
+                                                   *args)
     return 0
 
 

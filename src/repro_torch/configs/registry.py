@@ -1,9 +1,8 @@
 """Architecture registry (port of the ``get_config`` / ``get_reduced`` part
-of repro/configs/registry.py).  Ported: the dense paper-lm-100m,
-phi3-mini-3.8b, qwen2.5-32b, qwen3-32b and gemma-2b, the moe
-deepseek-moe-16b and kimi-k2-1t-a32b, mamba2-370m (ssm) and zamba2-7b
-(hybrid).  The vlm qwen2-vl-72b and the audio musicgen-large wait for
-ROADMAP.md queue 1 items 13(c) and 13(d)."""
+of repro/configs/registry.py), with every architecture of the reference:
+the dense paper-lm-100m, phi3-mini-3.8b, qwen2.5-32b, qwen3-32b and
+gemma-2b, the moe deepseek-moe-16b and kimi-k2-1t-a32b, mamba2-370m (ssm),
+zamba2-7b (hybrid), qwen2-vl-72b (vlm) and musicgen-large (audio)."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,6 +11,7 @@ import importlib
 from repro_torch.models.config import ModelConfig
 
 ALIASES = {
+    "qwen2-vl-72b": "qwen2_vl_72b",
     "zamba2-7b": "zamba2_7b",
     "qwen2.5-32b": "qwen2_5_32b",
     "phi3-mini-3.8b": "phi3_mini_3_8b",
@@ -19,21 +19,14 @@ ALIASES = {
     "qwen3-32b": "qwen3_32b",
     "deepseek-moe-16b": "deepseek_moe_16b",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "musicgen-large": "musicgen_large",
     "mamba2-370m": "mamba2_370m",
     "paper-lm-100m": "paper_lm_100m",
 }
-# not ported yet: module name -> its ROADMAP.md queue 1 item
-WAITING = {"qwen2_vl_72b": "13(c) (the vlm family)",
-           "musicgen_large": "13(d) (the audio family)"}
 
 
 def get_config(name: str) -> ModelConfig:
     mod_name = ALIASES.get(name, name.replace("-", "_").replace(".", "_"))
-    if mod_name in WAITING:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported yet: it waits for "
-            f"ROADMAP.md queue 1 item {WAITING[mod_name]}; ported: "
-            f"{sorted(ALIASES)}")
     if mod_name not in ALIASES.values():
         raise ValueError(f"unknown architecture {name!r}; ported: "
                          f"{sorted(ALIASES)}")

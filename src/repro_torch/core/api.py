@@ -178,12 +178,17 @@ def graft_direction(g: torch.Tensor, acc: torch.Tensor, *, graft: str,
                     beta2):
     """Grafting direction + updated accumulator (paper App. C,
     RMSPROP_NORMALIZED); f32 tensors.  ``graft="none"`` returns the
-    gradient and the accumulator unchanged."""
+    gradient and the accumulator unchanged.  The temporaries are updated
+    in place, in the order and with the bits of ``beta2 * acc + (1 -
+    beta2) * gn², gn * rsqrt(acc + eps)``: qwen2-vl-72b's head is 4.98 GB
+    in f32, and two of its temporaries fewer are 10 GB."""
     if graft == "none":
         return g, acc
     gn = g / (torch.linalg.norm(g) + 1e-16)
-    acc = beta2 * acc + (1.0 - beta2) * torch.square(gn)
-    return gn * torch.rsqrt(acc + GRAFT_EPS), acc
+    sq = torch.square(gn).mul_(1.0 - beta2)
+    acc = torch.mul(acc, beta2).add_(sq)
+    del sq
+    return torch.add(acc, GRAFT_EPS).rsqrt_().mul_(gn), acc
 
 
 def _batched_method(precond, name: str) -> Optional[Callable]:
@@ -337,8 +342,10 @@ def scale_by_preconditioner(precond, cfg: EngineConfig = EngineConfig()
     def update_fn(updates, state, params=None):
         count = state.count
         index = index_of(updates)
-        g32 = [g.float() for g in updates]
-        packed = pool.pack(index, g32)
+        # the f32 gradients live only in the pool stacks while the pools
+        # refresh; the per-leaf pass below casts each again (exactly):
+        # qwen2-vl-72b's are 8.5 GB
+        packed = pool.pack(index, [g.float() for g in updates])
         # stochastic requantization keyed by step (and below by group or
         # leaf), as the reference folds its PRNG key
         qkey = (QUANTIZE_SEED, count) if qdtype == "int8" else None
@@ -397,10 +404,13 @@ def scale_by_preconditioner(precond, cfg: EngineConfig = EngineConfig()
                         key=gkey),
                     valid=True)
 
+        # the pool stacks are done with, freed before the per-leaf
+        # grafting temporaries
+        del packed
         out, leaves = [], []
         for i, (g, leaf, plan) in enumerate(zip(updates, state.leaves,
                                                 index.leaves)):
-            gi = g32[i]
+            gi = g.float()
             if plan.group is None:   # diagonal (RMSProp) fallback
                 acc = cfg.beta2 * quantize.dequantize_pool(leaf.stats) \
                     + (1.0 - cfg.beta2) * torch.square(gi)

@@ -80,7 +80,7 @@ def fd_update(state: FDState, new_factor: torch.Tensor,
 
     lam_top, V, inv_sqrt = _top_eigenpairs(KERNELS.gram(M), ell)
     rho_t = lam_top[..., ell - 1]
-    U_new = torch.matmul(M, V[:, :ell]).mul_(inv_sqrt[None, :])
+    U_new = torch.matmul(M, V).mul_(inv_sqrt[None, :])
     return FDState(eigvecs=U_new.to(U.dtype),
                    eigvals=(lam_top - rho_t).to(s.dtype),   # last entry 0
                    rho=(beta2 * rho + rho_t).to(rho.dtype))
@@ -120,7 +120,7 @@ def fd_update_batched(state: FDState, new_factor: torch.Tensor,
 
     lam_top, V, inv_sqrt = _top_eigenpairs(KERNELS.batched_gram(M), ell)
     rho_t = _escaped_eigval(lam_top, active_k, ell)
-    U_new = torch.matmul(M, V[..., :ell]) * inv_sqrt[:, None, :]
+    U_new = torch.matmul(M, V) * inv_sqrt[:, None, :]
     s_new = lam_top - rho_t[..., None]            # deflate: last entry 0
     if kmask is not None:
         U_new = torch.where(kmask[:, None, :], U_new, 0.0)
@@ -162,7 +162,7 @@ def _fd_update_batched_quantized(U: QuantizedPool, s: torch.Tensor,
     # fold the column weights into the top half, so the projection reads
     # the raw int8 values (row-major copies: the kernel reads them so, and
     # eigh on the card returns V column-major)
-    W = V[..., :ell] * inv_sqrt[:, None, :]       # (N, ell + r, ell)
+    W = V * inv_sqrt[:, None, :]                  # (N, ell + r, ell)
     if kmask is not None:
         # zero output columns stay zero through the in-kernel quantization
         W = torch.where(kmask[:, None, :], W, 0.0)
@@ -198,15 +198,23 @@ def _escaped_eigval(lam_top: torch.Tensor, active_k: Optional[torch.Tensor],
 
 
 def _top_eigenpairs(C: torch.Tensor, ell: int) -> tuple:
-    """Of the symmetrized Gram stack C: the top ``ell`` eigenvalues
-    descending (negatives clipped), all eigenvectors in descending order,
-    and ``lam^-1/2`` of the top ``ell`` (0 where lam <= 1e-30)."""
-    lam, V = _eigh(0.5 * (C + C.mT))              # ascending, batched
+    """Of the Gram stack C, symmetrized: the top ``ell`` eigenvalues
+    descending (negatives clipped), their eigenvectors in that order, and
+    ``lam^-1/2`` of them (0 where lam <= 1e-30).
+
+    C is the caller's temporary and is symmetrized in place, 0.5 (C + Cᵀ)
+    with the bits of the out-of-place sum, and only the top ``ell``
+    eigenvectors are flipped into order: a refresh of N blocks then holds
+    M, C and the eigenvectors, three (N, ell + r, ell + r)-sized stacks,
+    not five (qwen2-vl-72b's 2,032 blocks of 1024 x 1088 take 9.6 GB
+    each)."""
+    C.add_(C.mT.clone()).mul_(0.5)
+    lam, V = _eigh(C)                             # ascending, batched
     lam = torch.clamp(lam.flip(-1), min=0.0)      # descending, clip negatives
     lam_top = lam[..., :ell]
     inv_sqrt = torch.where(lam_top > 1e-30,
                            torch.rsqrt(torch.clamp(lam_top, min=1e-30)), 0.0)
-    return lam_top, V.flip(-1), inv_sqrt
+    return lam_top, V[..., -ell:].flip(-1), inv_sqrt
 
 
 def fd_resize_batched(state: FDState, new_k: torch.Tensor) -> FDState:

@@ -124,13 +124,19 @@ class Run:
     params: dict
     opt_state: Any
 
+    def batch(self, step: int) -> dict:
+        """Batch ``step`` on the device: token leaves as long, the vlm's
+        ``embeds`` as f32 (the model casts them to its dtype, as the
+        reference does)."""
+        return {k: torch.from_numpy(v).to(
+            device=self.device,
+            dtype=torch.float32 if v.dtype.kind == "f" else torch.long)
+            for k, v in self.data.batch(step).items()}
+
     def step(self, step: int) -> dict:
         """Train on batch ``step``; returns the step's metrics tensors."""
-        batch = {k: torch.from_numpy(v).to(device=self.device,
-                                           dtype=torch.long)
-                 for k, v in self.data.batch(step).items()}
         self.params, self.opt_state, metrics = self.step_fn(
-            self.params, self.opt_state, batch)
+            self.params, self.opt_state, self.batch(step))
         return metrics
 
 
@@ -154,9 +160,10 @@ def start(args: argparse.Namespace, params: Optional[dict] = None) -> Run:
         profile_annotations=args.profile_annotations,
         second_moment_dtype=args.second_moment_dtype,
         quantized_epilogue=args.quantized_epilogue))
-    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
-                                  seq_len=args.seq, global_batch=args.batch,
-                                  seed=args.seed))
+    data = SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=args.seq, global_batch=args.batch,
+        seed=args.seed, num_codebooks=cfg.num_codebooks,
+        embed_dim=0 if cfg.embed_inputs else cfg.d_model))
     if params is None:
         gen = torch.Generator(device=device).manual_seed(args.seed)
         params = model_lib.init_params(cfg, gen, device=device)

@@ -5,7 +5,9 @@ serving (``attention_decode`` :207) in plain tensor ops, as the reference
 writes it (its XLA ``_chunk_attend``).  Queries are grouped, so KV heads are
 never repeated in memory.  ``qkv_bias`` (qwen2.5) adds a bias to q, k and v
 before the head reshape; ``qk_norm`` (qwen3) RMS-normalizes q and k over
-the head dim before RoPE; decode projects through the same code."""
+the head dim before RoPE; decode projects through the same code.
+Positions are (B, S), or (3, B, S) with ``mrope`` (qwen2-vl), as
+``layers.apply_rope`` takes them."""
 from __future__ import annotations
 
 import torch
@@ -89,14 +91,17 @@ def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
     """One-token decode: x (B, 1, D), cache_k/v (B, Smax, KV, hd), ``pos``
     an int shared by every lane or a (B,) long tensor of per-lane positions
     (each lane's cache write, RoPE phase and causal mask follow its own
-    position).  Writes this token's k, v into the caches in place (the
-    reference returns new caches) and returns the sublayer output
-    (B, 1, D)."""
+    position; with ``mrope`` all three position streams are the lane's).
+    Writes this token's k, v into the caches in place (the reference
+    returns new caches) and returns the sublayer output (B, 1, D)."""
     B = x.shape[0]
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if not isinstance(pos, torch.Tensor):
         pos = torch.full((B,), pos, dtype=torch.long, device=x.device)
-    q, k, v = _project_qkv(cfg, p, x, pos[:, None])
+    positions = pos[:, None]                              # (B, 1)
+    if cfg.mrope:                   # the three streams at the lane's pos
+        positions = positions[None].expand(3, B, 1)
+    q, k, v = _project_qkv(cfg, p, x, positions)
     lanes = torch.arange(B, device=x.device)
     cache_k[lanes, pos] = k[:, 0].to(cache_k.dtype)
     cache_v[lanes, pos] = v[:, 0].to(cache_v.dtype)

@@ -1,14 +1,16 @@
-"""Decode caches and the one-token decode step of the dense, moe, ssm and
-hybrid families (port of repro/models/cache.py :26-72, :84-112, :145-223).
+"""Decode caches and the one-token decode step of every family (port of
+repro/models/cache.py :26-72, :84-112, :145-223).
 
 Cache layouts, stacked over layers (batch is axis 1 of every tensor):
-  dense, moe: attention k/v (L, B, Smax, KV, hd), the moe family's dense
-          layers first
+  dense, moe, vlm, audio: attention k/v (L, B, Smax, KV, hd), the moe
+          family's dense layers first
   ssm:    ssm (L, B, H, P, N) in f32 and conv (L, B, W-1, conv_dim)
   hybrid: the ssm layout for all L layers, and attention k/v only at the
           shared-attention sites (n_sites, B, Smax, KV, hd)
-in the model's dtype except the f32 SSM state.  The vlm and audio
-families are not ported yet (ROADMAP.md queue 1 items 13(c), 13(d)).  The
+in the model's dtype except the f32 SSM state.  The vlm decodes an
+embedding ``batch["embed"]`` (B, 1, D) with M-RoPE at the lanes'
+positions, the audio family tokens ``batch["token"]`` (B, 1, K) into
+(B, 1, K, V) logits, as the reference renames them (:94-98).  The
 moe family decodes its dense layers against ``k[:fd]``, ``v[:fd]`` and its
 moe layers against ``k[fd:]``, ``v[fd:]``, the moe sublayer in place of
 the MLP (reference :127-130, :145-171).  The reference
@@ -32,15 +34,12 @@ from repro_torch.models.layers import rms_norm
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int
                  ) -> Dict[str, tuple]:
-    if cfg.family not in model_lib.FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} cache layout is not ported yet "
-            f"(ROADMAP.md queue 1 items 13(c), 13(d)); the port serves the "
-            f"{', '.join(model_lib.FAMILIES)} families")
     L, B = cfg.num_layers, batch
     kv = (max_seq, cfg.num_kv_heads, cfg.head_dim)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in model_lib.ATTENTION_STACKS:
         return {"k": (L, B) + kv, "v": (L, B) + kv}
+    if cfg.family not in ("ssm", "hybrid"):
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     shapes = {
         "ssm": (L, B, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
         "conv": (L, B, cfg.ssm_conv_width - 1,
@@ -99,13 +98,17 @@ def _mamba_layer_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: dict, cache: Dict[str, torch.Tensor],
                 batch: dict, pos):
-    """One-token decode: ``batch["token"]`` (B, 1) long; ``pos`` an int,
-    the write position shared by every lane (the cache holds [0, pos)), or
-    a (B,) long tensor of per-lane positions (continuous batching).
-    Returns (logits (B, 1, V), cache), the cache updated in place."""
+    """One-token decode: ``batch["token"]`` (B, 1) long, (B, 1, K) with K
+    codebooks, or ``batch["embed"]`` (B, 1, D) without ``embed_inputs``;
+    ``pos`` an int, the write position shared by every lane (the cache
+    holds [0, pos)), or a (B,) long tensor of per-lane positions
+    (continuous batching).  Returns (logits (B, 1, V) or (B, 1, K, V),
+    cache), the cache updated in place."""
     model_lib.check_supported(cfg)
-    x = model_lib.embed_tokens(cfg, params, {"tokens": batch["token"]})
-    if cfg.family in ("dense", "moe"):
+    names = {"token": "tokens", "embed": "embeds"}
+    x = model_lib.embed_tokens(cfg, params, {names.get(k, k): v
+                                             for k, v in batch.items()})
+    if cfg.family in model_lib.ATTENTION_STACKS:
         i = 0
         for stacked in model_lib.stacks(params):
             for j in range(tree.flatten(stacked)[0].shape[0]):

@@ -3,8 +3,7 @@
 The fields are the reference's, so configurations and their reduced
 variants are built the same way in both packages, and the parameter
 accounting is the reference's (``param_count``, ``active_param_count``).
-The port's model runs the dense, moe, ssm and hybrid families
-(models/model.py says which features).
+The port's model runs every family (models/model.py).
 """
 from __future__ import annotations
 

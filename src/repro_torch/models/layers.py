@@ -1,5 +1,5 @@
-"""Shared layers: RMS norm, RoPE, gated MLP (port of repro/models/layers.py,
-plain RoPE).
+"""Shared layers: RMS norm, RoPE and M-RoPE, gated MLP (port of
+repro/models/layers.py).
 
 The activations round as the reference's jitted graph rounds them: XLA
 lowers ``jax.nn.silu`` to negate, exp, add 1 and divide, and
@@ -31,9 +31,26 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
-    """x: (B, S, H, hd), positions: (B, S)."""
-    freqs = rope_freqs(x.shape[-1], theta, device=x.device)
-    angles = positions[..., None].float() * freqs        # (B, S, hd/2)
+    """x: (B, S, H, hd); positions (B, S), or (3, B, S) for M-RoPE.
+
+    M-RoPE (qwen2-vl, reference :26-56): the hd/2 rotary frequencies split
+    into (temporal, height, width) sections (s1, s2, n - s1 - s2), n =
+    hd/2, s1 = n // 4, s2 = (n - s1) // 2, each rotated by its own
+    position stream; when the three streams coincide it is plain RoPE."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)
+    if positions.dim() == 2:                             # plain RoPE
+        angles = positions[..., None].float() * freqs    # (B, S, hd/2)
+    else:                                                # M-RoPE
+        n = hd // 2
+        s1 = n // 4
+        s2 = (n - s1) // 2
+        parts, start = [], 0
+        for stream, sec in enumerate((s1, s2, n - s1 - s2)):
+            parts.append(positions[stream][..., None].float()
+                         * freqs[start:start + sec])
+            start += sec
+        angles = torch.cat(parts, dim=-1)                # (B, S, hd/2)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)

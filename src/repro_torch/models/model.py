@@ -1,8 +1,9 @@
-"""The LM: embeddings -> block stack -> head, for the dense, moe, ssm and
-hybrid families (port of repro/models/model.py: ``param_shapes`` :69,
+"""The LM: embeddings -> block stack -> head, for every family of the
+reference (port of repro/models/model.py: ``param_shapes`` :69,
 ``_moe_block`` :154, ``_mamba_layer`` :162, ``_hybrid_stack`` :188,
-``embed_tokens`` :225, ``forward`` :250, ``project_logits`` :281,
-``loss_fn`` :292).
+``embed_tokens`` :225, ``_positions`` :239, ``forward`` :250,
+``project_logits`` :281, ``loss_fn`` :292; the loss ``mask`` :298-304,
+which no caller sets, is not ported).
 
 Parameters are a nested dict of tensors in the reference's layout, layer
 weights stacked on a leading (L, ...) dim, so blocking and pooling see the
@@ -15,6 +16,11 @@ embeddings there is no ``lm_head``: the logits are ``x @ embed.T``.  The
 moe family (deepseek, kimi) stacks its first ``first_dense_layers`` dense
 layers (MLP width ``dense_ff``) as ``dense_layers`` and the rest, each with
 an moe sublayer in place of the MLP (models/moe.py), as ``moe_layers``.
+The vlm (qwen2-vl) and audio (musicgen) families run dense stacks: the vlm
+takes precomputed embeddings ``batch["embeds"]`` (no ``embed`` leaf; an
+``lm_head`` even when tied) and M-RoPE positions (3, B, S); the audio
+family has K codebooks, ``embed`` (K, V, D) and ``lm_head`` (K, D, V),
+tokens and labels (B, S, K) and logits (B, S, K, V).
 """
 from __future__ import annotations
 
@@ -29,17 +35,20 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import gated_mlp, rms_norm
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+# the families whose layers are dense attention + MLP blocks, and those
+# whose every layer attends (one k/v cache a layer)
+DENSE_STACKS = ("dense", "vlm", "audio")
+ATTENTION_STACKS = DENSE_STACKS + ("moe",)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for configuration features the port's model does not run yet:
-    the vlm and audio families and the features only they use (ROADMAP.md
-    queue 1 items 13(c) and 13(d))."""
+    """Raise for configuration values the port's model does not run: an
+    unknown family or dtype, and the reference's ``remat_policy="dots"``
+    and ``attn_logits_dtype`` other than f32, which no config or caller in
+    either package sets."""
     unsupported = {
         "family": cfg.family not in FAMILIES,
-        "mrope": cfg.mrope, "num_codebooks": cfg.num_codebooks,
-        "embed_inputs": not cfg.embed_inputs,
         "remat_policy": cfg.remat_policy != "full",
         "attn_logits_dtype": cfg.attn_logits_dtype != "float32",
         "dtype": cfg.dtype not in DTYPES,
@@ -47,10 +56,9 @@ def check_supported(cfg: ModelConfig) -> None:
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: {bad} not ported yet: the port runs the dense, "
-            f"moe, ssm and hybrid families; the vlm and audio families and "
-            f"their features wait for ROADMAP.md queue 1 items 13(c) and "
-            f"13(d)")
+            f"{cfg.name}: {bad} not ported: the port runs the "
+            f"{', '.join(FAMILIES)} families with full remat and f32 "
+            f"attention logits")
 
 
 def _dense_layer_shapes(cfg: ModelConfig, d_ff: int = 0) -> dict:
@@ -81,11 +89,16 @@ def _stack(shapes: dict, n: int) -> dict:
 def param_shapes(cfg: ModelConfig) -> dict:
     """Nested dict of parameter shapes (the reference's tree)."""
     check_supported(cfg)
-    D, V, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
-    shapes = {"embed": (V, D), "final_norm": (D,)}
+    D, V, L, K = cfg.d_model, cfg.vocab_size, cfg.num_layers, \
+        cfg.num_codebooks
+    shapes = {"final_norm": (D,)}
+    if cfg.embed_inputs:
+        shapes["embed"] = (K, V, D) if K else (V, D)
     if not cfg.tie_embeddings:
+        shapes["lm_head"] = (K, D, V) if K else (D, V)
+    elif not cfg.embed_inputs:      # tied, but no embed leaf to tie to
         shapes["lm_head"] = (D, V)
-    if cfg.family == "dense":
+    if cfg.family in DENSE_STACKS:
         shapes["layers"] = _stack(_dense_layer_shapes(cfg), L)
     elif cfg.family == "moe":
         fd = cfg.first_dense_layers
@@ -168,11 +181,22 @@ def layer(stacked: dict, i: int) -> dict:
 
 
 def embed_tokens(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
-    """Embeddings (B, S, D) of ``batch["tokens"]`` (B, S), in the model's
-    dtype; with ``embed_scale`` (gemma) times sqrt(d_model), the scalar
-    rounded to the dtype first as the reference's ``jnp.asarray`` does."""
+    """Embeddings (B, S, D) in the model's dtype: of ``batch["tokens"]``
+    (B, S); with ``num_codebooks`` K, of tokens (B, S, K), the sum of the K
+    tables' rows in order, in the parameters' dtype; without
+    ``embed_inputs``, ``batch["embeds"]`` (B, S, D) (the modality
+    frontend's stub) cast.  With ``embed_scale`` (gemma) times
+    sqrt(d_model), the scalar rounded to the dtype first as the
+    reference's ``jnp.asarray`` does."""
     dtype = DTYPES[cfg.dtype]
-    x = params["embed"][batch["tokens"]].to(dtype)
+    if not cfg.embed_inputs:
+        x = batch["embeds"].to(dtype)
+    elif cfg.num_codebooks:
+        toks, emb = batch["tokens"], params["embed"]
+        x = sum(emb[i][toks[..., i]] for i in range(cfg.num_codebooks))
+        x = x.to(dtype)
+    else:
+        x = params["embed"][batch["tokens"]].to(dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype,
                              device=x.device)
@@ -186,17 +210,30 @@ def stacks(params: dict) -> list:
             if k in params]
 
 
+def _positions(cfg: ModelConfig, batch: dict, B: int, S: int,
+               device) -> torch.Tensor:
+    """``batch["positions"]`` when the batch has them, else 0..S-1 for
+    every row: (B, S), or (3, B, S) with ``mrope``, all three streams
+    alike (reference ``_positions`` :239-246)."""
+    if "positions" in batch:
+        return batch["positions"]
+    pos = torch.arange(S, device=device)[None].expand(B, S)
+    return pos[None].expand(3, B, S) if cfg.mrope else pos
+
+
 def forward(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
-    """Logits (B, S, V) for ``batch["tokens"]`` (B, S)."""
+    """Logits (B, S, V), or (B, S, K, V) with K codebooks, for
+    ``batch["tokens"]`` (or ``batch["embeds"]``) and, if given,
+    ``batch["positions"]``."""
     check_supported(cfg)
     x = embed_tokens(cfg, params, batch)
     B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    positions = _positions(cfg, batch, B, S, x.device)
     sites = cfg.shared_attn_layers()
     for stacked in stacks(params):
         for i in range(tree.flatten(stacked)[0].shape[0]):
             p_i = layer(stacked, i)
-            if cfg.family in ("dense", "moe"):
+            if cfg.family in ATTENTION_STACKS:
                 fn, args = _dense_block, (cfg, p_i, x, positions)
             elif cfg.family == "ssm":
                 fn, args = _mamba_layer, (cfg, p_i, x)
@@ -214,13 +251,16 @@ def forward(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
 
 def project_logits(cfg: ModelConfig, params: dict,
                    x: torch.Tensor) -> torch.Tensor:
-    if cfg.tie_embeddings:
+    if cfg.num_codebooks:           # (K, D, V) head: (B, S, K, V)
+        return torch.einsum("bsd,kdv->bskv", x, params["lm_head"])
+    if cfg.tie_embeddings and cfg.embed_inputs:
         return torch.matmul(x, params["embed"].T)
     return torch.matmul(x, params["lm_head"])
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
-    """Mean next-token cross entropy in f32."""
+    """Mean next-token cross entropy in f32, over every label (with K
+    codebooks over B, S and K)."""
     logits = forward(cfg, params, batch).float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, batch["labels"][..., None])[..., 0]

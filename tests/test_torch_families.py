@@ -13,8 +13,10 @@ kimi-k2-1t-a32b (a dense first layer, then moe layers).
     ``repro.models.cache.decode_step`` (logits and caches), and the port's
     teacher-forced decode against its own forward (as
     tests/test_models.py:72 holds the reference).
-(d) The vlm and audio architectures still raise, naming items 13(c) and
-    13(d).
+(d) The vlm and audio architectures (items 13(c) and 13(d), held against
+    the JAX package in tests/test_torch_vlm_audio.py) are not served: the
+    port's ``Engine`` and ``launch.serve`` refuse them with the reference's
+    "token-input" message.
 
 tests/test_torch_families_step.py holds one Sketchy step of each and a
 moe checkpoint across the packages.  Tolerances in f32: logits, loss and
@@ -150,11 +152,29 @@ def test_decode_matches_jax_and_forward(arch):
                                    atol=1e-4)
 
 
-@pytest.mark.parametrize("arch,item", [("qwen2-vl-72b", r"13\(c\)"),
-                                       ("musicgen-large", r"13\(d\)")])
-def test_vlm_and_audio_still_raise(arch, item):
-    for get in (tregistry.get_config, tregistry.get_reduced):
-        with pytest.raises(NotImplementedError, match=item):
-            get(arch)
-    with pytest.raises(NotImplementedError, match=item):
-        tmodel.check_supported(jregistry.get_reduced(arch))
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "musicgen-large"])
+def test_vlm_and_audio_are_not_served(arch, monkeypatch, capsys):
+    """As the reference's engine (repro/serve/engine.py:100-104) and serving
+    launcher (repro/launch/serve.py:55-58) refuse them, with the same
+    message."""
+    from repro.launch import serve as jlaunch_serve
+    from repro.serve import Engine as JEngine
+    from repro_torch.launch import serve as tlaunch_serve
+    from repro_torch.serve import Engine as TEngine
+    jcfg, jparams, tcfg, tparams = _models(arch)
+    with pytest.raises(ValueError, match="token-input") as want:
+        JEngine(jcfg, jparams)
+    with pytest.raises(ValueError, match="token-input") as got:
+        TEngine(tcfg, tparams)
+    assert str(got.value) == str(want.value)
+    argv = ["--arch", arch, "--reduced"]
+    monkeypatch.setattr("sys.argv", ["serve"] + argv)
+    errors = []
+    for main in (jlaunch_serve.main, lambda: tlaunch_serve.main(
+            argv + ["--device", "cpu"])):
+        with pytest.raises(SystemExit):
+            main()
+        errors.append(capsys.readouterr().err.splitlines()[-1])
+    assert "serving supports token-input archs only" in errors[1]
+    assert errors[1].partition("error: ")[2] == \
+        errors[0].partition("error: ")[2]

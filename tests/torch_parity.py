@@ -1,4 +1,8 @@
-"""Helpers of the tests that hold the PyTorch port against the JAX package."""
+"""Helpers of the tests that hold the PyTorch port against the JAX package
+(and of the card tests, which import no JAX)."""
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -35,3 +39,14 @@ def assert_close_scaled(got, want, rtol=1e-4, atol_frac=1e-5, scale=None):
         scale = float(np.abs(want).max(initial=0.0))
     np.testing.assert_allclose(np.asarray(got, np.float64), want, rtol=rtol,
                                atol=atol_frac * scale)
+
+
+def chip_smoke():
+    """chip_smoke.py at the repo's root, imported as a module (its phases
+    run nothing at import)."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
