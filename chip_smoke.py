@@ -44,7 +44,10 @@ no result line:
    Kernel 1 also at the seven shapes of Shampoo's per-step L and R Grams at
    full width (``shampoo_gram_calls``), on data of mean 3, one step's 8
    calls summed beside the plain version and ``bmm``; and the copy that
-   makes each group's G^T contiguous for L's Gram.
+   makes each group's G^T contiguous for L's Gram.  Kernel 1 also at the
+   eight Gram shapes of phase 4s's butterfly merge (``merge_gram_shapes``:
+   k = 2 (ell - 1) = 126, 22 for the 12-row side), timed beside the plain
+   version and ``bmm`` with its bound, one round's calls summed.
 3. eigh: ``torch.linalg.eigh`` over one refresh's 444 Grams (a library call
    in both packages, timed on its own); then one Shampoo root refresh
    (172 matrices of 1024^2, 270 of 768^2, 2 of 12^2): eigh alone and the
@@ -78,6 +81,22 @@ no result line:
    the fp32, int8 and Shampoo runs above (the pending slot and the active
    ranks uncounted).  Every run also prints the matrices ``eigh`` took in
    each step.
+4s. sharded statistics: ``python -m torch.distributed.run --standalone
+   --nproc-per-node 4 -m repro_torch.launch.train`` with MAIN_PATH_ARGV and
+   ``--stats-reduction sharded`` (SHARDED_ARGV): 4 ranks share the one card
+   over gloo, the sketches' wire and the gradients' mean through pinned
+   host buffers; each rank writes its report (``--rank-report``).  Per
+   rank: kernel 1 48 launches (2 refreshes x (8 local Grams + 16 merge
+   Grams: 4 groups x 2 sides x 2 rounds)), kernel 2 96, kernel 7 288, no
+   other kernel; losses finite and falling; at each refresh (steps 0 and
+   10) SHARDED_WIRE_BYTES sent in 16 rounds, the JAX reference's
+   ``wire_bytes`` of the same pools; the parameters, the sketches and the
+   whole optimizer state the same bits on all 4 ranks.  Prints each rank's
+   step times (refresh and plain), peak memory, and rank 0's rounds (bytes,
+   the exchange with its host copies, the whole round).  Then the reduced
+   model at P 2 on the card and at P 2 on the CPU (this script's
+   ``--reduced-rank`` mode, both groups at once) from phase 6's weights:
+   the same losses within phase 6's tolerance.
 5. profile: ``torch.profiler`` over one plain step of each of the four
    runs: device time by kernel and the device's idle share.  Then the
    async int8 run with ``--profile-annotations``: a plain step and the
@@ -194,7 +213,8 @@ The last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``; kernel 7 has a second row there at head
 dim 256 (its launches phase 7d's gemma-2b gradients').  Kernel 1's row
 there is Sketchy's main path; its Shampoo counts and times are on the
-lines of phases 2 and 4.
+lines of phases 2 and 4, its sharded counts and merge shapes on those of
+phases 2 and 4s.
 """
 from __future__ import annotations
 
@@ -205,6 +225,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -214,6 +235,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -281,6 +303,14 @@ INT8_ARGV = ["--second-moment-dtype", "int8"]
 # second_moment_bytes of the JAX reference at full width with the
 # launcher's defaults and int8 storage (tests/test_torch_quantize.py)
 INT8_SECOND_MOMENT_BYTES = 24_661_092
+# phase 4s: MAIN_PATH_ARGV with sharded statistics over SHARDED_RANKS
+# ranks on the one card; the bytes each rank sends per refresh (int8 wire:
+# 2 butterfly rounds x both sides of the 4 pool groups), the JAX
+# reference's wire_bytes of the same pool shapes
+# (tests/test_torch_distributed.py)
+SHARDED_RANKS = 4
+SHARDED_ARGV = ["--stats-reduction", "sharded"]
+SHARDED_WIRE_BYTES = 48_327_120
 # the paper's baselines on the same path: full-matrix Shampoo (fp32 L, R,
 # roots every 10 steps, as Sketchy's refresh) and Adam, with the JAX
 # reference's second-moment bytes at full width
@@ -1134,6 +1164,44 @@ def _sums(rows) -> dict:
                 library_ms=lib)
 
 
+def merge_gram_shapes() -> list:
+    """(N, d, k) of the butterfly merge's Grams (phase 4s), per pool group
+    and side: ``M = [Ba, Bb]``, each side's factor ``ell - 1`` columns (the
+    deflated one stays off the wire), so k = 2 (ell - 1), at least ell."""
+    return [(N, d, max(2 * (ell - 1), ell))
+            for N, d, ell, _ in main_path_shapes()[0]]
+
+
+def phase_merge_grams(dev, gen) -> None:
+    """Kernel 1 at the merge shapes against its plain version (the f32
+    tolerance), timed beside the plain version and ``bmm``, with its bound
+    (bytes, or 3xTF32 operations); one butterfly round's calls summed (a
+    refresh at P 4 runs two rounds)."""
+    rows = []
+    for N, d, k in merge_gram_shapes():
+        a = torch.randn(N, d, k, generator=gen, device=dev)
+        got = gram_kernel.batched_gram(a)
+        torch.cuda.synchronize()
+        err = check(f"batched_gram merge {(N, d, k)}", got,
+                    gram_ref.batched_gram_ref(a), d)
+        ms = cuda_ms(lambda: gram_kernel.batched_gram(a), 3)
+        plain = cuda_ms(lambda: gram_ref.batched_gram_ref(a), 3)
+        lib = cuda_ms(lambda: torch.bmm(a.mT, a), 3)
+        flops = N * d * k * (k + 1)
+        t_bytes = bound_ms(4 * (N * d * k + N * k * k), 0)[0]
+        t_ops = flops / TF32X3_FLOPS_PER_S * 1e3
+        rows.append((ms, plain, lib, t_bytes, t_ops))
+        print(f"batched_gram merge N={N} d={d} k={k}: {ms:.4f} ms "
+              f"({max(t_bytes, t_ops) / ms:.1%} of the bound "
+              f"{max(t_bytes, t_ops):.4f} ms), plain {plain:.4f} ms, bmm "
+              f"{lib:.4f} ms, max abs err {err:.3e}")
+    s = _sums(rows)
+    print(f"batched_gram merge, one butterfly round ({len(rows)} calls): "
+          f"{s['ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, bmm "
+          f"{s['library_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms (by "
+          f"{s['bound_by']})")
+
+
 def phase_eigh(dev) -> float:
     """Seconds of ``torch.linalg.eigh`` over one refresh's Grams."""
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -1252,18 +1320,8 @@ def phase_shampoo_eigh(dev) -> None:
           f"{eigh_s:.3f} s of {root_s:.3f} s ({eigh_s / root_s:.1%})")
 
 
-COUNTERS = {   # launch counter -> (wrapper module, attribute)
-    "batched_gram": (gram_kernel, "launches"),
-    "batched_lowrank_apply": (lowrank_kernel, "launches"),
-    "batched_gram_mixed": (gram_kernel, "mixed_launches"),
-    "batched_project_quantize": (lowrank_kernel,
-                                 "project_quantize_launches"),
-    "batched_lowrank_apply_int8": (lowrank_kernel, "int8_launches"),
-    "gram": (gram_kernel, "single_launches"),
-    "lowrank_apply": (lowrank_kernel, "single_launches"),
-    "flash_attention": (flash_kernel, "launches"),
-    "ssd_scan": (ssd_kernel, "launches"),
-}
+# launch counter -> (wrapper module, attribute)
+COUNTERS = kernel_registry.LAUNCH_COUNTERS
 
 
 def per_gradient(cfg) -> dict:
@@ -1282,14 +1340,8 @@ def per_gradient(cfg) -> dict:
                 ssd_scan=cfg.num_layers * passes)
 
 
-def _zero_counts() -> None:
-    for module, attr in COUNTERS.values():
-        setattr(module, attr, 0)
-
-
-def _counts() -> dict:
-    return {name: getattr(module, attr)
-            for name, (module, attr) in COUNTERS.items()}
+_zero_counts = kernel_registry.zero_launch_counts
+_counts = kernel_registry.launch_counts
 
 
 def phase_main_path(dev, argv: list, expected: dict,
@@ -1340,6 +1392,206 @@ def phase_main_path(dev, argv: list, expected: dict,
     print(f"main path ({label}) launches: {launches}")
     print(f"main path ({label}) eigh matrices per step: {eighs}")
     return dict(launches, peak=peak)
+
+
+SHARDED_DIR = os.path.join(ROOT, "build", "sharded")
+SHARDED_TIMEOUT_S = 480
+# kernel 1 per rank in phase 4s: 2 refreshes x (8 local Grams + 4 groups x
+# 2 sides x log2(4) rounds of merge Grams)
+SHARDED_GRAMS = 2 * (8 + 16)
+
+
+def _rank_env() -> dict:
+    """The environment of the ranks this script starts: the checkout's
+    sources on the path; gloo on the loopback device unless told another;
+    two CPU threads a rank (8 cores, 4 ranks)."""
+    return dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                GLOO_SOCKET_IFNAME=os.environ.get("GLOO_SOCKET_IFNAME", "lo"),
+                OMP_NUM_THREADS="2")
+
+
+def _run_group(cmds: list, timeout: float) -> list:
+    """Run the commands at once, each in a process group of its own, and
+    wait at most ``timeout`` s in all; every process they started is
+    killed at the end, whatever happened.  Returns (exit code, output) of
+    each."""
+    procs = [subprocess.Popen(cmd, env=_rank_env(), cwd=ROOT, text=True,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT,
+                              start_new_session=True) for cmd in cmds]
+    deadline = time.perf_counter() + timeout
+    outs = []
+    try:
+        for proc in procs:
+            try:
+                outs.append(proc.communicate(
+                    timeout=max(deadline - time.perf_counter(), 1))[0])
+            except subprocess.TimeoutExpired:
+                fail(f"{proc.args} did not end within {timeout} s")
+    finally:
+        for proc in procs:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    return [(proc.returncode, out) for proc, out in zip(procs, outs)]
+
+
+def phase_sharded(dev) -> dict:
+    """Phase 4s: ``python -m torch.distributed.run --standalone
+    --nproc-per-node 4 -m repro_torch.launch.train`` with MAIN_PATH_ARGV and
+    ``--stats-reduction sharded``: 4 ranks on the one card over gloo (the
+    wire through pinned host buffers), each reporting its launches (set to
+    0 as its run starts), merge rounds, step times, peak memory and state
+    digests (``--rank-report``).  Per rank: kernel 1 SHARDED_GRAMS, kernel
+    2 96, kernel 7 288 launches and no other kernel; losses finite and
+    falling; SHARDED_WIRE_BYTES sent at each refresh (steps 0 and 10) in 16
+    rounds; and the parameters, the sketches and the whole optimizer state
+    the same bits on every rank.  Returns rank 0's launch counts."""
+    torch.cuda.empty_cache()
+    shutil.rmtree(SHARDED_DIR, ignore_errors=True)
+    argv = MAIN_PATH_ARGV + SHARDED_ARGV + ["--rank-report", SHARDED_DIR]
+    t0 = time.perf_counter()
+    [(rc, out)] = _run_group([[
+        sys.executable, "-m", "torch.distributed.run", "--standalone",
+        "--nproc-per-node", str(SHARDED_RANKS), "-m",
+        "repro_torch.launch.train", *argv]], SHARDED_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"sharded run exited {rc}:\n{out[-6000:]}")
+    for line in out.splitlines():
+        if line.startswith(("sharded", "arch=", "step", "straggler")):
+            print(f"sharded: {line}")
+    reports = [json.load(open(os.path.join(SHARDED_DIR, f"rank-{r}.json")))
+               for r in range(SHARDED_RANKS)]
+    expected = dict(dict.fromkeys(COUNTERS, 0), batched_gram=SHARDED_GRAMS,
+                    batched_lowrank_apply=96,
+                    flash_attention=12 * TRAIN_FLASH_PER_STEP)
+    for rep in reports:
+        r, steps = rep["rank"], rep["steps"]
+        if rep["device"] != f"cuda:{dev.index or 0}":
+            fail(f"sharded rank {r} ran on {rep['device']}")
+        if rep["launches"] != expected:
+            fail(f"sharded rank {r}: launches {rep['launches']}, expected "
+                 f"{expected}")
+        losses = [st["loss"] for st in steps]
+        if not all(math.isfinite(x) for x in losses) \
+                or not losses[-1] < losses[0]:
+            fail(f"sharded rank {r}: losses {losses}")
+        for st in steps:
+            st["rounds"] = [x for x in st["exchanges"]
+                            if x["kind"] == "round"]
+            st["means"] = [x for x in st["exchanges"] if x["kind"] == "mean"]
+        merged = [st for st in steps if st["rounds"]]
+        if [st["step"] for st in merged] != [0, 10]:
+            fail(f"sharded rank {r} merged at steps "
+                 f"{[st['step'] for st in merged]}")
+        for st in merged:
+            sent = sum(x["bytes"] for x in st["rounds"])
+            print(f"sharded rank {r} step {st['step']}: {sent} B sent in "
+                  f"{len(st['rounds'])} rounds (reference "
+                  f"{SHARDED_WIRE_BYTES}), the rounds "
+                  f"{sum(x['round_s'] for x in st['rounds']):.3f} s")
+            if sent != SHARDED_WIRE_BYTES or len(st["rounds"]) != 16:
+                fail(f"sharded rank {r}: {sent} B in {len(st['rounds'])} "
+                     f"rounds at step {st['step']}")
+        times = [st["time_s"] for st in steps]
+        means = [round(sum(x["round_s"] for x in st["means"]), 4)
+                 for st in steps]
+        print(f"sharded rank {r}: step times (s) {times}; refresh steps "
+              f"{[times[st['step']] for st in merged]}, plain median "
+              f"{statistics.median(times[1:10]):.4f}; the means (gradients, "
+              f"loss, diagonal squares through the host) per step (s) "
+              f"{means}; peak memory allocated {rep['peak_bytes']} B")
+    for key in ("params_sha256", "second_moment_sha256",
+                "opt_state_sha256"):
+        digests = {rep[key] for rep in reports}
+        print(f"sharded: {key} of the {SHARDED_RANKS} ranks: {digests}")
+        if len(digests) != 1:
+            fail(f"sharded: the ranks' {key} differ")
+    for st in (st for st in reports[0]["steps"] if st["rounds"]):
+        for i, x in enumerate(st["rounds"]):
+            print(f"sharded rank 0 step {st['step']} round {i} (distance "
+                  f"{x['dist']}): {x['bytes']} B, exchange with its host "
+                  f"copies {x['exchange_s'] * 1e3:.2f} ms, round "
+                  f"{x['round_s'] * 1e3:.2f} ms")
+    print(f"sharded: {SHARDED_RANKS} ranks on one card over gloo, "
+          f"{wall:.1f} s of wall time for the command (its startup "
+          f"included); launches per rank {reports[0]['launches']}")
+    return reports[0]["launches"]
+
+
+SHARDED_REFERENCE_RANKS = 2
+
+
+def reduced_rank(rank: str, world: str, rendezvous: str, device: str,
+                 out: str) -> int:
+    """One rank of phase 4s's card-against-CPU check, as ``python3
+    chip_smoke.py --reduced-rank RANK WORLD RENDEZVOUS DEVICE OUT``: joins
+    a gloo group through the file ``RENDEZVOUS``, trains the reduced model
+    from phase 6's weights (REFERENCE_ARGV) with sharded statistics on
+    ``DEVICE`` through ``launch.train``, and writes its losses and
+    launches to ``OUT``."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
+                            rank=int(rank), world_size=int(world))
+    try:
+        cfg = registry.get_reduced("paper-lm-100m")
+        params = model_lib.init_params(cfg, torch.Generator().manual_seed(0))
+        start = tree.unflatten(params, [p.to(device)
+                                        for p in tree.flatten(params)])
+        _zero_counts()
+        run, log = train_lib.train(train_lib.parse_args(
+            REFERENCE_ARGV + SHARDED_ARGV + ["--device", device]), start)
+        with open(out, "w") as f:
+            json.dump(dict(losses=[r["loss"] for r in log],
+                           launches=_counts(), device=str(run.device)), f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_sharded_reference(dev) -> None:
+    """The reduced model with sharded statistics at P 2 on the card and at P
+    2 on the CPU, from the same weights (both groups at once): the same
+    losses within phase 6's tolerance, the same on both ranks of each."""
+    os.makedirs(SHARDED_DIR, exist_ok=True)
+    cmds, outs = [], {}
+    for device in (f"cuda:{dev.index or 0}", "cpu"):
+        rdzv = os.path.join(SHARDED_DIR, f"rendezvous-{device[:4]}")
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(rdzv)
+        for r in range(SHARDED_REFERENCE_RANKS):
+            out = os.path.join(SHARDED_DIR, f"reduced-{device[:4]}-{r}.json")
+            outs[(device[:4], r)] = out
+            cmds.append([sys.executable, os.path.abspath(__file__),
+                         "--reduced-rank", str(r),
+                         str(SHARDED_REFERENCE_RANKS), rdzv, device, out])
+    for (rc, out), cmd in zip(_run_group(cmds, 300), cmds):
+        if rc != 0:
+            fail(f"sharded reference rank {cmd[3:]} exited {rc}:\n"
+                 f"{out[-4000:]}")
+    got = {key: json.load(open(path)) for key, path in outs.items()}
+    losses = {}
+    for (device, r), rep in got.items():
+        if not rep["device"].startswith(device):
+            fail(f"sharded reference: a {device} rank ran on "
+                 f"{rep['device']}")
+        if rep["losses"] != got[(device, 0)]["losses"]:
+            fail(f"sharded reference: the {device} ranks' losses differ")
+        losses[device] = rep["losses"]
+    flash = got[("cuda", 0)]["launches"]["flash_attention"]
+    cfg = registry.get_reduced("paper-lm-100m")
+    if flash != len(losses["cuda"]) * cfg.num_layers \
+            or got[("cuda", 0)]["launches"]["batched_gram"] == 0:
+        fail(f"sharded reference: card launches "
+             f"{got[('cuda', 0)]['launches']}")
+    worst = max(abs(a - b) / abs(b)
+                for a, b in zip(losses["cuda"], losses["cpu"]))
+    print(f"sharded reference (P {SHARDED_REFERENCE_RANKS}): card losses "
+          f"{losses['cuda']}, CPU losses {losses['cpu']}, max rel diff "
+          f"{worst:.2e}; card rank 0 launches {got[('cuda', 0)]['launches']}")
+    if worst > 1e-3:
+        fail("card and CPU sharded runs of the reduced model disagree")
 
 
 def check_budget(opt_state) -> None:
@@ -2461,6 +2713,7 @@ def main() -> int:
 
     kernels = phase_kernels(dev)
     phase_shampoo_grams(dev, torch.Generator(device=dev).manual_seed(3))
+    phase_merge_grams(dev, torch.Generator(device=dev).manual_seed(4))
     phase_eigh(dev)
     phase_shampoo_eigh(dev)
     done("2, 3")
@@ -2499,6 +2752,9 @@ def main() -> int:
           f"{shampoo['batched_gram']} times over 12 steps (8 a step), "
           f"flash attention {shampoo['flash_attention']}")
     done("4")
+    phase_sharded(dev)
+    phase_sharded_reference(dev)
+    done("4s")
     for argv in (MAIN_PATH_ARGV, MAIN_PATH_ARGV + INT8_ARGV,
                  MAIN_PATH_ARGV + SHAMPOO_ARGV, MAIN_PATH_ARGV + ADAM_ARGV):
         phase_profile(dev, argv)
@@ -2580,4 +2836,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--reduced-rank"]:
+        sys.exit(reduced_rank(*sys.argv[2:]))
     sys.exit(main())

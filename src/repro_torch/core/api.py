@@ -29,12 +29,21 @@ the refresh.
 Ported: both schedules and modes, the rank-budget hooks, fp32/bf16/int8
 second-moment storage (core/quantize.py) with the fused int8 path for
 preconditioners that declare ``supports_quantized_compute``, replicated
-statistics, RMSPROP_NORMALIZED grafting with f32 accumulators or none, 1-D
-leaves as (d, 1) blocks for the OCO learners (``treat_vectors_as_columns``),
-the diagonal fallback damped by ``GRAFT_EPS``, and the profiling spans
-(``profile_annotations``).  ``stats_reduction="sharded"`` and other
+and sharded statistics (below), RMSPROP_NORMALIZED grafting with f32
+accumulators or none, 1-D leaves as (d, 1) blocks for the OCO learners
+(``treat_vectors_as_columns``), the diagonal fallback damped by
+``GRAFT_EPS``, and the profiling spans (``profile_annotations``).  Other
 ``graft`` values raise ``NotImplementedError`` naming the ROADMAP item that
 ports them.
+
+Sharded statistics (``stats_reduction="sharded"``, distributed/): when the
+preconditioner has ``refresh_sharded_batched`` and ``stats_axis`` is bound
+to a process group of more than one rank (the trainer binds it for a
+step), the statistics see this rank's own gradients scaled by 1/sqrt(P),
+the refreshes end in a butterfly merge of the sketches over the group, and
+the diagonal fallback takes the mean of the ranks' squares; the direction,
+grafting and everything after see the mean gradients.  Otherwise the path
+is the replicated one, bit for bit.
 
 State is plain: the step count is a Python int (the refresh gate and the
 staggered due set are host arithmetic), pools map group keys to the
@@ -94,7 +103,10 @@ class EngineConfig:
     # with "auto" takes the "off" path; the tests hold "auto" against JAX
     # "on".)
     quantized_epilogue: str = "auto"
+    # "replicated" | "sharded" (module docstring), over the process group
+    # bound to the axis name ``stats_axis`` (distributed/reduce.py)
     stats_reduction: str = "replicated"
+    stats_axis: str = "data"
     # rank-budget reallocation cadence in refresh windows (0: never)
     realloc_every: int = 0
     # torch.profiler ranges around the engine's phases (``_span``)
@@ -118,11 +130,6 @@ class EngineConfig:
             if getattr(self, name) not in allowed:
                 raise ValueError(f"unknown {name} {getattr(self, name)!r}; "
                                  f"expected one of {allowed}")
-        if self.stats_reduction == "sharded":
-            raise NotImplementedError(
-                "EngineConfig.stats_reduction='sharded' is not ported yet "
-                "(ROADMAP.md queue 1 item 12, distributed FD); the port "
-                "runs stats_reduction='replicated'")
         if self.realloc_every < 0:
             raise ValueError(
                 f"realloc_every must be >= 0, got {self.realloc_every}")
@@ -246,16 +253,33 @@ def scale_by_preconditioner(precond, cfg: EngineConfig = EngineConfig()
     direction, no lr)."""
     qdtype = cfg.second_moment_dtype
     # the int8 containers go to the preconditioner only if it can run on
-    # them (repro/core/api.py :588-595); Shampoo's root solve needs f32
+    # them (repro/core/api.py :588-595); Shampoo's root solve needs f32, and
+    # the sharded merge f32 factors on the wire (off under "sharded" even
+    # with no group bound, as in the reference)
     fused = (qdtype == "int8" and cfg.quantized_epilogue != "off"
-             and getattr(precond, "supports_quantized_compute", False))
+             and getattr(precond, "supports_quantized_compute", False)
+             and cfg.stats_reduction != "sharded")
     pool_compute = quantize.compute_view if fused \
         else quantize.dequantize_pool
     update_stats_b = _batched_method(precond, "update_stats")
     refresh_b = _batched_method(precond, "refresh")
     precondition_b = _batched_method(precond, "precondition")
+    refresh_sharded_b = getattr(precond, "refresh_sharded_batched", None)
     realloc_fn = getattr(precond, "realloc_pools", None)
     spans = cfg.profile_annotations
+
+    def sharded_ctx():
+        """(the reduce module, the group's size) when the sharded path is
+        live: ``"sharded"``, a preconditioner that can merge, and
+        ``stats_axis`` bound to more than one rank; else (None, 1), the
+        replicated path (a merge of one rank is the identity)."""
+        if cfg.stats_reduction != "sharded" or refresh_sharded_b is None:
+            return None, 1
+        from repro_torch.distributed import reduce as dreduce
+        size = dreduce.bound_axis_size(cfg.stats_axis)
+        if size is None or size <= 1:
+            return None, 1
+        return dreduce, size
 
     def index_of(tensors) -> pool.PoolIndex:
         return pool.build_index(
@@ -296,8 +320,10 @@ def scale_by_preconditioner(precond, cfg: EngineConfig = EngineConfig()
                             pending=pending)
 
     def refresh_group(grp: pool.PoolGroup, raw, gb: torch.Tensor,
-                      count: int):
-        """The gated refresh of one pool stack.  Staggered, the due blocks
+                      count: int, vrefresh):
+        """The gated refresh of one pool stack; ``vrefresh(stats, G)`` is
+        the ungated one (the preconditioner's, or its sharded-merge
+        variant).  Staggered, the due blocks
         (a host list, ``pool.due_blocks``) are gathered from every tensor
         of the stack, refreshed as a sub-stack and written back out of
         place, where the refresh changed them (not Shampoo's L and R, nor
@@ -309,16 +335,16 @@ def scale_by_preconditioner(precond, cfg: EngineConfig = EngineConfig()
         same."""
         k = cfg.update_every
         if k <= 1:
-            return refresh_b(raw, gb)
+            return vrefresh(raw, gb)
         if cfg.refresh_schedule == "synchronized" or count == 0:
             # count 0 of the staggered schedule warms every block up
-            return refresh_b(raw, gb) if count % k == 0 else raw
+            return vrefresh(raw, gb) if count % k == 0 else raw
         due = pool.due_blocks(grp, count, k)
         if not due:
             return raw
         idx = torch.tensor(due, device=gb.device)
         gathered = pool.map_stacks(lambda x: x.index_select(0, idx), raw)
-        sub = refresh_b(gathered, gb.index_select(0, idx))
+        sub = vrefresh(gathered, gb.index_select(0, idx))
         return pool.map_stacks(
             lambda x, g, y: x if y is g else x.index_copy(0, idx, y),
             raw, gathered, sub)
@@ -342,10 +368,32 @@ def scale_by_preconditioner(precond, cfg: EngineConfig = EngineConfig()
     def update_fn(updates, state, params=None):
         count = state.count
         index = index_of(updates)
+        # sharded statistics: the stats see this rank's gradients scaled by
+        # 1/sqrt(P) (the merged sketch then estimates (1/P) sum_i G_i G_i^T),
+        # everything else the mean gradients.  The trainer hands the local
+        # gradients over (``local_gradients``); without them ``updates``
+        # are the local ones and their mean is formed here.
+        dreduce, axis_size = sharded_ctx()
+        dtypes = [g.dtype for g in updates]
+        local = updates
+        if dreduce is not None:
+            ctx = dreduce.current_local_gradients()
+            if ctx is None:
+                updates = dreduce.pmean([g.float() for g in updates],
+                                        cfg.stats_axis)
+            else:
+                local = list(ctx)
         # the f32 gradients live only in the pool stacks while the pools
         # refresh; the per-leaf pass below casts each again (exactly):
         # qwen2-vl-72b's are 8.5 GB
         packed = pool.pack(index, [g.float() for g in updates])
+        packed_stats = packed
+        vrefresh = refresh_b
+        if dreduce is not None:
+            packed_stats = pool.pack(index, [g.float() * axis_size ** -0.5
+                                             for g in local])
+            vrefresh = lambda s, G: refresh_sharded_b(
+                s, G, axis=cfg.stats_axis, axis_size=axis_size)
         # stochastic requantization keyed by step (and below by group or
         # leaf), as the reference folds its PRNG key
         qkey = (QUANTIZE_SEED, count) if qdtype == "int8" else None
@@ -358,10 +406,10 @@ def scale_by_preconditioner(precond, cfg: EngineConfig = EngineConfig()
             raws = {}
             for grp in index.groups:
                 raw = update_stats(pool_compute(state.pools[grp.key]),
-                                   packed[grp.key])
+                                   packed_stats[grp.key])
                 with _span("precond/refresh", spans):
-                    raws[grp.key] = refresh_group(grp, raw, packed[grp.key],
-                                                  count)
+                    raws[grp.key] = refresh_group(
+                        grp, raw, packed_stats[grp.key], count, vrefresh)
             raws = maybe_realloc(index, raws, count)
             for gi, grp in enumerate(index.groups):
                 with _span("precond/precondition", spans):
@@ -383,13 +431,14 @@ def scale_by_preconditioner(precond, cfg: EngineConfig = EngineConfig()
                 with _span("precond/commit", spans):
                     committed = pool.commit_select(
                         slot.valid, slot.stats, state.pools[grp.key])
-                raw = update_stats(pool_compute(committed), packed[grp.key])
+                raw = update_stats(pool_compute(committed),
+                                   packed_stats[grp.key])
                 with _span("precond/precondition", spans):
                     pooled_dirs[grp.key] = precondition_b(raw,
                                                           packed[grp.key])
                 with _span("precond/refresh_launch", spans):
                     refreshed[grp.key] = refresh_group(
-                        grp, raw, packed[grp.key], count)
+                        grp, raw, packed_stats[grp.key], count, vrefresh)
                 raws[grp.key] = raw
             # the reallocation rides the refresh into the pending slot
             refreshed = maybe_realloc(index, refreshed, count)
@@ -406,15 +455,27 @@ def scale_by_preconditioner(precond, cfg: EngineConfig = EngineConfig()
 
         # the pool stacks are done with, freed before the per-leaf
         # grafting temporaries
-        del packed
+        del packed, packed_stats
+        diag_sq = {}
+        if dreduce is not None:
+            # the diagonal fallback's squares travel in the reduction too:
+            # the mean of the ranks' own squares, one all-reduce for all
+            ids = [i for i, plan in enumerate(index.leaves)
+                   if plan.group is None]
+            if ids:
+                diag_sq = dict(zip(ids, dreduce.pmean(
+                    [torch.square(local[i].float()) for i in ids],
+                    cfg.stats_axis)))
         out, leaves = [], []
-        for i, (g, leaf, plan) in enumerate(zip(updates, state.leaves,
-                                                index.leaves)):
+        for i, (g, dtype, leaf, plan) in enumerate(zip(updates, dtypes,
+                                                       state.leaves,
+                                                       index.leaves)):
             gi = g.float()
             if plan.group is None:   # diagonal (RMSProp) fallback
+                sq = diag_sq[i] if i in diag_sq else torch.square(gi)
                 acc = cfg.beta2 * quantize.dequantize_pool(leaf.stats) \
-                    + (1.0 - cfg.beta2) * torch.square(gi)
-                out.append((gi * torch.rsqrt(acc + GRAFT_EPS)).to(g.dtype))
+                    + (1.0 - cfg.beta2) * sq
+                out.append((gi * torch.rsqrt(acc + GRAFT_EPS)).to(dtype))
                 stats = quantize.requantize_pool(
                     leaf.stats, acc,
                     key=quantize.fold_in(qkey, len(index.groups) + i))
@@ -430,7 +491,7 @@ def scale_by_preconditioner(precond, cfg: EngineConfig = EngineConfig()
                 direction = direction * (gnorm / (pnorm + 1e-16))
             if count < cfg.start_preconditioning_step:
                 direction = graft_dir
-            out.append(direction.to(g.dtype))
+            out.append(direction.to(dtype))
             leaves.append(LeafState(stats=None, graft=new_graft))
 
         return out, PrecondState(count=count + 1, pools=pools,

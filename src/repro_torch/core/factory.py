@@ -50,6 +50,9 @@ class OptimizerConfig:
     # fused int8 compute (core/api.py EngineConfig): "auto" | "off" | "on";
     # sketchy only (shampoo's root solve needs f32 factors)
     quantized_epilogue: str = "auto"
+    # "replicated" | "sharded" (core/api.py): sketchy only; Shampoo and Adam
+    # keep replicated statistics under "sharded", as in the reference
+    stats_reduction: str = "replicated"
 
     def __post_init__(self):
         if self.name not in OPTIMIZERS:
@@ -72,7 +75,8 @@ def _direction(cfg: OptimizerConfig,
             update_every=cfg.update_every,
             start_preconditioning_step=cfg.start_preconditioning_step,
             second_moment_dtype=cfg.second_moment_dtype,
-            quantized_epilogue=cfg.quantized_epilogue, **refresh))
+            quantized_epilogue=cfg.quantized_epilogue,
+            stats_reduction=cfg.stats_reduction, **refresh))
     if cfg.name == "shampoo":
         return shampoo_lib.shampoo(shampoo_lib.ShampooConfig(
             block_size=cfg.block_size, beta2=beta2,

@@ -26,6 +26,12 @@ The rank budget (core/sketchy.py) masks ranks: ``fd_update_batched`` with
 ``active_k`` runs each block at its leading ``active_k[b]`` ladder columns
 of the stack's capacity, and ``fd_resize_batched`` moves blocks to new
 active ranks, folding the dropped eigenvalue mass into ``rho``.
+
+Sketches merge (``fd_merge_factors_batched``, ``fd_merge_batched``,
+``fd_merge``): the union of two covariances is sketched again from the
+Gram of their stacked weighted factors (``fd_weighted_factor``), through
+the same batched Gram kernel as the refresh.  The sharded statistics of
+distributed/ merge each rank's sketches so.
 """
 from __future__ import annotations
 
@@ -242,6 +248,64 @@ def fd_resize_batched(state: FDState, new_k: torch.Tensor) -> FDState:
     else:
         U_new = torch.where(kmask[:, None, :], U, 0.0).to(U.dtype)
     return FDState(eigvecs=U_new, eigvals=s_new, rho=rho_new)
+
+
+def fd_weighted_factor(state: FDState, *, drop_deflated: bool = False
+                       ) -> torch.Tensor:
+    """The factor ``B = U diag(sqrt(s))``, ``B B^T == U diag(s) U^T``, of one
+    sketch (d, ell) or a stack (N, d, ell).  ``drop_deflated`` leaves out
+    the last column, zero by the deflation invariant ``s[-1] == 0``: the
+    merge's wire format (distributed/sketch_merge.py) sends ``ell - 1``
+    columns a side without loss."""
+    U, s, _ = state
+    compute_dtype = torch.promote_types(U.dtype, torch.float32)
+    s_clamped = torch.clamp(s.to(compute_dtype), min=0.0)
+    B = U.to(compute_dtype) * torch.sqrt(s_clamped)[..., None, :]
+    if drop_deflated and B.shape[-1] > 1:
+        B = B[..., :-1]
+    return B
+
+
+def fd_merge_factors_batched(Ba: torch.Tensor, rho_a: torch.Tensor,
+                             Bb: torch.Tensor, rho_b: torch.Tensor, *,
+                             ell: int) -> FDState:
+    """Merge two weighted-factor stacks (N, d, ra) and (N, d, rb), carrying
+    escaped masses ``rho_a`` and ``rho_b`` (N,), into one rank-``ell``
+    sketch stack (Robust FD's mergeable sketch, repro/core/fd.py :330).
+
+    The union covariance ``Ba Ba^T + Bb Bb^T`` is sketched again from the
+    Gram of ``M = [Ba, Bb]`` (``KERNELS.batched_gram``, padded with zero
+    columns to ``ell`` when the sides are skinnier) and deflated by its
+    ``ell``-th eigenvalue ``rho_t``; the masses add, ``rho_a + rho_b +
+    rho_t``, so ``rho * I`` still bounds all the mass that escaped."""
+    M = torch.cat([Ba.float(), Bb.float()], dim=-1)    # (N, d, ra + rb)
+    if M.shape[-1] < ell:
+        M = torch.nn.functional.pad(M, (0, ell - M.shape[-1]))
+    lam_top, V, inv_sqrt = _top_eigenpairs(KERNELS.batched_gram(M), ell)
+    rho_t = lam_top[..., ell - 1]
+    U_new = torch.matmul(M, V) * inv_sqrt[:, None, :]
+    return FDState(eigvecs=U_new,
+                   eigvals=lam_top - rho_t[..., None],   # last entry 0
+                   rho=rho_a.float() + rho_b.float() + rho_t)
+
+
+def fd_merge_batched(a: FDState, b: FDState) -> FDState:
+    """Merge two sketch stacks of one shape, in the dtypes of ``a``: the
+    merged covariance is within ``merged.rho`` (operator norm) of the sum
+    of the two."""
+    out = fd_merge_factors_batched(
+        fd_weighted_factor(a), a.rho, fd_weighted_factor(b), b.rho,
+        ell=a.eigvecs.shape[-1])
+    return FDState(eigvecs=out.eigvecs.to(a.eigvecs.dtype),
+                   eigvals=out.eigvals.to(a.eigvals.dtype),
+                   rho=out.rho.to(a.rho.dtype))
+
+
+def fd_merge(a: FDState, b: FDState) -> FDState:
+    """``fd_merge_batched`` of two unbatched sketches (d, ell)."""
+    out = fd_merge_batched(FDState(*(x[None] for x in a)),
+                           FDState(*(x[None] for x in b)))
+    return FDState(*(x[0] for x in out))
 
 
 def _eigh(C: torch.Tensor):

@@ -16,6 +16,11 @@ masked prefix of its ladder, with ``sum_b k_b`` fixed.  The ``"static"``
 policy keeps every block at capacity (the unmasked path); ``"rho_greedy"``
 re-pours the budget at refresh boundaries by descending escaped-mass
 pressure (``realloc_pools``).
+
+Sharded statistics (``stats_reduction="sharded"``, core/api.py): each rank
+refreshes both sketches on its own gradients and merges them over the
+ranks (``refresh_sharded_batched``), the factors on the wire in
+``stats_wire_dtype``.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from repro_torch.core.fd import (FDState, fd_apply_inverse_root_batched,
                                  fd_init, fd_resize_batched,
                                  fd_update_batched)
 from repro_torch.core.transform import GradientTransformation
+from repro_torch.distributed.sketch_merge import WIRE_DTYPES
 
 DEFAULT_RANK = 256                  # paper fixes 256 (untuned)
 MATRIX_EPS = 1e-6                   # damping added to rho (Alg. 3)
@@ -84,7 +90,19 @@ class SketchyConfig:
     profile_annotations: bool = False       # engine spans (core/api.py)
     second_moment_dtype: str = "fp32"   # fp32 | bf16 | int8 (quantize.py)
     quantized_epilogue: str = "auto"    # fused int8 path (api.EngineConfig)
+    # "replicated" | "sharded": local refreshes merged over the process group
+    # bound to ``stats_axis`` (core/api.py), the factors exchanged in
+    # ``stats_wire_dtype``: "int8" (about (ell - 1) * d bytes a block a
+    # round) or "fp32" (exact: the FD merge bound holds with no rounding)
     stats_reduction: str = "replicated"
+    stats_axis: str = "data"
+    stats_wire_dtype: str = "int8"
+
+    def __post_init__(self):
+        if self.stats_wire_dtype not in WIRE_DTYPES:
+            raise ValueError(f"unknown stats_wire_dtype "
+                             f"{self.stats_wire_dtype!r}; expected one of "
+                             f"{WIRE_DTYPES}")
 
 
 class SketchyBlockStats(NamedTuple):
@@ -189,6 +207,39 @@ class SketchyPreconditioner:
             left=fd_update_batched(state.left, G, beta2, active_k),
             right=fd_update_batched(state.right, G.mT, beta2, active_k))
 
+    def refresh_sharded_batched(self, state, G: torch.Tensor, *, axis: str,
+                                axis_size: int):
+        """The sharded refresh (repro/core/sketchy.py :332): both sketches
+        refreshed on this rank's gradient stack G, then merged over the
+        ranks of ``axis`` (``butterfly_merge_fd``), so every rank ends with
+        the same sketches.
+
+        The incoming sketches are the same on every rank (the last merge
+        left them so) and the merge sums covariances, so they enter scaled
+        by 1/P: merged ~= beta2 S_prev + (1/P) sum_i G_i G_i^T (the engine
+        scaled G by 1/sqrt(P)), the replicated ``beta2 S_prev + Gbar
+        Gbar^T`` when the ranks' gradients agree.  A rank budget's blocks
+        are masked again after the merge, which sketches at the full
+        capacity: the mass past a block's rank folds into rho."""
+        from repro_torch.distributed import reduce as dreduce
+        inv = 1.0 / axis_size
+        scale = lambda fd: FDState(eigvecs=fd.eigvecs,
+                                   eigvals=fd.eigvals * inv, rho=fd.rho * inv)
+        state = state._replace(left=scale(state.left),
+                               right=scale(state.right))
+        local = self.refresh_batched(state, G)
+        merge = lambda st: dreduce.butterfly_merge_fd(
+            st, axis=axis, axis_size=axis_size,
+            wire_dtype=self.cfg.stats_wire_dtype)
+        merged = local._replace(left=merge(local.left),
+                                right=merge(local.right))
+        active_k = getattr(merged, "k", None)
+        if active_k is not None:
+            merged = merged._replace(
+                left=fd_resize_batched(merged.left, active_k),
+                right=fd_resize_batched(merged.right, active_k))
+        return merged
+
     def precondition_batched(self, state, G: torch.Tensor) -> torch.Tensor:
         kw = dict(exponent=EXPONENT, eps=MATRIX_EPS)
         tmp = fd_apply_inverse_root_batched(state.left, G, **kw)
@@ -209,6 +260,7 @@ def sketchy(cfg: SketchyConfig = SketchyConfig()) -> GradientTransformation:
             second_moment_dtype=cfg.second_moment_dtype,
             quantized_epilogue=cfg.quantized_epilogue,
             stats_reduction=cfg.stats_reduction,
+            stats_axis=cfg.stats_axis,
             realloc_every=(0 if budget.policy == "static"
                            else budget.realloc_every),
             profile_annotations=cfg.profile_annotations))

@@ -158,6 +158,32 @@ def ssd_scan(u: torch.Tensor, dlog: torch.Tensor, Bm: torch.Tensor,
                                                           chunk)
 
 
+# each kernel wrapper's launch counter: name -> (wrapper module, attribute)
+LAUNCH_COUNTERS = {
+    "batched_gram": (gram_kernel, "launches"),
+    "batched_lowrank_apply": (lowrank_kernel, "launches"),
+    "batched_gram_mixed": (gram_kernel, "mixed_launches"),
+    "batched_project_quantize": (lowrank_kernel,
+                                 "project_quantize_launches"),
+    "batched_lowrank_apply_int8": (lowrank_kernel, "int8_launches"),
+    "gram": (gram_kernel, "single_launches"),
+    "lowrank_apply": (lowrank_kernel, "single_launches"),
+    "flash_attention": (flash_kernel, "launches"),
+    "ssd_scan": (ssd_kernel, "launches"),
+}
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launches so far, by name."""
+    return {name: getattr(module, attr)
+            for name, (module, attr) in LAUNCH_COUNTERS.items()}
+
+
+def zero_launch_counts() -> None:
+    for module, attr in LAUNCH_COUNTERS.values():
+        setattr(module, attr, 0)
+
+
 KERNELS = KernelSet(
     gram=gram,
     lowrank_apply=lowrank_apply,

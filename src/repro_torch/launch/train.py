@@ -1,6 +1,6 @@
 """End-to-end training launcher (port of repro/launch/train.py: the
-training path on one device, with Sketchy or the paper's baselines,
-Shampoo and Adam).
+training path on one device or data-parallel over ranks, with Sketchy or
+the paper's baselines, Shampoo and Adam).
 
     python -m repro_torch.launch.train                      # on the card
     python -m repro_torch.launch.train --optimizer shampoo
@@ -9,10 +9,30 @@ Shampoo and Adam).
         --refresh-mode async \
         --rank-budget total=7104,min_k=8,max_k=64,policy=rho_greedy
     python -m repro_torch.launch.train --checkpoint-dir ck --resume
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.train --stats-reduction sharded
 
 Runs on ``--device cuda`` unless told otherwise, and raises if the machine
-has no card.  The reference's flags for features not ported yet (sharded
-statistics, gradient compression) are absent.
+has no card.  The reference's gradient compression (``--compress-grads``,
+which its launcher parses and never reads) is not ported yet.
+
+``--stats-reduction sharded`` (distributed/): started by
+``torch.distributed.run`` with ``WORLD_SIZE`` > 1, every rank joins one
+gloo process group and takes its slice of each global batch; Sketchy's
+statistics are kept per rank and merged over the ranks at each refresh,
+the rest of the step sees the mean gradients (train/trainer.py).  Rank r
+runs on ``cuda:{LOCAL_RANK % device_count}`` (so all ranks share one card
+on a machine with one), or on the CPU with ``--device cpu``.  Rank 0 alone
+builds the CUDA kernels while the others wait, prints the step lines,
+writes ``--metrics-out`` and saves checkpoints; every rank restores one
+with ``--resume``.  In one process, or with a batch the ranks cannot
+split, it prints the reference's fallback line and runs replicated.
+``--rank-report DIR`` has every rank write ``DIR/rank-<r>.json``: its
+kernel launch counts (set to 0 as the run starts), its step times, the
+bytes it sent and the time of each butterfly round and each mean per step
+(``distributed/reduce.merge_log``), its peak device memory and sha256
+digests of its final parameters and optimizer state, by which the ranks'
+replicas can be compared.
 
 Checkpoints follow the reference's loop (repro/launch/train.py :135-177):
 an ``AsyncCheckpointer`` saves ``(params, opt_state)`` as ``step-s`` after
@@ -27,11 +47,13 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 from typing import Any, Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree
 from repro_torch.configs import registry
@@ -40,6 +62,9 @@ from repro_torch.core.factory import (OPTIMIZERS, OptimizerConfig,
                                       make_optimizer)
 from repro_torch.core.sketchy import RankBudget
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.distributed import reduce as dreduce
+from repro_torch.kernels import build
+from repro_torch.kernels import registry as kernel_registry
 from repro_torch.launch.flags import parse_kv_spec
 from repro_torch.models import model as model_lib
 from repro_torch.train import checkpoint as ckpt_lib
@@ -94,6 +119,19 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
                    help="torch.profiler ranges around the engine's "
                         "update_stats / refresh / precondition / commit "
                         "phases")
+    p.add_argument("--stats-reduction", default="replicated",
+                   choices=["replicated", "sharded"],
+                   help="second-moment statistics across data-parallel "
+                        "ranks (distributed/): replicated = every rank keeps "
+                        "the same statistics of the mean gradients; sharded "
+                        "= each rank sketches its own gradients and the "
+                        "sketches merge in a log-depth butterfly at each "
+                        "refresh (sketchy only; needs > 1 rank, started by "
+                        "torch.distributed.run)")
+    p.add_argument("--rank-report", default=None, metavar="DIR",
+                   help="every rank writes DIR/rank-<r>.json: launch "
+                        "counts, merge rounds, step times, peak memory and "
+                        "digests of its final state")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--checkpoint-every", type=int, default=50)
     p.add_argument("--resume", action="store_true",
@@ -116,13 +154,16 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
 @dataclasses.dataclass
 class Run:
     """A training run set up from the flags: model config, data, the step
-    function and the current parameters and optimizer state."""
+    function and the current parameters and optimizer state; ``rank`` is
+    this process's rank in the data-parallel group of a sharded run (else
+    0)."""
     cfg: Any
     device: torch.device
     data: Any
     step_fn: Callable
     params: dict
     opt_state: Any
+    rank: int = 0
 
     def batch(self, step: int) -> dict:
         """Batch ``step`` on the device: token leaves as long, the vlm's
@@ -140,6 +181,26 @@ class Run:
         return metrics
 
 
+def data_parallel_group(args: argparse.Namespace):
+    """The process group of a sharded run, or None (module docstring).  A
+    group already initialized in this process is used as it is; else one
+    is initialized over gloo from ``torch.distributed.run``'s environment
+    when ``WORLD_SIZE`` > 1."""
+    if args.stats_reduction != "sharded":
+        return None
+    world = dist.get_world_size() if dist.is_initialized() \
+        else int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and args.batch % world == 0:
+        if not dist.is_initialized():
+            dist.init_process_group("gloo")
+        if dist.get_rank() == 0:
+            print(f"sharded stats over data axis ({world} ranks)")
+        return dist.group.WORLD
+    print(f"sharded stats requested but devices={world} batch={args.batch}; "
+          f"falling back to replicated")
+    return None
+
+
 def start(args: argparse.Namespace, params: Optional[dict] = None) -> Run:
     """Set a run up from the flags.  ``params`` replaces the seeded
     initialization (parity tests start both packages from the same
@@ -148,6 +209,17 @@ def start(args: argparse.Namespace, params: Optional[dict] = None) -> Run:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the trainer runs on the card "
                            "unless asked for --device cpu")
+    group = data_parallel_group(args)
+    rank = 0 if group is None else dist.get_rank(group)
+    if group is not None and device.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        device = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+        # one rank builds the kernels (into build/repro_torch/), the
+        # others wait for the libraries
+        if rank == 0:
+            build.build_all()
+        dist.barrier(group)
 
     cfg = registry.get_reduced(args.arch) if args.reduced \
         else registry.get_config(args.arch)
@@ -159,7 +231,8 @@ def start(args: argparse.Namespace, params: Optional[dict] = None) -> Run:
         refresh_mode=args.refresh_mode,
         profile_annotations=args.profile_annotations,
         second_moment_dtype=args.second_moment_dtype,
-        quantized_epilogue=args.quantized_epilogue))
+        quantized_epilogue=args.quantized_epilogue,
+        stats_reduction=args.stats_reduction))
     data = SyntheticLM(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq, global_batch=args.batch,
         seed=args.seed, num_codebooks=cfg.num_codebooks,
@@ -168,8 +241,34 @@ def start(args: argparse.Namespace, params: Optional[dict] = None) -> Run:
         gen = torch.Generator(device=device).manual_seed(args.seed)
         params = model_lib.init_params(cfg, gen, device=device)
     return Run(cfg=cfg, device=device, data=data,
-               step_fn=make_train_step(cfg, tx), params=params,
-               opt_state=tx.init(tree.flatten(params)))
+               step_fn=make_train_step(cfg, tx, data_parallel_group=group),
+               params=params, opt_state=tx.init(tree.flatten(params)),
+               rank=rank)
+
+
+def _digest(tensors) -> str:
+    """sha256 of the tensors' bytes, in order."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().reshape(-1)
+                 .view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def rank_report(run: Run, log: list, exchanges: list) -> dict:
+    """What ``--rank-report`` writes for this rank (module docstring)."""
+    state = [leaf for leaf in ckpt_lib.leaves(run.opt_state)
+             if not leaf.transient and isinstance(leaf.value, torch.Tensor)]
+    return dict(
+        rank=run.rank, device=str(run.device),
+        launches=kernel_registry.launch_counts(),
+        steps=[dict(rec, exchanges=x) for rec, x in zip(log, exchanges)],
+        peak_bytes=(torch.cuda.max_memory_allocated(run.device)
+                    if run.device.type == "cuda" else None),
+        params_sha256=_digest(tree.flatten(run.params)),
+        second_moment_sha256=_digest(
+            [leaf.value for leaf in state if leaf.role == "second_moment"]),
+        opt_state_sha256=_digest([leaf.value for leaf in state]))
 
 
 def train(args: argparse.Namespace, params: Optional[dict] = None
@@ -179,22 +278,33 @@ def train(args: argparse.Namespace, params: Optional[dict] = None
     state) and one metrics record per step run: step, loss, grad_norm,
     time_s (host clock around the step, after the device finished it)."""
     run = start(args, params)
+    is_main = run.rank == 0
+    say = print if is_main else (lambda *a, **k: None)
     start_step, ckpt = 0, None
     if args.checkpoint_dir:
-        ckpt = ckpt_lib.AsyncCheckpointer(args.checkpoint_dir)
+        if is_main:
+            ckpt = ckpt_lib.AsyncCheckpointer(args.checkpoint_dir)
         if args.resume \
                 and ckpt_lib.latest_step(args.checkpoint_dir) is not None:
             (run.params, run.opt_state), start_step, _ = ckpt_lib.restore(
                 args.checkpoint_dir, (run.params, run.opt_state))
-            print(f"resumed from step {start_step}")
+            say(f"resumed from step {start_step}")
     n_params = sum(p.numel() for p in tree.flatten(run.params))
-    print(f"arch={run.cfg.name} params={n_params / 1e6:.1f}M "
-          f"optimizer={args.optimizer} device={run.device} "
-          f"second_moment={args.second_moment_dtype} "
-          f"({api.second_moment_bytes(run.opt_state)} bytes)")
+    say(f"arch={run.cfg.name} params={n_params / 1e6:.1f}M "
+        f"optimizer={args.optimizer} device={run.device} "
+        f"second_moment={args.second_moment_dtype} "
+        f"({api.second_moment_bytes(run.opt_state)} bytes)")
+    exchanges = None
+    if args.rank_report:
+        kernel_registry.zero_launch_counts()
+        if run.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(run.device)
+        exchanges = []
     monitor = StragglerMonitor()
     log = []
     for step in range(start_step, args.steps):
+        if exchanges is not None:
+            dreduce.merge_log = []
         monitor.start()
         metrics = run.step(step)
         loss = float(metrics["loss"])
@@ -204,18 +314,26 @@ def train(args: argparse.Namespace, params: Optional[dict] = None
         record = {"step": step, "loss": loss,
                   "grad_norm": float(metrics["grad_norm"]), "time_s": dt}
         log.append(record)
+        if exchanges is not None:
+            exchanges.append(dreduce.merge_log)
+            dreduce.merge_log = None
         if step % args.log_every == 0 or step == args.steps - 1:
-            print(f"step {step:5d} loss {loss:.4f} "
-                  f"gnorm {record['grad_norm']:.3f} {dt * 1e3:.0f}ms")
+            say(f"step {step:5d} loss {loss:.4f} "
+                f"gnorm {record['grad_norm']:.3f} {dt * 1e3:.0f}ms")
         if ckpt and step and step % args.checkpoint_every == 0:
             ckpt.save(step, (run.params, run.opt_state))
     if ckpt:
         ckpt.save(args.steps, (run.params, run.opt_state))
         ckpt.wait()
     if monitor.flagged:
-        print(f"straggler steps flagged: {monitor.flagged} "
-              f"(median {monitor.median * 1e3:.0f}ms)")
-    if args.metrics_out:
+        say(f"straggler steps flagged: {monitor.flagged} "
+            f"(median {monitor.median * 1e3:.0f}ms)")
+    if exchanges is not None:
+        os.makedirs(args.rank_report, exist_ok=True)
+        with open(os.path.join(args.rank_report,
+                               f"rank-{run.rank}.json"), "w") as f:
+            json.dump(rank_report(run, log, exchanges), f, indent=1)
+    if args.metrics_out and is_main:
         os.makedirs(os.path.dirname(args.metrics_out) or ".", exist_ok=True)
         with open(args.metrics_out, "w") as f:
             json.dump(log, f, indent=2)
@@ -223,8 +341,14 @@ def train(args: argparse.Namespace, params: Optional[dict] = None
 
 
 def main(argv: Optional[list] = None) -> list:
-    """Command-line entry point; returns the per-step metrics records."""
-    return train(parse_args(argv))[1]
+    """Command-line entry point; returns the per-step metrics records.  A
+    process group the launcher initialized is destroyed at the end."""
+    owned = not dist.is_initialized()
+    try:
+        return train(parse_args(argv))[1]
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -37,6 +37,11 @@ sequences that fill no tile, Sk != S, one KV head, more blocks than SMs) to
 a relative error of the whole output of 1e-2 beside the atol, and raises on
 a view that is not 16-byte aligned.
 
+The sharded statistics: kernel 1 at the butterfly merge's Gram shapes (k
+126 and 22) against its plain version, and the FD merge on the card
+against the CPU (covariance, ladder and rho within 1e-4 of the largest
+eigenvalue).
+
 The paper's baselines: kernel 1 at the seven shapes of Shampoo's per-step
 L and R Grams at full width (data of mean 3, the f32 tolerance), and two
 reduced training steps of Shampoo and of Adam through the launcher on the
@@ -692,6 +697,53 @@ def test_gram_kernel_at_shampoo_shapes_on_card(card, N, d, k):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, gram_ref.batched_gram_ref(a),
                                **_tol(d, "float32"))
+
+
+# the sharded statistics' merge Grams at full width (chip_smoke.py
+# merge_gram_shapes): two rank-64 sketches of ell - 1 = 63 columns a side,
+# k = 126, and k = 22 for the 12-row side of the norm group
+MERGE_GRAM_CASES = [(68, 1024, 126), (68, 768, 126), (2, 12, 22),
+                    (2, 768, 126), (104, 768, 126), (104, 1024, 126),
+                    (48, 768, 126)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,d,k", MERGE_GRAM_CASES)
+def test_gram_kernel_at_merge_shapes_on_card(card, N, d, k):
+    from repro_torch.kernels.gram import kernel
+    gen = torch.Generator(device=card).manual_seed(N * d + k)
+    a = torch.randn(N, d, k, generator=gen, device=card)
+    got = kernel.batched_gram(a)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, gram_ref.batched_gram_ref(a),
+                               **_tol(d, "float32"))
+
+
+@pytest.mark.cuda
+def test_fd_merge_on_card_matches_cpu(card):
+    """``fd_merge_factors_batched`` at a merge shape on the card (kernel 1
+    once) and on the CPU: the same covariance ``U diag(s) U^T`` and ladder
+    within 1e-4 of their largest magnitude, the same rho."""
+    from repro_torch.core import fd
+    from repro_torch.kernels.gram import kernel
+    gen = torch.Generator().manual_seed(0)
+    Ba, Bb = (torch.randn(4, 768, 63, generator=gen) for _ in range(2))
+    rho_a, rho_b = torch.rand(4, generator=gen), torch.rand(4, generator=gen)
+    before = kernel.launches
+    got = fd.fd_merge_factors_batched(*(t.to(card) for t in (Ba, rho_a)),
+                                      *(t.to(card) for t in (Bb, rho_b)),
+                                      ell=64)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = fd.fd_merge_factors_batched(Ba, rho_a, Bb, rho_b, ell=64)
+    cov = lambda st: torch.einsum("nde,ne,nfe->ndf", st.eigvecs.cpu().double(),
+                                  st.eigvals.cpu().double(),
+                                  st.eigvecs.cpu().double())
+    for a, b in ((cov(got), cov(want)), (got.eigvals.cpu(), want.eigvals),
+                 (got.rho.cpu(), want.rho)):
+        scale = float(want.eigvals.abs().max())
+        torch.testing.assert_close(a.double(), b.double(), rtol=1e-4,
+                                   atol=1e-4 * scale)
 
 
 @pytest.mark.cuda

@@ -350,8 +350,9 @@ def test_engine_config_takes_the_refresh_options():
                dict(refresh_mode="async"), dict(realloc_every=1),
                dict(profile_annotations=True)):
         tapi.EngineConfig(**kw)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tapi.EngineConfig(stats_reduction="sharded")
+    tapi.EngineConfig(stats_reduction="sharded")
+    with pytest.raises(ValueError, match="stats_wire_dtype"):
+        SketchyConfig(stats_reduction="sharded", stats_wire_dtype="bogus")
     for field in ("refresh_schedule", "refresh_mode", "stats_reduction"):
         with pytest.raises(ValueError, match=field):
             tapi.EngineConfig(**{field: "bogus"})
