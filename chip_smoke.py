@@ -23,7 +23,7 @@ no result line:
    (FLASH_MAIN, SSD_MAIN; mamba2-370m's too for the scan) and the
    reference's ragged sweeps, and at head dim 256 (gemma-2b's S 4096 and
    128 and the phase 7d gradient's shape, FLASH_HD256) and, untimed, at
-   every other shape phases 7c, 7d, 9a and 9b give it
+   every other shape phases 4d, 7c, 7d, 9a and 9b give it
    (``flash_full_width``), in
    f32 and bf16, at
    the reference's
@@ -46,8 +46,9 @@ no result line:
    calls summed beside the plain version and ``bmm``; and the copy that
    makes each group's G^T contiguous for L's Gram.  Kernel 1 also at the
    eight Gram shapes of phase 4s's butterfly merge (``merge_gram_shapes``:
-   k = 2 (ell - 1) = 126, 22 for the 12-row side), timed beside the plain
-   version and ``bmm`` with its bound, one round's calls summed.
+   k = 2 (ell - 1) = 126, 22 for the 12-row side) and phase 4d's shrink
+   merge (``shrink_merge_gram_shapes``: k = 2 ell = 128, 24), timed beside
+   the plain version and ``bmm`` with its bound, one round's calls summed.
 3. eigh: ``torch.linalg.eigh`` over one refresh's 444 Grams (a library call
    in both packages, timed on its own); then one Shampoo root refresh
    (172 matrices of 1024^2, 270 of 768^2, 2 of 12^2): eigh alone and the
@@ -97,6 +98,45 @@ no result line:
    model at P 2 on the card and at P 2 on the CPU (this script's
    ``--reduced-rank`` mode, both groups at once) from phase 6's weights:
    the same losses within phase 6's tolerance.
+4d. distributed training (this script's own ``--mesh-rank`` mode, 4 ranks
+   on the one card over gloo, each a process of its own, started once):
+   (a) each rank's quarter of the launcher's batch 0 through full-width
+   paper-lm-100m (kernel 7 24 times), its gradients'
+   ``compressed_mean_grads`` beside their exact ``pmean``: every leaf
+   within 0.02 of its largest magnitude and one int8 step of the exact
+   mean (plus bf16's rounding of each), the same bits on every rank, and
+   the bytes a rank sends (int32 sums, 4 B an element, and one f32 pmax a
+   leaf: 654,388,272 B against the exact mean's 654,388,224); then one
+   Sketchy step at the launcher's defaults on the same quarter (8 Grams, 8
+   applies, 24 flash), whose pools, the rank's own sketches, it keeps.
+   (b) ``remesh_opt_state`` of phase 4's fp32 state after its 12 steps
+   (MESH_STATE), whole on every rank, on ``remesh(plan_mesh(4,
+   model_parallel=2, target_global_batch=8))`` and on the shrink's 2-rank
+   plan (ranks 2 and 3 get no mesh): each rank's local shard of every
+   pooled stack bit for bit the blocks the reference's ``blocks_sharding``
+   gives its position (``_block_rows``: model-major over ('model',
+   'data'), else 'data', else whole), the ranks' shards covering every
+   block once; the pooled bytes each rank holds.  (c) deepseek-moe-16b at
+   full width with 4 of its 28 layers (EP_LAYERS; only the depth cut), 16
+   of the 64 experts a rank (``convert.expert_parallel_shard``), a forward
+   at B 4, S 512 (T 2048, capacity 241) and the gradient of its loss with
+   respect to every moe layer's parameters under ``use_mesh`` on a (1, 4)
+   mesh (remat on: the recompute runs on the autograd thread).  The
+   parent then runs the single-process model on the same weights and
+   batch: each moe block, whole, on the input the ranks' block took and
+   pulled back with the cotangent their block's output got: its output,
+   every rank's expert gradients (their slices), router and shared-expert
+   gradients within MODEL_RTOL[bf16] in norm, the same dropped
+   assignments; end to end, kernel 7's launches (7: 4 layers and the 3 moe
+   layers' recompute) equal, the first moe layer routes and drops alike,
+   a later one drops within the assignments routed to another expert, and
+   the logits' and every gradient's relative errors printed (bf16's
+   rounding of the routed sum reroutes near-ties in the later layers);
+   the per-rank peak beside the single process's, each moe layer's sum.
+   Then ``merge_sketches_on_shrink`` of the 4 ranks' own full-width pools
+   on the card (kernel 1 24 launches at (N, d, 2 ell)), timed, against
+   the same merge on the CPU (covariance, ladder and rho within
+   tests/test_torch_distributed.py's tolerance).
 5. profile: ``torch.profiler`` over one plain step of each of the four
    runs: device time by kernel and the device's idle share.  Then the
    async int8 run with ``--profile-annotations``: a plain step and the
@@ -214,7 +254,7 @@ The last two lines are ``{"kernels": [...]}`` and
 dim 256 (its launches phase 7d's gemma-2b gradients').  Kernel 1's row
 there is Sketchy's main path; its Shampoo counts and times are on the
 lines of phases 2 and 4, its sharded counts and merge shapes on those of
-phases 2 and 4s.
+phases 2, 4s and 4d; kernel 7's expert-parallel launches on 4d's.
 """
 from __future__ import annotations
 
@@ -262,6 +302,11 @@ from repro_torch.launch import train as train_lib  # noqa: E402
 from repro_torch.models import cache as cache_lib  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.distributed import reduce as dreduce  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
+from repro_torch.sharding import rules as rules_lib  # noqa: E402
+from repro_torch.train import compression, elastic  # noqa: E402
 from repro_torch.train import checkpoint as ckpt_lib  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at its 700 W
@@ -699,15 +744,16 @@ FLASH_HD256 = [(1, 8, 1, 4096, 256, True), (1, 8, 1, 128, 256, True),
 
 
 def flash_full_width() -> list:
-    """Kernel 7's shapes in phases 7c, 7d, 9a and 9b, read from the configs:
-    deepseek-moe-16b's feedback gradient (the serving launcher's feedback
-    batch), each DENSE_FULL and VLM_AUDIO_FULL arch's gradient at
+    """Kernel 7's shapes in phases 4d, 7c, 7d, 9a and 9b, read from the
+    configs: deepseek-moe-16b's feedback gradient (the serving launcher's
+    feedback batch) and its expert-parallel run's (phase 4d), each DENSE_FULL and VLM_AUDIO_FULL arch's gradient at
     DENSE_FULL_BATCH x DENSE_FULL_SEQ (gemma-2b's is FLASH_HD256's last)
     and each TRAIN_FULL arch's training step at the launcher's batch and
     sequence (qwen2-vl-72b's GQA 64/8 at hd 128, musicgen-large's MHA
     32/32 at hd 64)."""
     train = train_lib.parse_args([])
-    runs = [("deepseek-moe-16b", SERVE_FEEDBACK_BATCH, SERVE_FEEDBACK_SEQ)]
+    runs = [("deepseek-moe-16b", SERVE_FEEDBACK_BATCH, SERVE_FEEDBACK_SEQ),
+            (EP_ARCH, EP_BATCH, EP_SEQ)]
     runs += [(arch, DENSE_FULL_BATCH, DENSE_FULL_SEQ)
              for arch, _ in DENSE_FULL + VLM_AUDIO_FULL]
     runs += [(arch, train.batch, train.seq) for arch, *_ in TRAIN_FULL]
@@ -1172,13 +1218,22 @@ def merge_gram_shapes() -> list:
             for N, d, ell, _ in main_path_shapes()[0]]
 
 
-def phase_merge_grams(dev, gen) -> None:
+def shrink_merge_gram_shapes() -> list:
+    """(N, d, k) of the shrink merge's Grams (phase 4d,
+    ``merge_sketches_on_shrink``): the exact merge of two stacks takes both
+    whole weighted factors, k = 2 ell."""
+    return [(N, d, 2 * ell) for N, d, ell, _ in main_path_shapes()[0]]
+
+
+def phase_merge_grams(dev, gen, shapes=None, label="butterfly round"
+                      ) -> None:
     """Kernel 1 at the merge shapes against its plain version (the f32
     tolerance), timed beside the plain version and ``bmm``, with its bound
-    (bytes, or 3xTF32 operations); one butterfly round's calls summed (a
-    refresh at P 4 runs two rounds)."""
+    (bytes, or 3xTF32 operations); one round's calls summed (a refresh at
+    P 4 runs two butterfly rounds; a shrink of 4 stacks to one, three
+    rounds of merges)."""
     rows = []
-    for N, d, k in merge_gram_shapes():
+    for N, d, k in shapes or merge_gram_shapes():
         a = torch.randn(N, d, k, generator=gen, device=dev)
         got = gram_kernel.batched_gram(a)
         torch.cuda.synchronize()
@@ -1196,7 +1251,7 @@ def phase_merge_grams(dev, gen) -> None:
               f"{max(t_bytes, t_ops):.4f} ms), plain {plain:.4f} ms, bmm "
               f"{lib:.4f} ms, max abs err {err:.3e}")
     s = _sums(rows)
-    print(f"batched_gram merge, one butterfly round ({len(rows)} calls): "
+    print(f"batched_gram merge, one {label} ({len(rows)} calls): "
           f"{s['ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, bmm "
           f"{s['library_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms (by "
           f"{s['bound_by']})")
@@ -1345,12 +1400,14 @@ _counts = kernel_registry.launch_counts
 
 
 def phase_main_path(dev, argv: list, expected: dict,
-                    second_moment_bytes=None, check_state=None) -> dict:
+                    second_moment_bytes=None, check_state=None,
+                    save_to=None) -> dict:
     """Train with ``argv`` with every launch count set to 0 just before and
     read just after; ``expected`` gives each count's value.  Also counts
     the matrices ``eigh`` takes in each step (the FD refresh's and
-    Shampoo's roots); ``check_state(opt_state)`` checks the final state.
-    Returns the launch counts, with the peak memory under "peak"."""
+    Shampoo's roots); ``check_state(opt_state)`` checks the final state;
+    ``save_to`` (a path) keeps ``(params, opt_state)`` there.  Returns the
+    launch counts, with the peak memory under "peak"."""
     eighs = []
     step, eigh = train_lib.Run.step, fd_lib._eigh
 
@@ -1373,6 +1430,9 @@ def phase_main_path(dev, argv: list, expected: dict,
     nbytes = api.second_moment_bytes(run.opt_state)
     if check_state is not None:
         check_state(run.opt_state)
+    if save_to is not None:
+        os.makedirs(os.path.dirname(save_to), exist_ok=True)
+        torch.save((run.params, run.opt_state), save_to)
     del run
     label = " ".join(argv[len(MAIN_PATH_ARGV):]) or "fp32"
     losses = [r["loss"] for r in log]
@@ -1592,6 +1652,593 @@ def phase_sharded_reference(dev) -> None:
           f"{worst:.2e}; card rank 0 launches {got[('cuda', 0)]['launches']}")
     if worst > 1e-3:
         fail("card and CPU sharded runs of the reduced model disagree")
+
+
+# phase 4d: four ranks of this script's own --mesh-rank mode on the one
+# card over gloo (the collectives through pinned host buffers)
+MESH_RANKS = 4
+MESH_DIR = os.path.join(ROOT, "build", "mesh")
+MESH_TIMEOUT_S = 300
+# the full-width Sketchy state placed on the meshes: phase 4's fp32 run
+# after its 12 steps (refreshes at 0 and 10), saved by that phase
+MESH_STATE = os.path.join(MESH_DIR, "state.pt")
+# remesh_opt_state's plans (devices, model_parallel, target_global_batch):
+# the 2 x 2 mesh of 4 ranks, then the 1 x 2 mesh of the shrink to 2
+MESH_PLANS = [(4, 2, 8), (2, 2, 8)]
+# expert parallelism: deepseek-moe-16b at full width with 4 of its 28
+# layers (the dense layer 0 and 3 moe layers; only the depth is cut), B 4,
+# S 512, on a (data 1, model 4) mesh: 16 of the 64 experts a rank
+EP_ARCH, EP_LAYERS = "deepseek-moe-16b", 4
+EP_BATCH, EP_SEQ = DENSE_FULL_BATCH, DENSE_FULL_SEQ
+EP_MESH = (1, MESH_RANKS)
+
+
+_digest = train_lib._digest
+
+
+def _block_rows(N: int, coord, shape) -> tuple[int, int]:
+    """The blocks [lo, hi) of a pooled stack of N blocks that the reference's
+    ``blocks_sharding`` gives mesh position ``coord`` = (data, model) of a
+    (data, model) mesh of ``shape``: the leading dim tiled model-major over
+    ('model', 'data') when their product divides N, else over 'data'
+    alone, else whole."""
+    (nd, nm), (d, m) = shape, coord
+    if N % (nd * nm) == 0:
+        n, i = N // (nd * nm), m * nd + d
+    elif N % nd == 0:
+        n, i = N // nd, d
+    else:
+        return 0, N
+    return i * n, (i + 1) * n
+
+
+def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``model.loss_fn``'s loss from its logits."""
+    logits = logits.float()
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.mean(torch.logsumexp(logits, dim=-1) - gold)
+
+
+def _mesh_compressed(dev, rank: int, world: int) -> dict:
+    """4d, first part: this rank's quarter of the launcher's batch 0 through
+    full-width paper-lm-100m (seed 0, as every rank), its gradients'
+    ``compressed_mean_grads`` and, beside it, their exact mean; then one
+    Sketchy step at the launcher's defaults on the same quarter (a refresh
+    at count 0), whose pools (this rank's own sketches) it saves for the
+    shrink merge."""
+    mesh = mesh_lib.make_host_mesh()
+    args = train_lib.parse_args(MAIN_PATH_ARGV + ["--device", str(dev)])
+    run = train_lib.start(args)
+    rows = args.batch // world
+    local = {k: v[rank * rows:(rank + 1) * rows]
+             for k, v in run.batch(0).items()}
+    leaves = [p.detach().requires_grad_(True)
+              for p in tree.flatten(run.params)]
+    _zero_counts()
+    loss = model_lib.loss_fn(run.cfg, tree.unflatten(run.params, leaves),
+                             local)
+    grads = list(torch.autograd.grad(loss, leaves))
+    grad_launches = _counts()
+    del leaves, loss
+    torch.cuda.synchronize(dev)
+    dreduce.merge_log = []
+    t0 = time.perf_counter()
+    comp = compression.compressed_mean_grads(grads, mesh, seed=0)
+    torch.cuda.synchronize(dev)
+    comp_s, comp_log = time.perf_counter() - t0, dreduce.merge_log
+    dreduce.merge_log = []
+    with dreduce.bind_axis("data", mesh.get_group("data")):
+        t0 = time.perf_counter()
+        exact = dreduce.pmean(grads, "data")
+        torch.cuda.synchronize(dev)
+        exact_s, exact_log = time.perf_counter() - t0, dreduce.merge_log
+        dreduce.merge_log = None
+        absmax = [dreduce.pmax(g.float().abs().amax(), "data") for g in grads]
+    worst_rel = worst_step = 0.0
+    for c, e, a in zip(comp, exact, absmax):
+        c, e = c.float(), e.float()
+        diff = (c - e).abs()
+        worst_rel = max(worst_rel, float(diff.max() / e.abs().max()))
+        # one int8 step, plus each side's rounding to bf16 when cast back
+        slack = 2 ** -8 if grads[0].dtype == torch.bfloat16 else 1e-6
+        bound = quantize.int8_scale(a) * (1 + slack) + slack * e.abs()
+        worst_step = max(worst_step, float((diff / bound).max()))
+    elements = sum(g.numel() for g in grads)
+    # this rank's own sketches: one Sketchy step on its quarter
+    _zero_counts()
+    t0 = time.perf_counter()
+    run.params, run.opt_state, _ = run.step_fn(run.params, run.opt_state,
+                                               local)
+    torch.cuda.synchronize(dev)
+    step_s, step_launches = time.perf_counter() - t0, _counts()
+    torch.save(run.opt_state.inner["precond"].pools,
+               os.path.join(MESH_DIR, f"pools-{rank}.pt"))
+    out = dict(
+        grad_launches=grad_launches, step_launches=step_launches,
+        step_s=step_s, leaves=len(grads), elements=elements,
+        dtype=str(grads[0].dtype), comp_s=comp_s, exact_s=exact_s,
+        comp_bytes=sum(x["bytes"] for x in comp_log),
+        comp_kinds=sorted({x["kind"] for x in comp_log}),
+        exact_bytes=sum(x["bytes"] for x in exact_log),
+        worst_rel=worst_rel, worst_step=worst_step,
+        comp_sha256=_digest(comp), exact_sha256=_digest(exact))
+    del run, grads, comp, exact
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_remesh(dev, rank: int) -> dict:
+    """4d, second part: the saved full-width state (every rank the whole
+    of it, as a restore gives it) placed by ``remesh_opt_state`` on each of
+    MESH_PLANS' meshes (every rank builds each; a rank outside one gets
+    none): each pooled stack's local shard against the blocks
+    ``_block_rows`` gives this rank's position, bit for bit, and the pooled
+    bytes it holds."""
+    params, state = torch.load(MESH_STATE, map_location=dev,
+                               weights_only=False)
+    whole = {leaf.name: leaf.value for leaf in ckpt_lib.leaves(state)
+             if "::.pools::" in leaf.name}
+    out = {}
+    for devices, mp, batch in MESH_PLANS:
+        plan = elastic.plan_mesh(devices, model_parallel=mp,
+                                 target_global_batch=batch)
+        mesh = elastic.remesh(plan)
+        if mesh is None:
+            out[str(devices)] = None
+            continue
+        t0 = time.perf_counter()
+        _, placed = elastic.remesh_opt_state(state, params, mesh)
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        coord = tuple(mesh.get_coordinate())
+        rows, held, wrong = {}, 0, []
+        for leaf in ckpt_lib.leaves(placed):
+            if leaf.name not in whole:
+                continue
+            local = leaf.value.to_local()
+            lo, hi = _block_rows(whole[leaf.name].shape[0], coord,
+                                 plan.mesh_shape)
+            if not torch.equal(local, whole[leaf.name][lo:hi]):
+                wrong.append(leaf.name)
+            rows[leaf.name] = [lo, hi, whole[leaf.name].shape[0]]
+            held += local.numel() * local.element_size()
+        out[str(devices)] = dict(coord=coord, shape=plan.mesh_shape,
+                                 rows=rows, bytes=held, wrong=wrong,
+                                 seconds=seconds)
+        del placed
+    out["whole_bytes"] = sum(t.numel() * t.element_size()
+                             for t in whole.values())
+    del params, state, whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ep_model(dev):
+    """(config, seeded full-width parameters on the card, batch) of the
+    expert-parallel check: EP_ARCH cut to EP_LAYERS layers, the pipeline's
+    batch at EP_BATCH x EP_SEQ (seed 1); the same in every process."""
+    cfg = dataclasses.replace(registry.get_config(EP_ARCH),
+                              num_layers=EP_LAYERS)
+    params = model_lib.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    return cfg, params, _full_batch(cfg, dev, seed=1)
+
+
+def _ep_run(cfg, params: dict, batch: dict, mesh=None) -> dict:
+    """The forward's logits and the gradients of the loss with respect to
+    every moe layer's parameters (``use_mesh(mesh)`` when given); per moe
+    layer of the forward, its block's input, output and output cotangent,
+    the experts each token picked (sorted) and the (token, expert)
+    assignments dropped for capacity (read around ``moe.moe_block`` and
+    ``moe._slot_tables``; the forward's calls come first, the remat
+    recompute's follow); and the collectives the forward logged."""
+    n_moe = cfg.num_layers - cfg.first_dense_layers
+    moe = params["moe_layers"]
+    leaves = [p.detach().requires_grad_(True) for p in tree.flatten(moe)]
+    p = dict(params, moe_layers=tree.unflatten(moe, leaves))
+    calls, blocks = [], []
+    tables, block = moe_lib._slot_tables, moe_lib.moe_block
+
+    def counted(E, k, capacity, gate_w, gate_idx, T):
+        got = tables(E, k, capacity, gate_w, gate_idx, T)
+        calls.append((torch.sort(gate_idx, dim=-1).values,
+                      got[2].eq(E * capacity).sum()))
+        return got
+
+    def traced(cfg_, p_, x):
+        y = block(cfg_, p_, x)
+        if len(blocks) < n_moe:
+            blocks.append(dict(x=x.detach().clone(), y=y.detach().clone()))
+            if y.requires_grad:
+                y.register_hook(lambda g, rec=blocks[-1]: rec.__setitem__(
+                    "cot", g.detach().clone()))
+        return y
+
+    ctx = rules_lib.use_mesh(mesh) if mesh is not None else \
+        contextlib.nullcontext()
+    with mock.patch.object(moe_lib, "_slot_tables", counted), \
+            mock.patch.object(moe_lib, "moe_block", traced), ctx:
+        logits = model_lib.forward(cfg, p, batch)
+        records = list(dreduce.merge_log or [])
+        grads = torch.autograd.grad(_ce(logits, batch["labels"]), leaves)
+    return dict(logits=logits.detach(), grads=tree.unflatten(moe, list(grads)),
+                blocks=blocks, gates=[g for g, _ in calls[:n_moe]],
+                drops=[int(n) for _, n in calls[:n_moe]],
+                forward_records=records)
+
+
+def _ep_block(cfg, params: dict, layer: int, x: torch.Tensor,
+              cot: torch.Tensor) -> dict:
+    """One moe layer's block (the single-process path) on ``x`` with the
+    whole weights: its output, its dropped assignments, and the gradients
+    of its parameters for the output cotangent ``cot``."""
+    moe = {k: v for k, v in model_lib.layer(params["moe_layers"],
+                                            layer)["moe"].items()}
+    leaves = [t.detach().requires_grad_(True) for t in tree.flatten(moe)]
+    drops, tables = [], moe_lib._slot_tables
+
+    def counted(E, k, capacity, *rest):
+        got = tables(E, k, capacity, *rest)
+        drops.append(int(got[2].eq(E * capacity).sum()))
+        return got
+
+    with mock.patch.object(moe_lib, "_slot_tables", counted):
+        y = moe_lib.moe_block(cfg, tree.unflatten(moe, leaves), x)
+    grads = torch.autograd.grad(y, leaves, grad_outputs=cot)
+    return dict(y=y.detach(), drops=drops[0],
+                grads=dict(zip(rules_lib.tree_paths(moe), grads)))
+
+
+def _mesh_expert_parallel(dev, rank: int, world: int) -> dict:
+    """4d, third part: the expert-parallel forward and gradients (module
+    docstring), this rank holding only its experts
+    (``convert.expert_parallel_shard``); saves its expert gradients, the
+    other moe-layer gradients and (rank 0) the logits and the experts each
+    token picked for the parent."""
+    mesh = mesh_lib.make_mesh(EP_MESH, ("data", "model"))
+    cfg, params, batch = _ep_model(dev)
+    params = convert.expert_parallel_shard(params, rank, world)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    dreduce.merge_log = []
+    t0 = time.perf_counter()
+    got = _ep_run(cfg, params, batch, mesh)
+    torch.cuda.synchronize(dev)
+    seconds, launches = time.perf_counter() - t0, _counts()
+    records, dreduce.merge_log = dreduce.merge_log, None
+    peak = torch.cuda.max_memory_allocated(dev)
+    flat = dict(zip(rules_lib.tree_paths(got["grads"]), tree.flatten(got["grads"])))
+    save = {"experts": {k: v for k, v in flat.items() if "experts" in k},
+            "other": {k: v for k, v in flat.items() if "experts" not in k}}
+    if rank == 0:
+        save.update(logits=got["logits"], gates=got["gates"],
+                    blocks=got["blocks"])
+    torch.save(save, os.path.join(MESH_DIR, f"ep-{rank}.pt"))
+    sums = [x for x in got["forward_records"] if x["kind"] == "sum"]
+    return dict(ep_launches=launches, ep_peak=peak, ep_s=seconds,
+                ep_drops=got["drops"],
+                ep_logits_sha256=_digest([got["logits"]]),
+                ep_gates_sha256=_digest(got["gates"]),
+                ep_blocks_sha256=_digest(
+                    [t for b in got["blocks"] for t in b.values()]),
+                ep_other_sha256=_digest(save["other"].values()),
+                ep_layer_sums=[dict(bytes=x["bytes"], ms=x["round_s"] * 1e3)
+                               for x in sums],
+                ep_collectives=len(records),
+                ep_params=sum(p.numel() for p in tree.flatten(params)))
+
+
+def mesh_rank(rank: str, world: str, rendezvous: str) -> int:
+    """One rank of phase 4d, as ``python3 chip_smoke.py --mesh-rank RANK
+    WORLD RENDEZVOUS``: joins a gloo group through the file
+    ``RENDEZVOUS`` on the one card, runs the phase's three parts
+    (``_mesh_compressed``, ``_mesh_remesh``, ``_mesh_expert_parallel``) and
+    writes its report to MESH_DIR/rank-<RANK>.json."""
+    rank, world = int(rank), int(world)
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
+                            rank=rank, world_size=world)
+    try:
+        t0 = time.perf_counter()
+        report = dict(rank=rank)
+        report.update(_mesh_compressed(dev, rank, world))
+        report["compressed_done_s"] = time.perf_counter() - t0
+        report.update(remesh=_mesh_remesh(dev, rank))
+        report["remesh_done_s"] = time.perf_counter() - t0
+        report.update(_mesh_expert_parallel(dev, rank, world))
+        report["ep_done_s"] = time.perf_counter() - t0
+        dist.barrier()
+        with open(os.path.join(MESH_DIR, f"rank-{rank}.json"), "w") as f:
+            json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """||got - want|| / ||want|| in f32."""
+    want = want.float()
+    return float((got.float() - want).norm() / want.norm())
+
+
+def phase_mesh(dev) -> dict:
+    """Phase 4d: MESH_RANKS ranks of ``--mesh-rank`` (the compressed mean,
+    the remesh and the expert-parallel run), then in this process the
+    single-process expert check and the shrink merge.  Returns the
+    launches of kernels 1 and 7 it counted."""
+    torch.cuda.empty_cache()
+    rdzv = os.path.join(MESH_DIR, "rendezvous")
+    with contextlib.suppress(FileNotFoundError):
+        os.remove(rdzv)
+    t0 = time.perf_counter()
+    cmds = [[sys.executable, os.path.abspath(__file__), "--mesh-rank",
+             str(r), str(MESH_RANKS), rdzv] for r in range(MESH_RANKS)]
+    for (rc, out), cmd in zip(_run_group(cmds, MESH_TIMEOUT_S), cmds):
+        if rc != 0:
+            fail(f"mesh rank {cmd[3]} exited {rc}:\n{out[-6000:]}")
+    wall = time.perf_counter() - t0
+    reps = [json.load(open(os.path.join(MESH_DIR, f"rank-{r}.json")))
+            for r in range(MESH_RANKS)]
+    for rep in reps:
+        print(f"mesh rank {rep['rank']}: parts done at "
+              f"{rep['compressed_done_s']:.1f} / {rep['remesh_done_s']:.1f} "
+              f"/ {rep['ep_done_s']:.1f} s after joining the group")
+    _check_compressed(reps)
+    _check_remesh(reps)
+    ep = _check_expert_parallel(dev, reps)
+    merge = phase_shrink_merge(dev)
+    print(f"mesh: {MESH_RANKS} ranks on one card over gloo, {wall:.1f} s of "
+          f"wall time for the ranks (their startup included)")
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    return dict(ep, merge_grams=merge)
+
+
+def _check_compressed(reps: list) -> None:
+    none = dict.fromkeys(COUNTERS, 0)
+    for rep in reps:
+        r = rep["rank"]
+        if rep["grad_launches"] != dict(none, flash_attention=
+                                        TRAIN_FLASH_PER_STEP):
+            fail(f"compressed mean rank {r}: gradient launches "
+                 f"{rep['grad_launches']}")
+        if rep["step_launches"] != dict(
+                none, batched_gram=8, batched_lowrank_apply=8,
+                flash_attention=TRAIN_FLASH_PER_STEP):
+            fail(f"compressed mean rank {r}: step launches "
+                 f"{rep['step_launches']}")
+        if not (rep["worst_rel"] < 0.02 and rep["worst_step"] <= 1.0):
+            fail(f"compressed mean rank {r}: relative error "
+                 f"{rep['worst_rel']:.3e}, {rep['worst_step']:.3f} steps")
+        # 4 B an element (the int32 sum) and one f32 pmax a leaf
+        if rep["comp_bytes"] != 4 * rep["elements"] + 4 * rep["leaves"]:
+            fail(f"compressed mean rank {r}: {rep['comp_bytes']} B sent")
+        print(f"compressed mean rank {r}: {rep['leaves']} {rep['dtype']} "
+              f"leaves, {rep['elements']} elements; compressed "
+              f"{rep['comp_s'] * 1e3:.1f} ms ({rep['comp_bytes']} B sent: "
+              f"int32 sums and f32 pmaxes), exact pmean "
+              f"{rep['exact_s'] * 1e3:.1f} ms ({rep['exact_bytes']} B, "
+              f"f32), each with its host copies; largest error "
+              f"{rep['worst_rel']:.3e} of a leaf's largest magnitude, "
+              f"{rep['worst_step']:.3f} of the one-step bound; the rank's "
+              f"Sketchy step {rep['step_s']:.2f} s")
+    for key in ("comp_sha256", "exact_sha256"):
+        if len({rep[key] for rep in reps}) != 1:
+            fail(f"compressed mean: the ranks' {key} differ")
+
+
+def _check_remesh(reps: list) -> None:
+    for devices, *_ in MESH_PLANS:
+        held = {}
+        for rep in reps:
+            got = rep["remesh"][str(devices)]
+            if rep["rank"] >= devices:
+                if got is not None:
+                    fail(f"remesh {devices}: rank {rep['rank']} got a mesh")
+                continue
+            if got["wrong"]:
+                fail(f"remesh {devices}: rank {rep['rank']} holds other "
+                     f"blocks of {got['wrong']}")
+            held[rep["rank"]] = got
+        # every block of a stack once over the ranks that split it
+        for name, (_, _, N) in held[0]["rows"].items():
+            spans = sorted({tuple(h["rows"][name][:2])
+                            for h in held.values()})
+            if spans[0][0] != 0 or spans[-1][1] != N or any(
+                    a[1] != b[0] for a, b in zip(spans, spans[1:])):
+                fail(f"remesh {devices}: {name} blocks {spans} of {N}")
+        shape = held[0]["shape"]
+        groups = {k.split("::.pools::")[1].split("::")[0]: v[2]
+                  for k, v in held[0]["rows"].items()}
+        print(f"remesh_opt_state on the {shape[0]} x {shape[1]} mesh: "
+              f"pooled bytes a rank "
+              f"{[held[r]['bytes'] for r in sorted(held)]} of "
+              f"{reps[0]['remesh']['whole_bytes']} whole; placed in "
+              f"{max(h['seconds'] for h in held.values()) * 1e3:.1f} ms "
+              f"(the slowest rank); blocks of each pool group "
+              f"{groups} as rank r holds them: "
+              f"{[held[r]['rows'][k][:2] for r in sorted(held) for k in held[r]['rows'] if k.endswith('.left::.rho')]}")
+
+
+def _reassigned(a: torch.Tensor, b: torch.Tensor, E: int) -> int:
+    """The (token, expert) assignments of ``a`` (T, k) that ``b`` lacks."""
+    hot = lambda g: torch.zeros(g.shape[0], E, device=g.device).scatter_(
+        1, g, 1.0)
+    return int((hot(a) - hot(b)).clamp(min=0).sum())
+
+
+def _check_expert_parallel(dev, reps: list) -> dict:
+    """The ranks' expert-parallel run against the single process on the
+    same weights (module docstring).  Each moe block, run whole in this
+    process on the input the ranks' block took and pulled back with the
+    cotangent their block's output got: its output, every rank's expert
+    gradients (their slices), router and shared-expert gradients within
+    MODEL_RTOL[bf16] in norm, and the same dropped assignments.  End to end
+    (the single process's own forward and gradient): kernel 7's launches
+    equal; the first moe layer, whose input has the same bits in both runs,
+    routes every token alike and drops the same assignments; a later one
+    drops within the assignments routed to another expert; the logits' and
+    gradients' relative errors printed (bf16's rounding of the routed sums
+    reroutes near-ties in the later layers, which moves them past the
+    blocks' tolerance)."""
+    cfg, params, batch = _ep_model(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    t0 = time.perf_counter()
+    single = _ep_run(cfg, params, batch)
+    torch.cuda.synchronize(dev)
+    seconds, launches = time.perf_counter() - t0, _counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    flat = dict(zip(rules_lib.tree_paths(single["grads"]),
+                    tree.flatten(single["grads"])))
+    rtol = MODEL_RTOL[torch.bfloat16]
+    E_loc = cfg.num_experts // MESH_RANKS
+    saved = [torch.load(os.path.join(MESH_DIR, f"ep-{r}.pt"),
+                        map_location=dev) for r in range(MESH_RANKS)]
+    blocks, worst, e2e, problems = saved[0]["blocks"], {}, {}, []
+    for layer, rec in enumerate(blocks):
+        want = _ep_block(cfg, params, layer, rec["x"], rec["cot"])
+        worst["output"] = max(worst.get("output", 0.0),
+                              _rel(rec["y"], want["y"]))
+        if want["drops"] != reps[0]["ep_drops"][layer]:
+            problems.append(f"moe layer {layer}: the ranks dropped "
+                            f"{reps[0]['ep_drops'][layer]}, the block "
+                            f"{want['drops']} on the same input")
+        for r, got in enumerate(saved):
+            for path, g in want["grads"].items():
+                if path.startswith("experts/"):
+                    mine = got["experts"][f"moe/{path}"][layer]
+                    g = g[r * E_loc:(r + 1) * E_loc]
+                else:
+                    mine = got["other"][f"moe/{path}"][layer]
+                key = path.split("/")[-1] if path.startswith("experts") \
+                    else path
+                worst[key] = max(worst.get(key, 0.0), _rel(mine, g))
+    del blocks
+    e2e["logits"] = _rel(saved[0]["logits"], single["logits"])
+    for r, got in enumerate(saved):
+        for part in ("experts", "other"):
+            for path, g in got[part].items():
+                want = flat[path]
+                if part == "experts":      # (L, E, ...): rank r's experts
+                    want = want[:, r * E_loc:(r + 1) * E_loc]
+                e2e[path] = max(e2e.get(path, 0.0), _rel(g, want))
+    flips = [_reassigned(a, b, cfg.num_experts)
+             for a, b in zip(saved[0]["gates"], single["gates"])]
+    del saved, params
+    drops = single["drops"]
+    for rep in reps:
+        got = rep["ep_drops"]
+        if got[0] != drops[0] or flips[0] != 0 or any(
+                abs(a - b) > f for a, b, f in zip(got, drops, flips)):
+            problems.append(f"end to end, rank {rep['rank']} dropped {got} "
+                            f"a layer, the single process {drops}, "
+                            f"reassigned {flips}")
+        if rep["ep_launches"] != launches or launches["flash_attention"] == 0:
+            problems.append(f"rank {rep['rank']} launches "
+                            f"{rep['ep_launches']}, single process "
+                            f"{launches}")
+    for key in ("ep_logits_sha256", "ep_gates_sha256", "ep_other_sha256",
+                "ep_blocks_sha256"):
+        if len({rep[key] for rep in reps}) != 1:
+            problems.append(f"the ranks' {key} differ")
+    bad = {k: v for k, v in worst.items() if not v <= rtol}
+    if bad:
+        problems.append(f"blocks' relative errors {bad} over {rtol}")
+    fmt = lambda d: ", ".join(f"{k} {v:.2e}" for k, v in d.items())
+    print(f"expert parallel ({EP_ARCH}, {EP_LAYERS} layers, B {EP_BATCH}, "
+          f"S {EP_SEQ}, {E_loc} experts a rank), each moe block against "
+          f"the single-process block on its input (largest over the layers "
+          f"and ranks): {fmt(worst)}")
+    print(f"expert parallel end to end against the single process: "
+          f"{fmt(e2e)}; assignments dropped a moe layer "
+          f"{reps[0]['ep_drops']}, single process {drops}, of "
+          f"{EP_BATCH * EP_SEQ * cfg.experts_per_token}; assignments "
+          f"routed to another expert {flips}; kernel 7 "
+          f"{launches['flash_attention']} launches a rank and in the single "
+          f"process")
+    for rep in reps:
+        print(f"expert parallel rank {rep['rank']}: {rep['ep_params']} "
+              f"parameters held, peak {rep['ep_peak']} B (single process "
+              f"{peak} B), forward and gradient {rep['ep_s']:.2f} s (single "
+              f"process {seconds:.2f} s), each moe layer's sum "
+              f"{[round(x['ms'], 2) for x in rep['ep_layer_sums']]} ms of "
+              f"{rep['ep_layer_sums'][0]['bytes']} B, "
+              f"{rep['ep_collectives']} collectives in all")
+    if problems:
+        fail("expert parallel against the single process: "
+             + "; ".join(problems))
+    del single, flat
+    torch.cuda.empty_cache()
+    return dict(flash_attention=launches["flash_attention"])
+
+
+def _cov(st) -> torch.Tensor:
+    U = st.eigvecs.double()
+    return torch.einsum("nde,ne,nfe->ndf", U, st.eigvals.double(), U)
+
+
+def _close_scaled(label: str, got, want, scale=None) -> float:
+    """tests/torch_parity.py's ``assert_close_scaled``: rtol 1e-4 plus 1e-5
+    of ``scale`` (default: the largest magnitude of ``want``); returns the
+    largest difference over that slack."""
+    got, want = got.double(), want.double().to(got.device)
+    scale = float(want.abs().max()) if scale is None else scale
+    share = float(((got - want).abs() / (1e-4 * want.abs() + 1e-5 * scale))
+                  .max())
+    if not share <= 1:
+        fail(f"{label}: card and CPU merges differ ({share:.2f} of the "
+             f"tolerance)")
+    return share
+
+
+def phase_shrink_merge(dev) -> int:
+    """``merge_sketches_on_shrink`` of the four ranks' own full-width pools
+    (saved by ``_mesh_compressed``, each of its own quarter of the batch) on
+    the card, timed, with kernel 1's launches counted (one a merge of a
+    stack: 3 a stack of the 8), against the same merge on the CPU by
+    covariance, ladder and rho (tests/test_torch_distributed.py's
+    tolerance).  Returns kernel 1's launches."""
+    pools = [torch.load(os.path.join(MESH_DIR, f"pools-{r}.pt"),
+                        map_location=dev, weights_only=False)
+             for r in range(MESH_RANKS)]
+    stacks = sum(2 for _ in pools[0])
+    _zero_counts()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    merged = elastic.merge_sketches_on_shrink(pools)
+    torch.cuda.synchronize(dev)
+    seconds, launches = time.perf_counter() - t0, _counts()
+    expected = dict(dict.fromkeys(COUNTERS, 0),
+                    batched_gram=(MESH_RANKS - 1) * stacks)
+    if launches != expected:
+        fail(f"shrink merge: launches {launches}, expected {expected}")
+    cpu = [{k: type(v)(*(type(s)(*(t.cpu() for t in s)) for s in v))
+            for k, v in p.items()} for p in pools]
+    t0 = time.perf_counter()
+    want = elastic.merge_sketches_on_shrink(cpu)
+    cpu_s = time.perf_counter() - t0
+    worst = 0.0
+    for key in merged:
+        for side in ("left", "right"):
+            got, ref = getattr(merged[key], side), getattr(want[key], side)
+            ladder = max(float(ref.eigvals.abs().max()),
+                         float(ref.rho.abs().max()))
+            label = f"shrink merge {key} {side}"
+            worst = max(worst,
+                        _close_scaled(label, _cov(got), _cov(ref).to(dev)),
+                        _close_scaled(label, got.eigvals, ref.eigvals),
+                        _close_scaled(label, got.rho, ref.rho, ladder))
+    print(f"shrink merge of {MESH_RANKS} ranks' full-width pools "
+          f"({stacks} stacks, kernel 1 {launches['batched_gram']} launches "
+          f"at (N, d, 2 ell)): card {seconds * 1e3:.1f} ms, CPU "
+          f"{cpu_s * 1e3:.1f} ms; largest difference {worst:.3f} of the "
+          f"tolerance")
+    return launches["batched_gram"]
 
 
 def check_budget(opt_state) -> None:
@@ -2714,13 +3361,16 @@ def main() -> int:
     kernels = phase_kernels(dev)
     phase_shampoo_grams(dev, torch.Generator(device=dev).manual_seed(3))
     phase_merge_grams(dev, torch.Generator(device=dev).manual_seed(4))
+    phase_merge_grams(dev, torch.Generator(device=dev).manual_seed(5),
+                      shrink_merge_gram_shapes(), "shrink merge")
     phase_eigh(dev)
     phase_shampoo_eigh(dev)
     done("2, 3")
     none = dict.fromkeys(COUNTERS, 0)
     flash = dict(flash_attention=12 * TRAIN_FLASH_PER_STEP)
     fp32 = phase_main_path(dev, MAIN_PATH_ARGV, dict(
-        none, batched_gram=16, batched_lowrank_apply=96, **flash))
+        none, batched_gram=16, batched_lowrank_apply=96, **flash),
+        save_to=MESH_STATE)
     int8 = phase_main_path(dev, MAIN_PATH_ARGV + INT8_ARGV, dict(
         none, batched_gram_mixed=16, batched_project_quantize=16,
         batched_lowrank_apply_int8=96, **flash), INT8_SECOND_MOMENT_BYTES)
@@ -2755,6 +3405,8 @@ def main() -> int:
     phase_sharded(dev)
     phase_sharded_reference(dev)
     done("4s")
+    mesh = phase_mesh(dev)
+    done("4d")
     for argv in (MAIN_PATH_ARGV, MAIN_PATH_ARGV + INT8_ARGV,
                  MAIN_PATH_ARGV + SHAMPOO_ARGV, MAIN_PATH_ARGV + ADAM_ARGV):
         phase_profile(dev, argv)
@@ -2821,6 +3473,9 @@ def main() -> int:
     kernels["ssd_scan"]["launches"] = zamba["ssd_scan"]
     kernels["flash_attention_hd256"] = dict(
         hd256, launches=dense["gemma-2b"]["flash_attention"])
+    print(f"phase 4d: kernel 1 (batched_gram) {mesh['merge_grams']} "
+          f"launches in the shrink merge; kernel 7 (flash_attention) "
+          f"{mesh['flash_attention']} a rank in the expert-parallel run")
     print(f"deepseek-moe-16b serving: flash_attention "
           f"{moe['flash_attention']}, gram {moe['gram']} launches")
     for arch in trained:
@@ -2838,4 +3493,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--reduced-rank"]:
         sys.exit(reduced_rank(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(*sys.argv[2:]))
     sys.exit(main())

@@ -1,8 +1,9 @@
 """State carried across the packages: parameters from the JAX package, so
 both start from identical weights (the JAX tree arrives as numpy arrays,
 ``np.asarray`` of each leaf), and checkpoints of either package rewritten
-into the other's leaf names (``convert_checkpoint``).  This module imports
-no JAX."""
+into the other's leaf names (``convert_checkpoint``); and a whole
+parameter tree cut to one rank's share under expert parallelism
+(``expert_parallel_shard``).  This module imports no JAX."""
 from __future__ import annotations
 
 import json
@@ -37,6 +38,42 @@ def params_from_numpy(cfg: ModelConfig, params: dict) -> dict:
                              f"{shape}")
         leaves.append(torch.from_numpy(arr.astype(np.float32)).to(dtype))
     return tree.unflatten(like, leaves)
+
+
+def expert_parallel_shard(params: dict, rank: int, n: int, *,
+                          fsdp_rank: int = 0, n_fsdp: int = 1) -> dict:
+    """Rank ``rank`` of ``n``'s parameters under expert parallelism
+    (models/moe.py): every moe block's routed experts ``w_gate``, ``w_up``
+    and ``w_down`` (E, ...) (stacked: (L, E, ...)) cut to experts
+    [rank E/n, (rank + 1) E/n); with ``n_fsdp`` > 1 also the d_model rows
+    of those experts and of the router cut into ``n_fsdp`` parts, part
+    ``fsdp_rank`` (the reference's ``in_specs`` of
+    ``_moe_routed_shard_map``).  The cut leaves are copies, so the whole
+    ones can be freed; every other leaf is the same tensor."""
+    def cut(x: torch.Tensor, dim: int, i: int, parts: int) -> torch.Tensor:
+        if x.shape[dim] % parts:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                             f"into {parts}")
+        size = x.shape[dim] // parts
+        return x.narrow(dim, i * size, size)
+
+    def visit(node, path: tuple):
+        if isinstance(node, dict):
+            return {k: visit(v, path + (k,)) for k, v in node.items()}
+        if "moe" not in path or path[-1] not in ("router", "w_gate", "w_up",
+                                                 "w_down"):
+            return node
+        x, nd = node, node.ndim
+        if path[-1] != "router":
+            if path[-2] != "experts":
+                return node
+            x = cut(x, nd - 3, rank, n)
+        if n_fsdp > 1:
+            x = cut(x, nd - 1 if path[-1] == "w_down" else nd - 2,
+                    fsdp_rank, n_fsdp)
+        return x.clone()
+
+    return visit(params, ())
 
 
 # ---------------------------------------------------------------------------

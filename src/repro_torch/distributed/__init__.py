@@ -16,7 +16,9 @@ bit.
 from repro_torch.distributed.reduce import (bind_axis, bound_axis_size,
                                             butterfly_merge_fd,
                                             current_local_gradients,
-                                            local_gradients, pmean)
+                                            group_all_gather, group_reduce,
+                                            local_gradients, pmax, pmean,
+                                            psum)
 from repro_torch.distributed.sketch_merge import (WIRE_DTYPES, WireSketch,
                                                   merge_stack_states,
                                                   merge_wire, pack_wire,
@@ -24,7 +26,8 @@ from repro_torch.distributed.sketch_merge import (WIRE_DTYPES, WireSketch,
 
 __all__ = [
     "bind_axis", "bound_axis_size", "butterfly_merge_fd",
-    "current_local_gradients", "local_gradients", "pmean", "WIRE_DTYPES",
+    "current_local_gradients", "group_all_gather", "group_reduce",
+    "local_gradients", "pmax", "pmean", "psum", "WIRE_DTYPES",
     "WireSketch", "merge_stack_states", "merge_wire", "pack_wire",
     "unpack_wire", "wire_bytes",
 ]

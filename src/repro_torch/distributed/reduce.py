@@ -23,6 +23,13 @@ the card goes through a pinned host buffer and back, and every time
 reported for a collective includes those copies.  ``pmean`` sums in f32
 and casts each tensor back to its dtype.
 
+``psum``, ``pmax`` and ``all_gather`` are the collectives of the
+compressed gradient mean (train/compression.py) and the moe block's
+expert-parallel path (models/moe.py), over the group bound to an axis
+name or (the ``group_*`` forms) over a group given directly.  A floating
+tensor is summed in f32 and cast back to its dtype, an integer one exactly
+in its own; a max stays in the tensor's dtype.
+
 ``local_gradients`` is the side channel through which the trainer hands
 the engine each rank's own gradients, while the optimizer chain (clipping,
 grafting, momentum) consumes their mean.  ``merge_log``, when set to a
@@ -45,10 +52,11 @@ from repro_torch.distributed import sketch_merge
 _local = threading.local()
 
 # one record per exchange while a list: {"kind": "round" | "gather" |
-# "mean", "dist": partner distance (0 for a gather or a mean), "bytes":
-# sent (the f32 buffer of a mean), "exchange_s": the host copies and the
-# transfer, "round_s": pack, exchange and merge (a mean: its cast back too),
-# the device synchronized at the end}
+# "mean" | "sum" | "max" | "all_gather", "dist": partner distance (0 but
+# for a round), "bytes": sent (the host buffer of a mean, sum, max or
+# all-gather), "exchange_s": the host copies and the transfer, "round_s":
+# pack, exchange and merge (a mean, sum or all-gather: its copy back and
+# cast too), the device synchronized at the end}
 merge_log: Optional[list] = None
 
 
@@ -101,6 +109,51 @@ def pmean(x, axis: str):
            zip(flat.split([t.numel() for t in leaves]), leaves)]
     _log("mean", 0, [host], t0, t1, flat.device)
     return out[0] if isinstance(x, torch.Tensor) else type(x)(out)
+
+
+def group_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """``x`` summed (``op="sum"``) or maximized (``"max"``) over the ranks
+    of ``group``, in a new tensor of ``x``'s dtype on its device: a
+    floating ``x`` is summed in f32 (gloo's sum over the ranks in its own
+    order, the same bits on every rank), an integer one exactly."""
+    if dist.get_world_size(group) == 1:
+        return x.clone()
+    t0 = time.perf_counter()
+    work = x.float() if op == "sum" and x.is_floating_point() else x
+    host = _to_host(work.contiguous())
+    if host.data_ptr() == x.data_ptr():
+        host = host.clone()             # never reduce into the caller's x
+    dist.all_reduce(host, op=dist.ReduceOp.SUM if op == "sum"
+                    else dist.ReduceOp.MAX, group=group)
+    t1 = time.perf_counter()
+    out = host.to(x.device).to(x.dtype)
+    _log(op, 0, [host], t0, t1, x.device)
+    return out
+
+
+def group_all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in group rank order."""
+    size = dist.get_world_size(group)
+    if size == 1:
+        return x.clone()
+    t0 = time.perf_counter()
+    host = _to_host(x.contiguous())
+    bufs = [torch.empty_like(host) for _ in range(size)]
+    dist.all_gather(bufs, host, group=group)
+    t1 = time.perf_counter()
+    out = torch.cat(bufs, dim).to(x.device)
+    _log("all_gather", 0, [host], t0, t1, x.device)
+    return out
+
+
+def psum(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """``group_reduce`` sum over the group bound to ``axis``."""
+    return group_reduce(x, _group(axis), "sum")
+
+
+def pmax(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """``group_reduce`` max over the group bound to ``axis``."""
+    return group_reduce(x, _group(axis), "max")
 
 
 @contextlib.contextmanager

@@ -13,8 +13,10 @@ the paper's baselines, Shampoo and Adam).
         -m repro_torch.launch.train --stats-reduction sharded
 
 Runs on ``--device cuda`` unless told otherwise, and raises if the machine
-has no card.  The reference's gradient compression (``--compress-grads``,
-which its launcher parses and never reads) is not ported yet.
+has no card.  ``--compress-grads`` is parsed as the reference parses it
+and, as there, nothing reads it: the int8 gradient mean is
+train/compression.py's ``compressed_mean_grads``, which the step does not
+call.
 
 ``--stats-reduction sharded`` (distributed/): started by
 ``torch.distributed.run`` with ``WORLD_SIZE`` > 1, every rank joins one
@@ -138,6 +140,9 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
                    help="restore the latest checkpoint under "
                         "--checkpoint-dir, if there is one, and go on from "
                         "its step")
+    p.add_argument("--compress-grads", action="store_true",
+                   help="parsed and unread, as in the reference; see "
+                        "train/compression.py")
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--metrics-out", default=None)
     p.add_argument("--seed", type=int, default=0)

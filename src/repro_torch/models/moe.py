@@ -1,8 +1,8 @@
 """Mixture-of-experts block: shared experts plus routed top-k experts with
-sort-based capacity dispatch (port of repro/models/moe.py, its
-single-device path: ``moe_params_shape`` :23, ``_route`` :40,
-``_slot_tables`` :49, ``_experts_ffn`` :67, ``moe_block`` :157,
-``_finish_moe`` :191).
+sort-based capacity dispatch (port of repro/models/moe.py:
+``moe_params_shape`` :23, ``_route`` :40, ``_slot_tables`` :49,
+``_experts_ffn`` :67, the expert-parallel ``_moe_routed_shard_map`` :75
+and ``_shard_map_ok`` :146, ``moe_block`` :157, ``_finish_moe`` :191).
 
 Each token picks its top ``experts_per_token`` experts by router
 probability; every expert takes at most ``capacity = int(capacity_factor *
@@ -34,16 +34,47 @@ on the card and on the CPU.  The CPU path takes the same order; in bf16
 the whole block is within 2^-8 of its largest output of the reference's
 (tests/test_torch_moe.py: the router's f32 logits sum in another order).
 
-The reference's ``shard_map`` path (:75-143, taken only under a mesh with
-more than one ``experts`` shard, ``_shard_map_ok`` :146) waits for
-ROADMAP.md queue 1 item 12.
+Expert parallelism (``_moe_routed_expert_parallel``) runs under
+``sharding.rules.use_mesh`` when ``cfg.moe_impl`` is not "gspmd" and the
+``experts`` axis maps to one mesh dimension of extent n > 1 that divides
+the experts, as the reference decides.  Every rank runs the body of the
+reference's ``shard_map``: ``x`` is its share of the batch, the same on
+every rank of the experts group (so the reference's test that the batch
+extent divides the global batch holds by construction), and
+``p["experts"]`` holds only its E/n experts, rank r of the group experts
+[r E/n, (r + 1) E/n) (``repro_torch.convert.expert_parallel_shard`` cuts
+them from a whole tree).  Each rank routes every token against all
+experts and builds the whole slot tables, with the same capacity, so the
+same assignments are dropped; it runs its own range of slots and combines
+their outputs into a (T, D) partial, adding each token's slots in
+ascending order as above; one sum over the group of the partials follows.
+Where the ``fsdp`` axis has extent above 1, the router and the experts'
+d_model rows arrive cut over it, and are gathered first.
+
+The collectives run over gloo through host memory (distributed/reduce.py
+``group_reduce``, ``group_all_gather``).  The sum of the partials runs in
+f32 and is cast back to the model's dtype: it is not the reference's bf16
+``psum``, nor the single-process block's sequential adds, so in bf16 the
+two paths agree to a tolerance, in f32 to the rounding of the sum.  The
+gradient is the single-process block's, not n times it: the sum passes the
+cotangent through unchanged (every rank computes the loss from the same
+replicated output, and ``torch.distributed.nn``'s all-reduce would sum the
+n equal cotangents); the tokens and the router enter the routed path
+through the converse, an identity whose backward sums the partial
+gradients over the group; a gathered weight's backward sums over the fsdp
+group and keeps this rank's rows.  The groups come from the mesh, never
+from a thread's binding: on the card the backward, and with it the
+recompute of a checkpointed layer, runs on the autograd engine's thread.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed import reduce
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import activation
+from repro_torch.sharding import rules as rules_lib
 
 
 def moe_params_shape(cfg: ModelConfig) -> dict:
@@ -112,12 +143,110 @@ def _experts_ffn(cfg: ModelConfig, we: dict,
     return torch.matmul(h, we["w_down"])
 
 
+class _SumOverGroup(torch.autograd.Function):
+    """Forward: the sum over ``group`` (f32, cast back).  Backward: the
+    cotangent unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return reduce.group_reduce(x, group, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _IntoGroup(torch.autograd.Function):
+    """Forward: the identity.  Backward: the cotangent summed over
+    ``group`` (f32, cast back)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce.group_reduce(g, ctx.group, "sum"), None
+
+
+class _GatherOverGroup(torch.autograd.Function):
+    """Forward: the group's shards concatenated along ``dim`` (tiled).
+    Backward: the cotangent summed over the group, this rank's rows."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce.group_all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        total = reduce.group_reduce(g, ctx.group, "sum")
+        size = dist.get_world_size(ctx.group)
+        own = total.chunk(size, ctx.dim)[dist.get_rank(ctx.group)]
+        return own.contiguous(), None, None
+
+
+def _expert_parallel_ok(cfg: ModelConfig) -> bool:
+    rules = rules_lib.current()
+    if rules is None or cfg.moe_impl == "gspmd":
+        return False
+    n_model = rules_lib.axis_extent("experts")
+    return (isinstance(rules.axis("experts"), str) and n_model > 1
+            and cfg.num_experts % n_model == 0)
+
+
+def _moe_routed_expert_parallel(cfg: ModelConfig, p: dict,
+                                xt: torch.Tensor, rules) -> torch.Tensor:
+    """The routed experts' output (T, D) for this rank's tokens xt (T, D),
+    this rank holding its E/n experts (module docstring)."""
+    T, D = xt.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    group = rules.mesh.get_group(rules.axis("experts"))
+    n_model = dist.get_world_size(group)
+    E_loc = E // n_model
+    router, we = p["router"], p["experts"]
+    fsdp_ax = rules.axis("fsdp")
+    if fsdp_ax is not None and rules_lib.axis_extent("fsdp") > 1:
+        fsdp = rules.mesh.get_group(fsdp_ax)
+        router = _GatherOverGroup.apply(router, fsdp, 0)
+        we = {"w_gate": _GatherOverGroup.apply(we["w_gate"], fsdp, 1),
+              "w_up": _GatherOverGroup.apply(we["w_up"], fsdp, 1),
+              "w_down": _GatherOverGroup.apply(we["w_down"], fsdp, 2)}
+    if we["w_gate"].shape[0] != E_loc:
+        raise ValueError(
+            f"expert parallelism over {n_model} ranks: each holds {E_loc} "
+            f"of the {E} experts, got {we['w_gate'].shape[0]} "
+            f"(convert.expert_parallel_shard cuts them)")
+    xt = _IntoGroup.apply(xt, group)
+    router = _IntoGroup.apply(router, group)
+
+    capacity = int(cfg.capacity_factor * T * k / E) + 1
+    gate_w, gate_idx = _route(cfg, router, xt)
+    slot_tok, slot_w, token_slots = _slot_tables(E, k, capacity, gate_w,
+                                                 gate_idx, T)
+    # this rank's range of slots
+    n_loc = E_loc * capacity
+    lo = dist.get_rank(group) * n_loc
+    xt_pad = torch.cat([xt, xt.new_zeros(1, D)])
+    buf = xt_pad[slot_tok[lo:lo + n_loc]].reshape(E_loc, capacity, D)
+    out_buf = _experts_ffn(cfg, we, buf)
+    contrib = out_buf.reshape(n_loc, D) * \
+        slot_w[lo:lo + n_loc, None].to(xt.dtype)
+    local = token_slots - lo
+    local = torch.where((local >= 0) & (local < n_loc), local, n_loc)
+    return _SumOverGroup.apply(_combine(contrib, local), group)
+
+
 def moe_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D)."""
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     T = B * S
     xt = x.reshape(T, D)
+    if _expert_parallel_ok(cfg):
+        routed = _moe_routed_expert_parallel(cfg, p, xt, rules_lib.current())
+        return _finish_moe(cfg, p, xt, routed, B, S, D)
     gate_w, gate_idx = _route(cfg, p["router"], xt)
     capacity = int(cfg.capacity_factor * T * k / E) + 1
     slot_tok, slot_w, token_slots = _slot_tables(E, k, capacity, gate_w,

@@ -38,7 +38,8 @@ a relative error of the whole output of 1e-2 beside the atol, and raises on
 a view that is not 16-byte aligned.
 
 The sharded statistics: kernel 1 at the butterfly merge's Gram shapes (k
-126 and 22) against its plain version, and the FD merge on the card
+126 and 22) and the shrink merge's (k 128 and 24) against its plain
+version, and the FD merge and ``merge_sketches_on_shrink`` on the card
 against the CPU (covariance, ladder and rho within 1e-4 of the largest
 eigenvalue).
 
@@ -62,8 +63,9 @@ audio configs (reduced, on their own inputs: embeddings, or tokens of 4
 codebooks): logits, a teacher-forced decode and one Sketchy step on the
 card against the CPU, through chip_smoke.py's phase 8c (one
 implementation for both).  Flash attention also at gemma-2b's head dim
-256 and at qwen2-vl-72b's (GQA 64/8, hd 128) and musicgen-large's (MHA
-32/32, hd 64) full-width training shapes.
+256, at qwen2-vl-72b's (GQA 64/8, hd 128) and musicgen-large's (MHA
+32/32, hd 64) full-width training shapes, and at deepseek-moe-16b's
+expert-parallel shape (B 4, 16 heads, S 512, hd 128).
 
 Checkpoints: the reduced model's fp32 and int8 states saved and restored
 on the card bit for bit, and the next step from the restored state bit for
@@ -468,7 +470,9 @@ FLASH_CASES = [(1, 2, 2, 64, 16, True), (2, 4, 2, 96, 32, True),
                (8, 12, 12, 128, 64, True), (4, 32, 32, 16, 112, True),
                (2, 6, 3, 130, 48, True), (1, 2, 1, 70, 128, False),
                (1, 8, 1, 128, 256, True), (2, 4, 1, 70, 256, False),
-               (8, 64, 8, 128, 128, True), (8, 32, 32, 128, 64, True)]
+               (8, 64, 8, 128, 128, True), (8, 32, 32, 128, 64, True),
+               # deepseek-moe-16b's expert-parallel run (phase 4d)
+               (4, 16, 16, 512, 128, True)]
 
 
 def _flash_inputs(card, B, Hq, Hkv, S, hd, dtype, seed):
@@ -701,10 +705,15 @@ def test_gram_kernel_at_shampoo_shapes_on_card(card, N, d, k):
 
 # the sharded statistics' merge Grams at full width (chip_smoke.py
 # merge_gram_shapes): two rank-64 sketches of ell - 1 = 63 columns a side,
-# k = 126, and k = 22 for the 12-row side of the norm group
+# k = 126, and k = 22 for the 12-row side of the norm group; and the
+# shrink merge's (shrink_merge_gram_shapes, phase 4d): both whole factors,
+# k = 2 ell = 128, and 24 for the 12-row side
 MERGE_GRAM_CASES = [(68, 1024, 126), (68, 768, 126), (2, 12, 22),
                     (2, 768, 126), (104, 768, 126), (104, 1024, 126),
-                    (48, 768, 126)]
+                    (48, 768, 126),
+                    (68, 1024, 128), (68, 768, 128), (2, 12, 24),
+                    (2, 768, 128), (104, 768, 128), (104, 1024, 128),
+                    (48, 768, 128)]
 
 
 @pytest.mark.cuda
@@ -744,6 +753,43 @@ def test_fd_merge_on_card_matches_cpu(card):
         scale = float(want.eigvals.abs().max())
         torch.testing.assert_close(a.double(), b.double(), rtol=1e-4,
                                    atol=1e-4 * scale)
+
+
+@pytest.mark.cuda
+def test_shrink_merge_on_card_matches_cpu(card):
+    """``elastic.merge_sketches_on_shrink`` of four pools of sketches on the
+    card (kernel 1 once a merge of a stack: 3 x 2 sides) and on the CPU:
+    the same covariance, ladder and rho within 1e-4 of the largest
+    eigenvalue, the other leaves passed through."""
+    from repro_torch.core import fd, sketchy
+    from repro_torch.kernels.gram import kernel
+    from repro_torch.train import elastic
+    gen = torch.Generator().manual_seed(1)
+    pools = []
+    for _ in range(4):
+        sides = [fd.fd_update_batched(fd.fd_init(64, 8, num_blocks=3),
+                                      torch.randn(3, 64, 5, generator=gen))
+                 for _ in range(2)]
+        pools.append({"64x64": sketchy.SketchyBlockStats(*sides),
+                      "n": torch.tensor(len(pools))})
+    on_card = [{"64x64": sketchy.SketchyBlockStats(*(
+        fd.FDState(*(t.to(card) for t in side)) for side in p["64x64"])),
+        "n": p["n"]} for p in pools]
+    before = kernel.launches
+    got = elastic.merge_sketches_on_shrink(on_card)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 6
+    want = elastic.merge_sketches_on_shrink(pools)
+    assert int(got["n"]) == 0
+    cov = lambda st: torch.einsum("nde,ne,nfe->ndf", st.eigvecs.cpu().double(),
+                                  st.eigvals.cpu().double(),
+                                  st.eigvecs.cpu().double())
+    for a, b in zip(got["64x64"], want["64x64"]):
+        scale = float(b.eigvals.abs().max())
+        for x, y in ((cov(a), cov(b)), (a.eigvals.cpu(), b.eigvals),
+                     (a.rho.cpu(), b.rho)):
+            torch.testing.assert_close(x.double(), y.double(), rtol=1e-4,
+                                       atol=1e-4 * scale)
 
 
 @pytest.mark.cuda

@@ -34,24 +34,19 @@ same tolerance: both packages round the same f32 factors to nearest, so
 their int8 grids agree wherever a factor entry lies clear of a rounding
 boundary, as every one of these does.
 """
-import os
-import subprocess
-import sys
-import time
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 import torch_dist_ranks as ranks_lib
+import torch_ranks
 from torch_parity import assert_close_scaled, torch_one_thread  # noqa: F401
 
 from repro.core import fd as jfd
 from repro.distributed import reduce as jreduce
 from repro.distributed import sketch_merge as jwire
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LIMIT_S = 120
 P = ranks_lib.WORLD
 
@@ -60,39 +55,9 @@ P = ranks_lib.WORLD
 def ranks(tmp_path_factory):
     """What each of the 4 ranks saved, by rank."""
     out = tmp_path_factory.mktemp("ranks")
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("XLA_FLAGS", "MASTER_ADDR", "MASTER_PORT",
-                        "WORLD_SIZE", "RANK", "LOCAL_RANK")}
-    env.update(PYTHONPATH=os.path.join(REPO, "src"), OMP_NUM_THREADS="1",
-               GLOO_SOCKET_IFNAME=env.get("GLOO_SOCKET_IFNAME", "lo"))
-    logs = [open(out / f"log-{r}.txt", "w") for r in range(P)]
-    procs = [subprocess.Popen(
-        [sys.executable, ranks_lib.__file__, str(r), str(P),
-         str(out / "rendezvous"), str(out)],
-        stdout=log, stderr=subprocess.STDOUT, env=env, cwd=REPO)
-        for r, log in enumerate(logs)]
-    deadline = time.monotonic() + LIMIT_S
-    timed_out = False
-    try:
-        for proc in procs:
-            proc.wait(timeout=max(deadline - time.monotonic(), 0.1))
-    except subprocess.TimeoutExpired:
-        timed_out = True
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        for log in logs:
-            log.close()
-    tails = "\n".join(f"--- rank {r}:\n" + (out / f"log-{r}.txt")
-                      .read_text()[-3000:] for r in range(P))
-    if timed_out:
-        pytest.fail(f"the ranks did not finish within {LIMIT_S} s\n{tails}")
-    if any(proc.returncode != 0 for proc in procs):
-        pytest.fail(f"rank exit codes {[p.returncode for p in procs]}\n"
-                    f"{tails}")
-    return [torch.load(out / f"rank-{r}.pt") for r in range(P)]
+    procs = torch_ranks.start_ranks(ranks_lib.__file__, [], P, out)
+    torch_ranks.wait_all(procs, out, LIMIT_S)
+    return torch_ranks.load_ranks(out, P)
 
 
 def _cov(U, s):
