@@ -49,6 +49,13 @@ no result line:
    k = 2 (ell - 1) = 126, 22 for the 12-row side) and phase 4d's shrink
    merge (``shrink_merge_gram_shapes``: k = 2 ell = 128, 24), timed beside
    the plain version and ``bmm`` with its bound, one round's calls summed.
+2t. tune (kernels/autotune.py): kernels 2, 2' and 6 at the main path's
+   shapes (``tune_specs``), every candidate (the apply's column tiles, the
+   write-back's block counts) against the plain version on the same
+   operands and timed, whether the candidates give the same bits; the
+   measured search into a cache under build/tune/; ``auto`` mode on the
+   committed kernels/tune_cache.json picks what it records; a step's
+   default and tuned sums printed.  (The phase runs after phase 3.)
 3. eigh: ``torch.linalg.eigh`` over one refresh's 444 Grams (a library call
    in both packages, timed on its own); then one Shampoo root refresh
    (172 matrices of 1024^2, 270 of 768^2, 2 of 12^2): eigh alone and the
@@ -82,6 +89,11 @@ no result line:
    the fp32, int8 and Shampoo runs above (the pending slot and the active
    ranks uncounted).  Every run also prints the matrices ``eigh`` took in
    each step.
+4m. microbatching: full-width paper-lm-100m, Sketchy at MAIN_PATH_ARGV,
+   2 steps (a refresh at step 0) with ``make_train_step(microbatches=4)``
+   against the whole batch from the same weights: the losses and every
+   parameter within MODEL_RTOL[bf16] in norm, kernels 1 and 2 launched as
+   often (8 Grams, 16 applies), kernel 7 four times as often.
 4s. sharded statistics: ``python -m torch.distributed.run --standalone
    --nproc-per-node 4 -m repro_torch.launch.train`` with MAIN_PATH_ARGV and
    ``--stats-reduction sharded`` (SHARDED_ARGV): 4 ranks share the one card
@@ -136,7 +148,14 @@ no result line:
    Then ``merge_sketches_on_shrink`` of the 4 ranks' own full-width pools
    on the card (kernel 1 24 launches at (N, d, 2 ell)), timed, against
    the same merge on the CPU (covariance, ladder and rho within
-   tests/test_torch_distributed.py's tolerance).
+   tests/test_torch_distributed.py's tolerance).  Last on the ranks, the
+   pipeline (train/pipeline_parallel.py ``gpipe_apply``): full-width
+   paper-lm-100m's 12 layers as 4 stages of 3 (the model's dense block, bf16),
+   phase 4's batch 0 in 4 microbatches (7 ticks, each stage's exchange
+   through host memory), the output and each stage's layer gradients
+   against the same 12 layers run one after the other on this rank within
+   MODEL_RTOL[bf16] in norm, kernel 7 once a layer a tick; the time a tick
+   printed.
 5. profile: ``torch.profiler`` over one plain step of each of the four
    runs: device time by kernel and the device's idle share.  Then the
    async int8 run with ``--profile-annotations``: a plain step and the
@@ -248,6 +267,14 @@ no result line:
    a 16-token teacher-forced decode against it (DECODE_BF16_RTOL), and
    phase 7d's timed feedback gradients through ``lm_head`` with kernel 7's
    launches (once a layer a gradient).
+10. dry run (launch/dryrun.py): ``python -m repro_torch.launch.dryrun
+   --arch paper-lm-100m --shape train_4k`` on a fake group of 256 ranks (the
+   production 16 x 16 mesh, the probes), its plan printed; then the plan
+   of full-width paper-lm-100m at phase 4's shape on one rank against the
+   card: its parameter and state bytes equal to ``launch.train``'s real
+   state exactly, the card's bytes allocated above the arguments during
+   step 0 (a refresh) PEAK_BAND of the plan's ``temp_bytes``, the step's
+   time beside the plan's ``bound_s``.
 
 The last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``; kernel 7 has a second row there at head
@@ -259,6 +286,7 @@ phases 2, 4s and 4d; kernel 7's expert-parallel launches on 4d's.
 from __future__ import annotations
 
 import contextlib
+import functools
 import dataclasses
 import io
 import json
@@ -310,9 +338,10 @@ from repro_torch.train import compression, elastic  # noqa: E402
 from repro_torch.train import checkpoint as ckpt_lib  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at its 700 W
-# limit): device memory 3.35 TB/s; f32 outside the tensor cores 67 TFLOP/s;
-# tf32 on the tensor cores 494.7 TFLOP/s; bf16 on the tensor cores 989
-# TFLOP/s; int8 on the tensor cores 1979 TOP/s.  A bound takes the
+# limit; launch/roofline.py holds them for the whole package): device
+# memory 3.35 TB/s; f32 outside the tensor cores 67 TFLOP/s; tf32 on the
+# tensor cores 494.7 TFLOP/s; bf16 on the tensor cores 989 TFLOP/s; int8 on
+# the tensor cores 1979 TOP/s.  A bound takes the
 # operations at the rate of the fastest unit shown to meet the function's
 # tolerance, whatever unit the hand-written kernel itself uses: bf16 for
 # bf16 attention (the reference multiplies q k^T and p v in the inputs'
@@ -327,17 +356,12 @@ from repro_torch.train import checkpoint as ckpt_lib  # noqa: E402
 # and 5 carry the 3xTF32 bound in the JSON line and print their f32 one
 # beside it; every other row bound by f32 operations keeps its f32 bound
 # there and prints its bound at 3xTF32 beside it, for ordering only.
-HBM_BYTES_PER_S = 3.35e12
-# what the card holds on chip at once: 132 SMs of 256 KiB of registers and
-# 228 KiB of shared memory, and 50 MiB of L2 (NVIDIA's H100 SXM figures):
-# the most of a tall factor that a two-product pass can keep between its
-# products instead of reading it again (kernel 4's bound)
-ONCHIP_BYTES = 132 * (256 + 228) * 1024 + 50 * 2 ** 20
-F32_FLOPS_PER_S = 67e12
-TF32_FLOPS_PER_S = 494.7e12
-TF32X3_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
-BF16_FLOPS_PER_S = 989e12
-INT8_OPS_PER_S = 1979e12
+# ONCHIP_BYTES, what the card holds on chip at once, is the most of a tall
+# factor that a two-product pass can keep between its products instead of
+# reading it again (kernel 4's bound).
+from repro_torch.launch.roofline import (  # noqa: E402
+    BF16_FLOPS_PER_S, F32_FLOPS_PER_S, HBM_BYTES_PER_S, INT8_OPS_PER_S,
+    ONCHIP_BYTES, TF32_FLOPS_PER_S, TF32X3_FLOPS_PER_S)
 RANK, BLOCK = 64, 1024          # the launcher's defaults
 # The launcher's defaults but a peak lr of 3e-4 (default 3e-3): with 12
 # steps the warmup-cosine schedule warms up for one step, and at full width
@@ -1671,6 +1695,10 @@ MESH_PLANS = [(4, 2, 8), (2, 2, 8)]
 EP_ARCH, EP_LAYERS = "deepseek-moe-16b", 4
 EP_BATCH, EP_SEQ = DENSE_FULL_BATCH, DENSE_FULL_SEQ
 EP_MESH = (1, MESH_RANKS)
+# pipeline parallelism (train/pipeline_parallel.py): full-width
+# paper-lm-100m's 12 layers as MESH_RANKS stages of 3, the dense block of
+# models/model.py, phase 4's batch 0 (8 x 128) in PIPE_MICROBATCHES
+PIPE_MICROBATCHES = 4
 
 
 _digest = train_lib._digest
@@ -1929,12 +1957,72 @@ def _mesh_expert_parallel(dev, rank: int, world: int) -> dict:
                 ep_params=sum(p.numel() for p in tree.flatten(params)))
 
 
+def _mesh_pipeline(dev, rank: int, world: int) -> dict:
+    """4d, fourth part: ``gpipe_apply`` over the world, rank r holding
+    layers [3 r, 3 r + 3) of full-width paper-lm-100m (bf16), on phase 4's
+    batch 0 embedded, in PIPE_MICROBATCHES microbatches; forward and the
+    backward of the mean square of the output.  The same 12 layers run on
+    this rank one after the other on each microbatch (the pipeline's
+    shapes) are the sequential stack: its output and its gradients of this
+    rank's layers, in norm.  Times: the forward's ticks (M + n - 1), each
+    with its exchange through host memory, and the backward."""
+    from repro_torch.train import pipeline_parallel
+    args = train_lib.parse_args(MAIN_PATH_ARGV + ["--device", str(dev)])
+    run = train_lib.start(args)
+    cfg, stack = run.cfg, run.params["layers"]
+    with torch.no_grad():
+        x = model_lib.embed_tokens(cfg, run.params, run.batch(0))
+    B, S = x.shape[:2]
+    pos = torch.arange(S, device=dev)[None].expand(B // PIPE_MICROBATCHES, S)
+    block = lambda p, h: model_lib._dense_block(cfg, p, h, pos)
+    n = cfg.num_layers // world
+    mine = [leaf[rank * n:(rank + 1) * n].detach().clone().requires_grad_()
+            for leaf in tree.flatten(stack)]
+    _zero_counts()
+    torch.cuda.synchronize(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    y = pipeline_parallel.gpipe_apply(dist.group.WORLD,
+                                      tree.unflatten(stack, mine), block,
+                                      x, PIPE_MICROBATCHES)
+    torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    y.float().square().mean().backward()
+    torch.cuda.synchronize(dev)
+    t2 = time.perf_counter()
+    launches = _counts()
+    whole = [leaf.detach().clone().requires_grad_()
+             for leaf in tree.flatten(stack)]
+    layers = tree.unflatten(stack, whole)
+    outs = []
+    for xm in x.chunk(PIPE_MICROBATCHES):
+        h = xm
+        for i in range(cfg.num_layers):
+            h = block(tree.unflatten(stack, [v[i] for v in whole]), h)
+        outs.append(h)
+    want = torch.cat(outs)
+    want.float().square().mean().backward()
+    grads = max(_rel(g.grad, w.grad[rank * n:(rank + 1) * n])
+                for g, w in zip(mine, tree.flatten(layers)))
+    ticks = PIPE_MICROBATCHES + world - 1
+    y, want = y.detach(), want.detach()
+    out = dict(y=_rel(y, want), y_equal=bool(torch.equal(y, want)),
+               grads=grads, ticks=ticks, forward_s=t1 - t0,
+               backward_s=t2 - t1, launches=launches,
+               exchange_bytes=x.numel() // PIPE_MICROBATCHES
+               * x.element_size())
+    del run, x, y, want, mine, whole, layers, outs
+    torch.cuda.empty_cache()
+    return out
+
+
 def mesh_rank(rank: str, world: str, rendezvous: str) -> int:
     """One rank of phase 4d, as ``python3 chip_smoke.py --mesh-rank RANK
     WORLD RENDEZVOUS``: joins a gloo group through the file
-    ``RENDEZVOUS`` on the one card, runs the phase's three parts
-    (``_mesh_compressed``, ``_mesh_remesh``, ``_mesh_expert_parallel``) and
-    writes its report to MESH_DIR/rank-<RANK>.json."""
+    ``RENDEZVOUS`` on the one card, runs the phase's four parts
+    (``_mesh_compressed``, ``_mesh_remesh``, ``_mesh_expert_parallel``,
+    ``_mesh_pipeline``) and writes its report to
+    MESH_DIR/rank-<RANK>.json."""
     rank, world = int(rank), int(world)
     torch.set_num_threads(2)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1951,6 +2039,8 @@ def mesh_rank(rank: str, world: str, rendezvous: str) -> int:
         report["remesh_done_s"] = time.perf_counter() - t0
         report.update(_mesh_expert_parallel(dev, rank, world))
         report["ep_done_s"] = time.perf_counter() - t0
+        report.update(pipeline=_mesh_pipeline(dev, rank, world))
+        report["pipeline_done_s"] = time.perf_counter() - t0
         dist.barrier()
         with open(os.path.join(MESH_DIR, f"rank-{rank}.json"), "w") as f:
             json.dump(report, f)
@@ -1967,8 +2057,8 @@ def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
 
 def phase_mesh(dev) -> dict:
     """Phase 4d: MESH_RANKS ranks of ``--mesh-rank`` (the compressed mean,
-    the remesh and the expert-parallel run), then in this process the
-    single-process expert check and the shrink merge.  Returns the
+    the remesh, the expert-parallel run and the pipeline), then in this
+    process the single-process expert check and the shrink merge.  Returns the
     launches of kernels 1 and 7 it counted."""
     torch.cuda.empty_cache()
     rdzv = os.path.join(MESH_DIR, "rendezvous")
@@ -1986,15 +2076,44 @@ def phase_mesh(dev) -> dict:
     for rep in reps:
         print(f"mesh rank {rep['rank']}: parts done at "
               f"{rep['compressed_done_s']:.1f} / {rep['remesh_done_s']:.1f} "
-              f"/ {rep['ep_done_s']:.1f} s after joining the group")
+              f"/ {rep['ep_done_s']:.1f} / {rep['pipeline_done_s']:.1f} s "
+              f"after joining the group")
     _check_compressed(reps)
     _check_remesh(reps)
     ep = _check_expert_parallel(dev, reps)
+    _check_pipeline(reps)
     merge = phase_shrink_merge(dev)
     print(f"mesh: {MESH_RANKS} ranks on one card over gloo, {wall:.1f} s of "
           f"wall time for the ranks (their startup included)")
     shutil.rmtree(MESH_DIR, ignore_errors=True)
     return dict(ep, merge_grams=merge)
+
+
+def _check_pipeline(reps: list) -> None:
+    """Each rank's pipeline output and its layers' gradients within
+    MODEL_RTOL[bf16] of the sequential stack in norm, every rank's output
+    the same; kernel 7 launched once a layer a tick in the forward (every
+    stage computes at every tick) and the plain version's recompute in the
+    backward launches none."""
+    rtol = MODEL_RTOL[torch.bfloat16]
+    for rep in reps:
+        p = rep["pipeline"]
+        layers = 12 // MESH_RANKS
+        if p["y"] > rtol or p["grads"] > rtol:
+            fail(f"pipeline rank {rep['rank']}: output {p['y']:.3e}, "
+                 f"gradients {p['grads']:.3e} from the sequential stack "
+                 f"(tolerance {rtol})")
+        if p["launches"]["flash_attention"] != p["ticks"] * layers:
+            fail(f"pipeline rank {rep['rank']}: kernel 7 launched "
+                 f"{p['launches']['flash_attention']} times, expected "
+                 f"{p['ticks'] * layers}")
+        print(f"pipeline rank {rep['rank']}: {p['ticks']} ticks of "
+              f"{layers} layers, forward {p['forward_s'] * 1e3:.1f} ms "
+              f"({p['forward_s'] / p['ticks'] * 1e3:.1f} ms a tick with its "
+              f"exchange of {p['exchange_bytes']} B through host memory), "
+              f"backward {p['backward_s'] * 1e3:.1f} ms; output "
+              f"{p['y']:.3e} from the sequential stack in norm (equal bits: "
+              f"{p['y_equal']}), its layers' gradients {p['grads']:.3e}")
 
 
 def _check_compressed(reps: list) -> None:
@@ -2239,6 +2358,247 @@ def phase_shrink_merge(dev) -> int:
           f"{cpu_s * 1e3:.1f} ms; largest difference {worst:.3f} of the "
           f"tolerance")
     return launches["batched_gram"]
+
+
+# the tune phase: kernels 2, 2' and 6 at the main path's shapes, each
+# candidate against the plain version, timed; the winners into a cache
+# under build/ (the committed fixture is kernels/tune_cache.json)
+TUNE_CACHE = os.path.join(ROOT, "build", "tune", "tune_cache.json")
+
+
+def tune_specs() -> list:
+    """(kernel, shape, dtype, calls a step) of kernels 2 (f32 U), 2' (int8
+    U) and 6 at the main path's shapes: the apply's (N, d, ell, n) and the
+    write-back's (N, d, ell, r, ell), each distinct shape once with the
+    number of the main path's calls a step or refresh that take it."""
+    refresh, apply = main_path_shapes()
+    out = {}
+    for dtype in ("float32", "int8"):
+        for shape in apply:
+            key = ("batched_lowrank_apply", shape, dtype)
+            out[key] = out.get(key, 0) + 1
+    for N, d, ell, r in refresh:
+        key = ("batched_project_quantize", (N, d, ell, r, ell), "int8")
+        out[key] = out.get(key, 0) + 1
+    return [k + (n,) for k, n in out.items()]
+
+
+def phase_tune(dev, smi: str) -> dict:
+    """Every candidate of ``tune_specs`` against the plain version on the
+    same operands (the apply at the f32 tolerance, the write-back's values
+    within one step where the plain U_new / scale is within 1e-3 of a .5
+    boundary, ``project_quantize_differences``), whether the candidates
+    give the same bits, each timed (``autotune.time_config``); the
+    measured search then tunes each shape into TUNE_CACHE, and ``auto``
+    mode on the committed fixture must pick what the fixture records.
+    Prints, per kernel, a step's default and tuned sums.  Returns
+    {kernel row: (default ms, tuned ms)}."""
+    from repro_torch.kernels import autotune
+    name = {("batched_lowrank_apply", "float32"): "2",
+            ("batched_lowrank_apply", "int8"): "2'",
+            ("batched_project_quantize", "int8"): "6"}
+    sums = {}
+    for kernel, shape, dtype, calls in tune_specs():
+        ops = autotune._operands(kernel, shape, dtype, dev)
+        plain = autotune._plain(kernel)(*ops)
+        cands = autotune.candidates(kernel, shape, dtype)
+        outs, times = [], []
+        for cand in cands:
+            got = autotune._runner(kernel)(cand, *ops)
+            if kernel == "batched_project_quantize":
+                lowrank_ref.project_quantize_differences(got, *ops)
+                err = 0.0
+            else:
+                err = check(f"tune {kernel} {shape} {dtype} {cand}", got,
+                            plain, shape[1])
+            outs.append(got)
+            times.append(autotune.time_config(kernel, cand, ops) * 1e3)
+            print(f"tune: kernel {name[kernel, dtype]} {shape} {dtype} "
+                  f"{dict(cand._asdict())}: {times[-1]:.4f} ms, max abs "
+                  f"diff {err:.3e}")
+        same = all(all(torch.equal(a, b) for a, b in zip(
+            o if isinstance(o, tuple) else (o,),
+            outs[0] if isinstance(outs[0], tuple) else (outs[0],)))
+            for o in outs[1:])
+        best = min(range(len(cands)), key=lambda i: (times[i], i))
+        row = sums.setdefault(name[kernel, dtype], [0.0, 0.0])
+        row[0] += calls * times[0]
+        row[1] += calls * times[best]
+        print(f"tune: kernel {name[kernel, dtype]} {shape} {dtype} x "
+              f"{calls}: {len(cands)} candidates, equal bits {same}; "
+              f"fastest {dict(cands[best]._asdict())} {times[best]:.4f} ms "
+              f"against the default's {times[0]:.4f} ms")
+    with contextlib.suppress(FileNotFoundError):
+        os.remove(TUNE_CACHE)
+    autotune.reload(path=TUNE_CACHE, mode="force")
+    found = autotune.tune_into_cache(
+        [s[:3] for s in tune_specs()], path=TUNE_CACHE)
+    for key, cfg in sorted(found.items()):
+        print(f"tune: {key} -> {dict(cfg._asdict())}")
+    autotune.reload(path=autotune.DEFAULT_CACHE_PATH, mode="auto")
+    fixture = json.load(open(autotune.DEFAULT_CACHE_PATH))["entries"]
+    mine = {k: v for k, v in fixture.items()
+            if autotune.parse_key(k)[0] == autotune.device_name()}
+    for key, v in mine.items():
+        _, kernel, shape, dtype = autotune.parse_key(key)
+        if autotune.get_config(kernel, shape, dtype) != \
+                autotune.TileConfig(**v):
+            fail(f"tune: auto mode does not pick the fixture's {key}")
+    agree = sum(found.get(k) == autotune.TileConfig(**v)
+                for k, v in mine.items())
+    print(f"tune: the committed fixture holds {len(mine)} entries for this "
+          f"card, picked in auto mode; {agree} equal this run's winners")
+    for row, (default, tuned) in sorted(sums.items()):
+        print(f"tune: kernel {row}, a step's calls at the main path's "
+              f"shapes: default {default:.4f} ms, tuned {tuned:.4f} ms "
+              f"({smi})")
+    return {row: tuple(v) for row, v in sums.items()}
+
+
+MICROBATCHES = 4
+
+
+def phase_microbatch(dev) -> None:
+    """Full-width paper-lm-100m, Sketchy at MAIN_PATH_ARGV (phase 4's batch
+    8 x 128), two steps (a refresh at step 0) through ``launch.train``'s
+    run, once whole and once with ``make_train_step(microbatches=4)``, from
+    the same weights: the losses and every parameter within
+    MODEL_RTOL[bf16] in norm, and the launches of kernels 1 and 2 equal
+    (8 Grams, 8 applies a step) while kernel 7 launches 4 times as often
+    (every microbatch's forward and recompute)."""
+    from repro_torch.train import trainer
+    argv = MAIN_PATH_ARGV + ["--device", str(dev)]
+    runs = {}
+    for m in (None, MICROBATCHES):
+        make = functools.partial(trainer.make_train_step, microbatches=m)
+        with mock.patch.object(train_lib, "make_train_step", make):
+            run = train_lib.start(train_lib.parse_args(argv))
+        _zero_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        losses = [float(run.step(i)["loss"]) for i in range(2)]
+        torch.cuda.synchronize(dev)
+        runs[m] = dict(losses=losses, launches=_counts(),
+                       s=time.perf_counter() - t0,
+                       params=[p.detach() for p in tree.flatten(run.params)])
+        del run
+    whole, micro = runs[None], runs[MICROBATCHES]
+    rtol = MODEL_RTOL[torch.bfloat16]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(micro["losses"],
+                                                        whole["losses"]))
+    param_rel = max(_rel(a, b) for a, b in zip(micro["params"],
+                                               whole["params"]))
+    if loss_rel > rtol or param_rel > rtol:
+        fail(f"microbatch: losses {loss_rel:.3e}, parameters "
+             f"{param_rel:.3e} from the whole batch (tolerance {rtol})")
+    flash = whole["launches"]["flash_attention"]
+    want = dict(whole["launches"], flash_attention=MICROBATCHES * flash)
+    if micro["launches"] != want or whole["launches"]["batched_gram"] != 8 \
+            or whole["launches"]["batched_lowrank_apply"] != 16:
+        fail(f"microbatch: launches {micro['launches']}, whole batch "
+             f"{whole['launches']}")
+    print(f"microbatch: {MICROBATCHES} microbatches against the whole "
+          f"batch, 2 steps: losses {micro['losses']} / {whole['losses']} "
+          f"({loss_rel:.3e}), parameters {param_rel:.3e} in norm; "
+          f"{micro['s']:.3f} s / {whole['s']:.3f} s; launches "
+          f"{micro['launches']}")
+
+
+# the dry run: the production plan of one cell on a fake 16 x 16 mesh (the
+# CLI), and on one rank at phase 4's shape the plan against the card; the
+# card's temporary bytes of one refresh step over the plan's, stated before
+# the first call (PERF.md)
+DRYRUN_DIR = os.path.join(ROOT, "build", "dryrun")
+DRYRUN_TIMEOUT_S = 300
+PEAK_BAND = (0.8, 1.25)
+
+
+def phase_dryrun(dev) -> None:
+    """``python -m repro_torch.launch.dryrun --arch paper-lm-100m --shape
+    train_4k`` (a fake group of 256 ranks, the production mesh, the
+    probes): its plan printed.  Then in this process, on a fake group of
+    one rank, the plan of full-width paper-lm-100m at phase 4's shape (8 x
+    128) with MAIN_PATH_ARGV's optimizer, against ``launch.train``'s real
+    state after ``init`` on the card: the plan's parameter and state bytes
+    (``alias_bytes`` and the unread ``unused_bytes``) equal the real ones
+    exactly, and the card's bytes allocated above its arguments during
+    step 0 (a refresh) over the plan's ``temp_bytes`` lies in PEAK_BAND;
+    the step's time beside the plan's ``bound_s`` at its shape."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch import dryrun_lib
+    os.makedirs(DRYRUN_DIR, exist_ok=True)
+    out = os.path.join(DRYRUN_DIR, "train_4k.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "paper-lm-100m", "--shape", "train_4k", "--out", out],
+        capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+        cwd=ROOT)
+    if proc.returncode != 0:
+        fail(f"dry run exited {proc.returncode}:\n{proc.stdout[-3000:]}"
+             f"\n{proc.stderr[-3000:]}")
+    plan = json.load(open(out))
+    full = plan["full"]
+    print(f"dry run paper-lm-100m train_4k on {plan['mesh']} "
+          f"({plan['chips']} ranks, {time.perf_counter() - t0:.1f} s): "
+          f"argument {full['argument_bytes']} B, temp {full['temp_bytes']} "
+          f"B, peak {full['peak_bytes_per_device']} B a rank; cost a rank "
+          f"{plan['cost']}; roofline {plan['roofline']}; useful flops "
+          f"{plan['useful_flops_ratio']:.3f}, roofline fraction "
+          f"{plan['roofline_fraction']:.3e}")
+
+    args = train_lib.parse_args(MAIN_PATH_ARGV + ["--device", str(dev)])
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+    try:
+        mesh = mesh_lib.make_mesh((1, 1), ("data", "model"),
+                                  device_type="cpu")
+        report = dryrun_lib.run_cell(
+            "paper-lm-100m", "train_4k", mesh=mesh,
+            shape=registry.ShapeCfg("train_4k", args.seq, args.batch,
+                                    "train"),
+            opt_overrides=dict(learning_rate=args.lr, rank=args.rank,
+                               block_size=args.block_size,
+                               update_every=args.update_every,
+                               total_steps=args.steps, weight_decay=1e-4))
+    finally:
+        dist.destroy_process_group()
+    full = report["full"]
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    run = train_lib.start(args)
+    batch = run.batch(0)
+    real = sum(4 if isinstance(x, int) else x.numel() * x.element_size()
+               for x in tree.flatten(run.params)
+               + [leaf.value for leaf in ckpt_lib.leaves(run.opt_state)])
+    predicted = full["alias_bytes"] + full["unused_bytes"]
+    if predicted != real:
+        fail(f"dry run: the plan's parameter and state bytes {predicted}, "
+             f"the card's {real}")
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    run.params, run.opt_state, _ = run.step_fn(run.params, run.opt_state,
+                                               batch)
+    torch.cuda.synchronize(dev)
+    step_s = time.perf_counter() - t0
+    temp = torch.cuda.max_memory_allocated(dev) - before
+    share = temp / full["temp_bytes"]
+    print(f"dry run on one rank at phase 4's shape: parameters and state "
+          f"{predicted} B planned, {real} B on the card (arguments "
+          f"{full['argument_bytes']} B with the int32 batch, {before - base} "
+          f"B allocated with the int64 one); step 0 (a refresh) allocated "
+          f"{temp} B above its arguments, the plan {full['temp_bytes']} B "
+          f"({share:.3f}; band {PEAK_BAND}); the step {step_s:.3f} s, the "
+          f"plan's bound {report['roofline']['bound_s']:.3e} s "
+          f"({report['roofline']['dominant']}), {report['cost']}")
+    if not PEAK_BAND[0] <= share <= PEAK_BAND[1]:
+        fail(f"dry run: the card's temporary bytes {temp} are {share:.3f} "
+             f"of the plan's {full['temp_bytes']}, outside {PEAK_BAND}")
+    del run, batch
+    torch.cuda.empty_cache()
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
 
 
 def check_budget(opt_state) -> None:
@@ -3366,6 +3726,8 @@ def main() -> int:
     phase_eigh(dev)
     phase_shampoo_eigh(dev)
     done("2, 3")
+    tuned = phase_tune(dev, smi)
+    done("2t")
     none = dict.fromkeys(COUNTERS, 0)
     flash = dict(flash_attention=12 * TRAIN_FLASH_PER_STEP)
     fp32 = phase_main_path(dev, MAIN_PATH_ARGV, dict(
@@ -3402,6 +3764,8 @@ def main() -> int:
           f"{shampoo['batched_gram']} times over 12 steps (8 a step), "
           f"flash attention {shampoo['flash_attention']}")
     done("4")
+    phase_microbatch(dev)
+    done("4m")
     phase_sharded(dev)
     phase_sharded_reference(dev)
     done("4s")
@@ -3463,6 +3827,8 @@ def main() -> int:
     vlm_audio = {arch: phase_vlm_audio_full(dev, arch, layers)
                  for arch, layers in VLM_AUDIO_FULL}
     done("9b")
+    phase_dryrun(dev)
+    done("10")
 
     hd256 = kernels.pop("flash_attention_hd256")
     for name in kernels:
@@ -3482,6 +3848,9 @@ def main() -> int:
         print(f"{arch} trained at full width: {trained[arch]}; its "
               f"feedback gradients: flash_attention "
               f"{vlm_audio[arch]['flash_attention']}")
+    for row, (default, best) in sorted(tuned.items()):
+        print(f"kernel {row} at the main path's shapes, a step's calls: "
+              f"default {default:.4f} ms, tuned {best:.4f} ms")
     print(smi)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

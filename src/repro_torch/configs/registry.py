@@ -1,12 +1,17 @@
-"""Architecture registry (port of the ``get_config`` / ``get_reduced`` part
-of repro/configs/registry.py), with every architecture of the reference:
-the dense paper-lm-100m, phi3-mini-3.8b, qwen2.5-32b, qwen3-32b and
-gemma-2b, the moe deepseek-moe-16b and kimi-k2-1t-a32b, mamba2-370m (ssm),
-zamba2-7b (hybrid), qwen2-vl-72b (vlm) and musicgen-large (audio)."""
+"""Architecture registry, assigned input shapes and dry-run input specs
+(port of repro/configs/registry.py), with every architecture of the
+reference: the dense paper-lm-100m, phi3-mini-3.8b, qwen2.5-32b, qwen3-32b
+and gemma-2b, the moe deepseek-moe-16b and kimi-k2-1t-a32b, mamba2-370m
+(ssm), zamba2-7b (hybrid), qwen2-vl-72b (vlm) and musicgen-large (audio).
+``input_specs`` returns tensors on the ``meta`` device (shapes and dtypes,
+no storage), where the reference returns ``jax.ShapeDtypeStruct``s."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Dict, Optional
+
+import torch
 
 from repro_torch.models.config import ModelConfig
 
@@ -22,6 +27,23 @@ ALIASES = {
     "musicgen-large": "musicgen_large",
     "mamba2-370m": "mamba2_370m",
     "paper-lm-100m": "paper_lm_100m",
+}
+
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCfg:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str              # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeCfg] = {
+    "train_4k": ShapeCfg("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCfg("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCfg("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCfg("long_500k", 524288, 1, "decode"),
 }
 
 
@@ -64,3 +86,41 @@ def get_reduced(name: str) -> ModelConfig:
     if cfg.family == "hybrid":
         repl["num_layers"] = 4
     return dataclasses.replace(cfg, **repl)
+
+
+def applicable_shapes(cfg: ModelConfig):
+    """The assigned cells for this arch (long_500k only if sub-quadratic)."""
+    for name, sh in SHAPES.items():
+        if name == "long_500k" and not cfg.subquadratic:
+            continue  # full attention: long_500k needs a sub-quadratic arch
+        yield sh
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeCfg, *,
+                batch_override: Optional[int] = None) -> dict:
+    """Meta-tensor stand-ins for one step's inputs (no allocation): token
+    ids int32, embeddings in the model's dtype."""
+    B = batch_override or shape.global_batch
+    S = shape.seq_len
+    dt = getattr(torch, cfg.dtype)
+
+    def spec(shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    K = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+    if shape.kind in ("train", "prefill"):
+        specs = {}
+        if cfg.embed_inputs:
+            specs["tokens"] = spec((B, S) + K)
+        else:  # vlm: precomputed patch/frame embeddings
+            specs["embeds"] = spec((B, S, cfg.d_model), dt)
+        if cfg.mrope:
+            specs["positions"] = spec((3, B, S))
+        if shape.kind == "train":
+            specs["labels"] = spec((B, S) + K)
+        return specs
+
+    # decode: single token against a length-S cache
+    if cfg.embed_inputs:
+        return {"token": spec((B, 1) + K)}
+    return {"embed": spec((B, 1, cfg.d_model), dt)}

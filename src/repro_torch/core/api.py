@@ -29,12 +29,12 @@ the refresh.
 Ported: both schedules and modes, the rank-budget hooks, fp32/bf16/int8
 second-moment storage (core/quantize.py) with the fused int8 path for
 preconditioners that declare ``supports_quantized_compute``, replicated
-and sharded statistics (below), RMSPROP_NORMALIZED grafting with f32
-accumulators or none, 1-D leaves as (d, 1) blocks for the OCO learners
-(``treat_vectors_as_columns``), the diagonal fallback damped by
-``GRAFT_EPS``, and the profiling spans (``profile_annotations``).  Other
-``graft`` values raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+and sharded statistics (below), grafting with f32 accumulators
+(RMSPROP_NORMALIZED, the un-normalized RMSPROP, or none), 1-D leaves as
+(d, 1) blocks for the OCO learners (``treat_vectors_as_columns``), the
+diagonal fallback damped by ``diag_eps`` (``GRAFT_EPS`` when None, as the
+reference couples it to ``graft_eps``), and the profiling spans
+(``profile_annotations``).
 
 Sharded statistics (``stats_reduction="sharded"``, distributed/): when the
 preconditioner has ``refresh_sharded_batched`` and ``stats_axis`` is bound
@@ -70,8 +70,8 @@ from repro_torch.core import pool, quantize
 from repro_torch.core.fd import FDState
 from repro_torch.core.transform import GradientTransformation
 
-GRAFT_EPS = 1e-8        # grafting and diag-fallback damping
-GRAFTS = ("rmsprop_normalized", "none")
+GRAFT_EPS = 1e-8        # grafting (and by default diag-fallback) damping
+GRAFTS = ("rmsprop_normalized", "rmsprop", "none")
 REFRESH_SCHEDULES = ("synchronized", "staggered")
 REFRESH_MODES = ("inline", "async")
 STATS_REDUCTIONS = ("replicated", "sharded")
@@ -85,7 +85,10 @@ class EngineConfig:
     beta2: Any = 0.999              # diag-fallback / grafting EMA decay
     update_every: int = 10          # refresh cadence (paper §6)
     start_preconditioning_step: int = 0
-    graft: str = "rmsprop_normalized"   # rmsprop_normalized | none
+    graft: str = "rmsprop_normalized"   # rmsprop_normalized | rmsprop | none
+    # diagonal-fallback damping of vector and scalar leaves; None keeps the
+    # grafting's GRAFT_EPS (the reference's graft_eps coupling)
+    diag_eps: Optional[float] = None
     # synchronized | staggered (module docstring)
     refresh_schedule: str = "synchronized"
     # inline | async (module docstring)
@@ -117,11 +120,8 @@ class EngineConfig:
     treat_vectors_as_columns: bool = False
 
     def __post_init__(self):
-        if self.graft not in GRAFTS:
-            raise NotImplementedError(
-                f"EngineConfig.graft={self.graft!r} is not ported yet "
-                f"(ROADMAP.md queue 1 item 4); the port runs one of {GRAFTS}")
         for name, allowed in (
+                ("graft", GRAFTS),
                 ("second_moment_dtype", quantize.SECOND_MOMENT_DTYPES),
                 ("quantized_epilogue", QUANTIZED_EPILOGUES),
                 ("refresh_schedule", REFRESH_SCHEDULES),
@@ -183,15 +183,17 @@ def committed_pools(state: PrecondState) -> dict:
 
 def graft_direction(g: torch.Tensor, acc: torch.Tensor, *, graft: str,
                     beta2):
-    """Grafting direction + updated accumulator (paper App. C,
-    RMSPROP_NORMALIZED); f32 tensors.  ``graft="none"`` returns the
-    gradient and the accumulator unchanged.  The temporaries are updated
+    """Grafting direction + updated accumulator (paper App. C): f32 tensors.
+    RMSPROP_NORMALIZED scales the gradient to unit norm first, RMSPROP
+    takes it as it is, and ``graft="none"`` returns the gradient and the
+    accumulator unchanged.  The temporaries are updated
     in place, in the order and with the bits of ``beta2 * acc + (1 -
     beta2) * gn², gn * rsqrt(acc + eps)``: qwen2-vl-72b's head is 4.98 GB
     in f32, and two of its temporaries fewer are 10 GB."""
     if graft == "none":
         return g, acc
-    gn = g / (torch.linalg.norm(g) + 1e-16)
+    gn = g / (torch.linalg.norm(g) + 1e-16) if graft == "rmsprop_normalized" \
+        else g
     sq = torch.square(gn).mul_(1.0 - beta2)
     acc = torch.mul(acc, beta2).add_(sq)
     del sq
@@ -252,6 +254,7 @@ def scale_by_preconditioner(precond, cfg: EngineConfig = EngineConfig()
     """The shared direction engine over flat leaf lists (emits a descent
     direction, no lr)."""
     qdtype = cfg.second_moment_dtype
+    diag_eps = GRAFT_EPS if cfg.diag_eps is None else cfg.diag_eps
     # the int8 containers go to the preconditioner only if it can run on
     # them (repro/core/api.py :588-595); Shampoo's root solve needs f32, and
     # the sharded merge f32 factors on the wire (off under "sharded" even
@@ -475,7 +478,7 @@ def scale_by_preconditioner(precond, cfg: EngineConfig = EngineConfig()
                 sq = diag_sq[i] if i in diag_sq else torch.square(gi)
                 acc = cfg.beta2 * quantize.dequantize_pool(leaf.stats) \
                     + (1.0 - cfg.beta2) * sq
-                out.append((gi * torch.rsqrt(acc + GRAFT_EPS)).to(dtype))
+                out.append((gi * torch.rsqrt(acc + diag_eps)).to(dtype))
                 stats = quantize.requantize_pool(
                     leaf.stats, acc,
                     key=quantize.fold_in(qkey, len(index.groups) + i))

@@ -37,6 +37,9 @@ class OptimizerConfig:
     block_size: int = 1024
     update_every: int = 10             # sketchy's refresh, shampoo's roots
     start_preconditioning_step: int = 0
+    # diagonal-fallback damping of vector and scalar leaves (sketchy and
+    # shampoo); None keeps the grafting's epsilon (core/api.py)
+    diag_eps: Optional[float] = None
     # refresh phasing and timing (core/api.py): "synchronized" |
     # "staggered", "inline" | "async"; sketchy and shampoo
     refresh_schedule: str = "synchronized"
@@ -65,7 +68,7 @@ class OptimizerConfig:
 def _direction(cfg: OptimizerConfig,
                beta2) -> transform.GradientTransformation:
     refresh = dict(refresh_schedule=cfg.refresh_schedule,
-                   refresh_mode=cfg.refresh_mode,
+                   refresh_mode=cfg.refresh_mode, diag_eps=cfg.diag_eps,
                    profile_annotations=cfg.profile_annotations)
     if cfg.name == "sketchy":
         budget = cfg.rank_budget if cfg.rank_budget is not None \

@@ -21,7 +21,7 @@ fused int8 path); the cached roots stay f32 and are not counted.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -39,6 +39,8 @@ class ShampooConfig:
     beta2: Any = 0.999              # may be an f32 scalar tensor (injected)
     root_every: int = 10            # paper: preconditioning_compute_steps
     start_preconditioning_step: int = 0
+    diag_eps: Optional[float] = None    # diag-fallback damping (api.py)
+    graft: str = "rmsprop_normalized"   # rmsprop_normalized | rmsprop | none
     refresh_schedule: str = "synchronized"  # synchronized | staggered
     refresh_mode: str = "inline"            # inline | async (core/api.py)
     profile_annotations: bool = False       # engine spans (core/api.py)
@@ -117,6 +119,7 @@ def shampoo(cfg: ShampooConfig = ShampooConfig()) -> GradientTransformation:
             block_size=cfg.block_size, beta2=cfg.beta2,
             update_every=cfg.root_every,
             start_preconditioning_step=cfg.start_preconditioning_step,
+            graft=cfg.graft, diag_eps=cfg.diag_eps,
             refresh_schedule=cfg.refresh_schedule,
             refresh_mode=cfg.refresh_mode,
             profile_annotations=cfg.profile_annotations,

@@ -85,6 +85,8 @@ class SketchyConfig:
     beta2: Any = 0.999              # second-moment EMA (paper §5.2)
     update_every: int = 10          # FD observes every k-th gradient (§6)
     start_preconditioning_step: int = 0
+    diag_eps: Optional[float] = None      # diag-fallback damping (api.py)
+    graft: str = "rmsprop_normalized"     # rmsprop_normalized | rmsprop | none
     refresh_schedule: str = "synchronized"  # synchronized | staggered
     refresh_mode: str = "inline"            # inline | async (core/api.py)
     profile_annotations: bool = False       # engine spans (core/api.py)
@@ -255,6 +257,7 @@ def sketchy(cfg: SketchyConfig = SketchyConfig()) -> GradientTransformation:
             block_size=cfg.block_size, beta2=cfg.beta2,
             update_every=cfg.update_every,
             start_preconditioning_step=cfg.start_preconditioning_step,
+            graft=cfg.graft, diag_eps=cfg.diag_eps,
             refresh_schedule=cfg.refresh_schedule,
             refresh_mode=cfg.refresh_mode,
             second_moment_dtype=cfg.second_moment_dtype,

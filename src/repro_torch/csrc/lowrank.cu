@@ -451,38 +451,50 @@ int launch_nt(const TU* u, const float* coeffs, const float* base,
 
 template <typename TU>
 int launch(const TU* u, const float* coeffs, const float* base, const float* g,
-           float* y, int n, int d, int ell, int m, void* stream) {
+           float* y, int n, int d, int ell, int m, int col_tile,
+           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the widest column tile whose shared memory fits (64 up to ell 256)
-  if (smem_bytes(ell, 64, sizeof(TU)) <= kMaxSmem) {
-    return launch_nt<TU, 8>(u, coeffs, base, g, y, n, d, ell, m, s);
+  if (col_tile == 0) {
+    // the widest column tile whose shared memory fits (64 up to ell 256)
+    col_tile = smem_bytes(ell, 64, sizeof(TU)) <= kMaxSmem   ? 64
+               : smem_bytes(ell, 32, sizeof(TU)) <= kMaxSmem ? 32
+               : smem_bytes(ell, 16, sizeof(TU)) <= kMaxSmem ? 16
+                                                              : 8;
   }
-  if (smem_bytes(ell, 32, sizeof(TU)) <= kMaxSmem) {
-    return launch_nt<TU, 4>(u, coeffs, base, g, y, n, d, ell, m, s);
+  switch (col_tile) {
+    case 64:
+      return launch_nt<TU, 8>(u, coeffs, base, g, y, n, d, ell, m, s);
+    case 32:
+      return launch_nt<TU, 4>(u, coeffs, base, g, y, n, d, ell, m, s);
+    case 16:
+      return launch_nt<TU, 2>(u, coeffs, base, g, y, n, d, ell, m, s);
+    case 8:
+      return launch_nt<TU, 1>(u, coeffs, base, g, y, n, d, ell, m, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (smem_bytes(ell, 16, sizeof(TU)) <= kMaxSmem) {
-    return launch_nt<TU, 2>(u, coeffs, base, g, y, n, d, ell, m, s);
-  }
-  return launch_nt<TU, 1>(u, coeffs, base, g, y, n, d, ell, m, s);
 }
 
 }  // namespace
 
-// u_dtype: 0 = float32, 2 = int8.  Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue where ell is too large for P to fit shared
-// memory).
+// u_dtype: 0 = float32, 2 = int8.  col_tile: the columns of G a block
+// takes, 8, 16, 32 or 64 (kernels/autotune.py), or 0 for the widest whose
+// shared memory fits.  Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for another col_tile, or where ell is too large
+// for P to fit shared memory at that tile).
 extern "C" int repro_batched_lowrank_apply(const void* u, int u_dtype,
                                            const float* coeffs,
                                            const float* base, const float* g,
                                            float* y, int n, int d, int ell,
-                                           int m, void* stream) {
+                                           int m, int col_tile,
+                                           void* stream) {
   if (u_dtype == 0) {
     return launch(static_cast<const float*>(u), coeffs, base, g, y, n, d, ell,
-                  m, stream);
+                  m, col_tile, stream);
   }
   if (u_dtype == 2) {
     return launch(static_cast<const int8_t*>(u), coeffs, base, g, y, n, d,
-                  ell, m, stream);
+                  ell, m, col_tile, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

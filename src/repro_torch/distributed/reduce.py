@@ -174,8 +174,9 @@ def current_local_gradients():
 
 
 def _to_host(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself on the CPU; else a pinned host copy."""
-    if t.device.type == "cpu":
+    """``t`` itself on the CPU (or on meta: the dry run's shapes); else a
+    pinned host copy."""
+    if t.device.type in ("cpu", "meta"):
         return t
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t)

@@ -39,7 +39,7 @@ SIGNATURES = {
     },
     "lowrank": {
         "repro_batched_lowrank_apply":
-            [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+            [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "gram_tall": {
         "repro_gram_tall": [_P, _P, _P, _LL, _I, _I, _I, _LL, _P],

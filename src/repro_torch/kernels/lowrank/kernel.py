@@ -45,6 +45,7 @@ PROJECT_BLOCKS_PER_SM = 3   # pass 1's residency: 168 registers x 128
                             # threads (its launch bound), 53,248 B of
                             # shared memory a block
 SMEM_LIMIT = 232_448    # dynamic shared memory a Hopper block can use
+APPLY_COL_TILES = (64, 32, 16, 8)   # the batched apply's column tiles
 launches = 0
 int8_launches = 0
 single_launches = 0
@@ -61,15 +62,37 @@ def _check(name: str, tensors: dict, device) -> None:
                              f"has strides {t.stride()}")
 
 
+def apply_smem_bytes(ell: int, col_tile: int, usize: int) -> int:
+    """The batched apply's dynamic shared memory at a column tile of
+    ``col_tile`` columns of G (csrc/lowrank.cu ``smem_bytes``): two stages
+    of U and G rows, then P's tf32 hi and lo parts."""
+    ustride = 64 + 8 if usize == 4 else 64 + 16
+    gstride = 8 if col_tile == 8 else col_tile + 8
+    stage = max(rows * ustride * usize + rows * gstride * 4
+                for rows in (32, 64))
+    cols = math.ceil(ell / 64) * 64
+    return 2 * stage + 2 * 4 * cols * (col_tile + 4)
+
+
+@functools.lru_cache(maxsize=1024)
+def apply_col_tiles(ell: int, usize: int) -> tuple:
+    """The column tiles the batched apply can launch at ``ell`` (those whose
+    shared memory fits), widest first; the first is its default."""
+    return tuple(t for t in APPLY_COL_TILES
+                 if apply_smem_bytes(ell, t, usize) <= SMEM_LIMIT)
+
+
 def batched_lowrank_apply(u: torch.Tensor, coeffs: torch.Tensor,
-                          base: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+                          base: torch.Tensor, g: torch.Tensor,
+                          col_tile: int = 0) -> torch.Tensor:
     """Y[n] = base[n] G[n] + U[n] diag(coeffs[n]) U[n]^T G[n] on the card.
 
     u (N, d, ell) is f32, or int8 for the fused int8 path (the registry's
     ``batched_lowrank_apply_quantized`` folds the block scale^2 into
     coeffs); coeffs (N, ell), base (N,) and g (N, d, n) are f32.  All are
-    contiguous CUDA tensors on one device.  N = 0 returns an empty result
-    unlaunched."""
+    contiguous CUDA tensors on one device.  ``col_tile`` is the columns of
+    G a block takes (``apply_col_tiles``; kernels/autotune.py tunes it), 0
+    the widest that fits.  N = 0 returns an empty result unlaunched."""
     global launches, int8_launches
     _check("batched_lowrank_apply",
            {"u": u, "coeffs": coeffs, "base": base, "g": g}, g.device)
@@ -94,17 +117,22 @@ def batched_lowrank_apply(u: torch.Tensor, coeffs: torch.Tensor,
         raise ValueError(f"batched_lowrank_apply kernel takes at most "
                          f"{MAX_BLOCKS} blocks and 0 < ell <= "
                          f"{BATCHED_MAX_ELL}, got N={N}, ell={ell}")
+    if col_tile and col_tile not in apply_col_tiles(ell, u.element_size()):
+        raise ValueError(f"batched_lowrank_apply kernel: column tile "
+                         f"{col_tile} does not launch at ell {ell}, "
+                         f"{u.dtype} u; it takes "
+                         f"{apply_col_tiles(ell, u.element_size())}")
     out = torch.empty_like(g)
     if out.numel() == 0:
         return out
     err = build.launch(build.library("lowrank").repro_batched_lowrank_apply,
                        g.device, u.data_ptr(), U_DTYPES[u.dtype],
                        coeffs.data_ptr(), base.data_ptr(), g.data_ptr(),
-                       out.data_ptr(), N, d, ell, m)
+                       out.data_ptr(), N, d, ell, m, col_tile)
     if err != 0:
         raise RuntimeError(f"batched_lowrank_apply kernel launch failed: CUDA "
                            f"error {err} at u {tuple(u.shape)} {u.dtype}, g "
-                           f"{tuple(g.shape)}")
+                           f"{tuple(g.shape)}, column tile {col_tile}")
     if u.dtype == torch.int8:
         int8_launches += 1
     else:
@@ -173,18 +201,24 @@ class ProjectPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=1024)
-def project_plan(N: int, d: int, k: int, r: int, e: int) -> ProjectPlan:
+def project_plan(N: int, d: int, k: int, r: int, e: int,
+                 blocks: int = 0) -> ProjectPlan:
     """The write-back as csrc/project_quantize.cu launches it.  Pass 1 has
     128-thread blocks, each computing 128 x 64 tiles of U_new over 32-deep
     panels of V's k columns and then A's r columns, double buffered in
     shared memory ([2][128][36] and [2][32][64] f32).  The tiles' panels,
     in a row, are cut evenly among as many blocks as are resident on the
     card at once (``project_runs``), each with two partial slots of one
-    tile for the tiles it shares with its neighbours."""
+    tile for the tiles it shares with its neighbours.  ``blocks`` other
+    than 0 sets the blocks instead (kernels/autotune.py tunes it), at most
+    one a unit (a panel of a tile)."""
     tiles = (math.ceil(d / PROJECT_ROWS), math.ceil(e / PROJECT_COLS), N)
     panels = math.ceil(k / PROJECT_DEPTH) + math.ceil(r / PROJECT_DEPTH)
     units = math.prod(tiles) * panels
-    blocks = min(units, SMS * PROJECT_BLOCKS_PER_SM)
+    if blocks and not 0 < blocks <= units:
+        raise ValueError(f"the write-back takes 1 to {units} blocks at "
+                         f"(N, d, k, r, e) = {(N, d, k, r, e)}, got {blocks}")
+    blocks = blocks or min(units, SMS * PROJECT_BLOCKS_PER_SM)
     return ProjectPlan(
         tiles, panels, blocks, PROJECT_THREADS,
         4 * 2 * (PROJECT_ROWS * (PROJECT_DEPTH + 4)
@@ -245,12 +279,14 @@ def project_vector_flags(vq: torch.Tensor, w_top: torch.Tensor,
 
 
 def batched_project_quantize(vq: torch.Tensor, w_top: torch.Tensor,
-                             a: torch.Tensor, w_bot: torch.Tensor
+                             a: torch.Tensor, w_bot: torch.Tensor,
+                             blocks: int = 0
                              ) -> tuple[torch.Tensor, torch.Tensor]:
     """``U_new = f32(vq) @ w_top + a @ w_bot`` requantized per block, on the
     card: vq (N, d, k) int8, w_top (N, k, e), a (N, d, r), w_bot (N, r, e)
     f32, contiguous, on one device -> (values (N, d, e) int8, scale
     (N, 1, 1) f32), rounding to nearest as ``quantize.quantize_stack``.
+    ``blocks`` is pass 1's block count (``project_plan``), 0 its default.
     N = 0 returns empty results unlaunched."""
     global project_quantize_launches
     _check("batched_project_quantize",
@@ -279,7 +315,7 @@ def batched_project_quantize(vq: torch.Tensor, w_top: torch.Tensor,
         return values, torch.ones((N, 1, 1), dtype=torch.float32,
                                   device=a.device)
     scale = torch.empty((N, 1, 1), dtype=torch.float32, device=a.device)
-    p = project_plan(N, d, k, r, e)
+    p = project_plan(N, d, k, r, e, blocks)
     scratch = torch.empty((p.scratch,), dtype=torch.float32, device=a.device)
     err = build.launch(
         build.library("project_quantize").repro_batched_project_quantize,

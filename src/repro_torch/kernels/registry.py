@@ -47,6 +47,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.kernels import autotune
 from repro_torch.kernels.flash import kernel as flash_kernel
 from repro_torch.kernels.flash import ref as flash_ref
 from repro_torch.kernels.gram import kernel as gram_kernel
@@ -86,9 +87,17 @@ def grad_of_plain(plain: Callable, saved, needs, grad: torch.Tensor
 def _route(t: torch.Tensor, on_card: Callable, on_cpu: Callable) -> Callable:
     if t.device.type == "cuda":
         return on_card
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return on_cpu
     raise ValueError(f"no kernel for device {t.device}")
+
+
+def _config(config, kernel: str, shape: tuple, dtype) -> autotune.TileConfig:
+    """An explicit config as the kernel launches it, else the tune cache's
+    for this launch."""
+    if config is not None:
+        return autotune.effective(kernel, shape, config, dtype)
+    return autotune.get_config(kernel, shape, dtype)
 
 
 def gram(a: torch.Tensor) -> torch.Tensor:
@@ -101,19 +110,30 @@ def lowrank_apply(u: torch.Tensor, coeffs: torch.Tensor, base,
     return fn(u, coeffs, base, g)
 
 
-def batched_gram(a: torch.Tensor) -> torch.Tensor:
+def batched_gram(a: torch.Tensor, *, config=None) -> torch.Tensor:
+    """(N, d, k) -> (N, k, k); ``config`` has no choice here (fixed
+    tiles)."""
     return _route(a, gram_kernel.batched_gram, gram_ref.batched_gram_ref)(a)
 
 
+def _col_tile(config, u: torch.Tensor, g: torch.Tensor) -> int:
+    return _config(config, "batched_lowrank_apply",
+                   tuple(u.shape) + (g.shape[2],), u.dtype).col_tile
+
+
 def batched_lowrank_apply(u: torch.Tensor, coeffs: torch.Tensor,
-                          base: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    fn = _route(g, lowrank_kernel.batched_lowrank_apply,
-                lowrank_ref.batched_lowrank_apply_ref)
+                          base: torch.Tensor, g: torch.Tensor, *,
+                          config=None) -> torch.Tensor:
+    card = lowrank_kernel.batched_lowrank_apply
+    fn = _route(g, card, lowrank_ref.batched_lowrank_apply_ref)
+    if fn is card:
+        return fn(u, coeffs, base, g, col_tile=_col_tile(config, u, g))
     return fn(u, coeffs, base, g)
 
 
 def batched_gram_mixed(vq: torch.Tensor, colw: torch.Tensor,
-                       a: torch.Tensor) -> torch.Tensor:
+                       a: torch.Tensor, *, config=None) -> torch.Tensor:
+    """``config`` has no choice here (fixed tiles)."""
     fn = _route(a, gram_kernel.batched_gram_mixed,
                 gram_ref.batched_gram_mixed_ref)
     return fn(vq, colw, a)
@@ -121,28 +141,38 @@ def batched_gram_mixed(vq: torch.Tensor, colw: torch.Tensor,
 
 def _fold_quantized_apply(values: torch.Tensor, scale: torch.Tensor,
                           coeffs: torch.Tensor, base: torch.Tensor,
-                          g: torch.Tensor) -> torch.Tensor:
+                          g: torch.Tensor, config=None) -> torch.Tensor:
     """The int8 apply on the card (port of ``_fold_quantized_apply``,
     repro/kernels/registry.py:133): the block scale commutes out of
     ``U diag(c) U^T`` as ``scale^2``, so the apply kernel runs on the raw
     int8 values with ``c * scale^2``; its upcast in registers is the
     dequantize."""
     s2 = torch.square(scale.reshape(scale.shape[0], 1).float())
-    return lowrank_kernel.batched_lowrank_apply(values, coeffs * s2, base, g)
+    return lowrank_kernel.batched_lowrank_apply(
+        values, coeffs * s2, base, g, col_tile=_col_tile(config, values, g))
 
 
 def batched_lowrank_apply_quantized(values: torch.Tensor, scale: torch.Tensor,
                                     coeffs: torch.Tensor, base: torch.Tensor,
-                                    g: torch.Tensor) -> torch.Tensor:
+                                    g: torch.Tensor, *, config=None
+                                    ) -> torch.Tensor:
     fn = _route(g, _fold_quantized_apply,
                 lowrank_ref.batched_lowrank_apply_quantized_ref)
+    if fn is _fold_quantized_apply:
+        return fn(values, scale, coeffs, base, g, config)
     return fn(values, scale, coeffs, base, g)
 
 
 def batched_project_quantize(vq: torch.Tensor, w_top: torch.Tensor,
-                             a: torch.Tensor, w_bot: torch.Tensor) -> tuple:
-    fn = _route(a, lowrank_kernel.batched_project_quantize,
-                lowrank_ref.batched_project_quantize_ref)
+                             a: torch.Tensor, w_bot: torch.Tensor, *,
+                             config=None) -> tuple:
+    card = lowrank_kernel.batched_project_quantize
+    fn = _route(a, card, lowrank_ref.batched_project_quantize_ref)
+    if fn is card:
+        blocks = _config(config, "batched_project_quantize",
+                         tuple(vq.shape) + (a.shape[2], w_top.shape[2]),
+                         vq.dtype).blocks
+        return fn(vq, w_top, a, w_bot, blocks=blocks)
     return fn(vq, w_top, a, w_bot)
 
 

@@ -1,5 +1,5 @@
 """Decode caches and the one-token decode step of every family (port of
-repro/models/cache.py :26-72, :84-112, :145-223).
+repro/models/cache.py :26-112, :145-223).
 
 Cache layouts, stacked over layers (batch is axis 1 of every tensor):
   dense, moe, vlm, audio: attention k/v (L, B, Smax, KV, hd), the moe
@@ -50,6 +50,13 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int
         shapes["k"] = (n_sites, B) + kv
         shapes["v"] = (n_sites, B) + kv
     return shapes
+
+
+def cache_struct(cfg: ModelConfig, batch: int, max_seq: int
+                 ) -> Dict[str, torch.Tensor]:
+    """The cache on the ``meta`` device (no storage): the dry run's
+    input."""
+    return init_cache(cfg, batch, max_seq, device="meta")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,

@@ -72,6 +72,11 @@ class ModelConfig:
     def is_attention_free(self) -> bool:
         return self.family == "ssm"
 
+    @property
+    def subquadratic(self) -> bool:
+        """Eligible for long_500k (SSM / hybrid-with-shared-attn)."""
+        return self.family in ("ssm", "hybrid")
+
     def block_pattern(self) -> Tuple[Tuple[str, int], ...]:
         """((block_type, count), ...) of the model's composition."""
         L = self.num_layers
@@ -146,3 +151,25 @@ class ModelConfig:
         moe_layers = sum(c for k, c in self.block_pattern() if k == "moe")
         return self.param_count() - \
             moe_layers * inactive * 3 * self.d_model * self.d_ff
+
+    def model_flops_per_token(self, seq_len: int, *, training: bool,
+                              decode: bool = False) -> float:
+        """MODEL_FLOPS per token: 6·N_active (train) / 2·N_active (fwd)
+        + attention term. ``decode``: one-token step against a seq_len
+        cache (the reference's formula, repro/models/config.py:155)."""
+        N = self.active_param_count()
+        base = (6 if training else 2) * N
+        # attention flops per token: 2 matmuls * 2 flops * window
+        H, hd = self.num_heads, self.head_dim
+        n_attn = 0
+        if self.family in ("dense", "moe", "vlm", "audio"):
+            n_attn = self.num_layers
+        elif self.family == "hybrid":
+            n_attn = len(self.shared_attn_layers())
+        window = seq_len if decode else seq_len / 2  # causal average
+        attn = (3 if training else 1) * n_attn * 4 * H * hd * window
+        # ssd flops per token: state update + output, linear in state
+        n_ssm = self.num_layers if self.family in ("ssm", "hybrid") else 0
+        ssd = (3 if training else 1) * n_ssm * 6 * self.d_inner \
+            * self.ssm_state
+        return base + attn + ssd

@@ -1,9 +1,9 @@
 """The LM: embeddings -> block stack -> head, for every family of the
 reference (port of repro/models/model.py: ``param_shapes`` :69,
-``_moe_block`` :154, ``_mamba_layer`` :162, ``_hybrid_stack`` :188,
-``embed_tokens`` :225, ``_positions`` :239, ``forward`` :250,
-``project_logits`` :281, ``loss_fn`` :292; the loss ``mask`` :298-304,
-which no caller sets, is not ported).
+``param_struct`` :113, ``_moe_block`` :154, ``_mamba_layer`` :162,
+``_hybrid_stack`` :188, ``embed_tokens`` :225, ``_positions`` :239,
+``forward`` :250, ``project_logits`` :281, ``loss_fn`` :292; the loss
+``mask`` :298-304, which no caller sets, is not ported).
 
 Parameters are a nested dict of tensors in the reference's layout, layer
 weights stacked on a leading (L, ...) dim, so blocking and pooling see the
@@ -113,6 +113,16 @@ def param_shapes(cfg: ModelConfig) -> dict:
         # one shared transformer block, applied at every site
         shapes["shared_attn"] = _dense_layer_shapes(cfg)
     return shapes
+
+
+def param_struct(cfg: ModelConfig) -> dict:
+    """The parameter tree on the ``meta`` device (shapes and the model's
+    dtype, no storage): the dry run's input, the reference's
+    ``jax.ShapeDtypeStruct`` tree."""
+    like = param_shapes(cfg)
+    dtype = DTYPES[cfg.dtype]
+    return tree.unflatten(like, [torch.empty(s, dtype=dtype, device="meta")
+                                 for s in tree.flatten(like)])
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,

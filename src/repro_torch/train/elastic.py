@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import re
 import time
 from typing import List, Optional, Sequence
 
@@ -35,7 +34,7 @@ from repro_torch import tree
 from repro_torch.core.fd import FDState
 from repro_torch.distributed import sketch_merge
 from repro_torch.sharding import rules as rules_lib
-from repro_torch.train import checkpoint
+from repro_torch.train import checkpoint, trainer
 
 _clock = time.perf_counter
 
@@ -91,46 +90,27 @@ def remesh(plan: ElasticPlan, ranks: Optional[Sequence[int]] = None, *,
     return mesh if mesh.get_coordinate() is not None else None
 
 
-# a per-parameter state leaf: the momentum and the engine's per-leaf
-# residue, named by the flat parameter index (train/checkpoint.py names)
-_PER_PARAM = re.compile(r"(?:^|::)\.(?:momentum|leaves)::(\d+)(?:::|$)")
-# a pooled stack: the engine's pools and the async pending slot
-_POOLED = re.compile(r"(?:^|::)\.(?:pools|pending)::")
-
-
 def remesh_opt_state(opt_state, params: dict, mesh: DeviceMesh,
                      rules: Optional[dict] = None):
     """Place live training state on a new mesh: ``(params, opt_state)``
     with every tensor a DTensor of ``mesh`` (Python ints, the step counts,
-    stay as they are).  Parameters take ``param_spec``'s sharding; every
-    pooled stack (``PrecondState.pools`` and the async pending slot; an
-    int8 stack's values and scale alike) takes ``blocks_sharding`` along
-    its leading blocks dim, so one placement re-balances every same-shaped
-    block of the model over the new mesh; a per-parameter leaf of its
-    parameter's shape (momentum, grafting accumulator, diagonal statistic)
-    takes its parameter's; counts, hyperparameters and the rest are
-    replicated.  The state is whole on every rank of ``mesh`` (a restore
-    gives it so), and nothing is exchanged."""
+    stay as they are).  Parameters take ``param_spec``'s sharding and every
+    state leaf the one train/trainer.py ``state_sharding`` gives it (the
+    rule of ``train_state_shardings``): one placement re-balances every
+    same-shaped block of the model over the new mesh.  The state is whole
+    on every rank of ``mesh`` (a restore gives it so), and nothing is
+    exchanged."""
     mr = rules_lib.MeshRules(mesh=mesh,
                              rules={**rules_lib.DEFAULT_LOGICAL_RULES,
                                     **(rules or {})})
     flat = tree.flatten(params)
     param_sh = tree.flatten(rules_lib.tree_param_shardings(params, mr))
-    replicated = rules_lib.NamedSharding(mesh, rules_lib.P())
 
     def assign(leaf: checkpoint.Leaf):
-        x = leaf.value
-        if not isinstance(x, torch.Tensor):
-            return x
-        sh = replicated
-        per_param = _PER_PARAM.search(leaf.name)
-        if leaf.role in ("count", "hyperparam"):
-            pass
-        elif _POOLED.search(leaf.name):
-            sh = rules_lib.blocks_sharding(mr, x)
-        elif per_param and x.shape == flat[int(per_param.group(1))].shape:
-            sh = param_sh[int(per_param.group(1))]
-        return rules_lib.place(x, sh)
+        if not isinstance(leaf.value, torch.Tensor):
+            return leaf.value
+        return rules_lib.place(leaf.value, trainer.state_sharding(
+            leaf, flat, param_sh, mr))
 
     placed = tree.unflatten(params, [rules_lib.place(p, sh)
                                      for p, sh in zip(flat, param_sh)])

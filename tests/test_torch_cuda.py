@@ -70,6 +70,18 @@ expert-parallel shape (B 4, 16 heads, S 512, hd 128).
 Checkpoints: the reduced model's fp32 and int8 states saved and restored
 on the card bit for bit, and the next step from the restored state bit for
 bit the live state's (or within the difference of that step run twice).
+
+The autotuner (kernels/autotune.py): every candidate of kernels 2, 2' and
+6 (the apply's column tiles, the write-back's block counts) against the
+plain version at the main path's shapes and ragged ones, at the kernels'
+tolerances above; an explicit column tile reaches csrc/lowrank.cu (a
+tile the C entry does not take returns cudaErrorInvalidValue, a tile
+whose shared memory does not fit too, the default 0 gives the widest
+tile's bits); the registry passes a config through.  A microbatched
+training step (4 microbatches, reduced model, f32, Sketchy) on the card
+against the CPU from the same weights (losses ``rtol=1e-4``, parameters
+``rtol=1e-3, atol=1e-4``), with kernel 7's launches four times the
+whole batch's.
 """
 import numpy as np
 import pytest
@@ -1081,3 +1093,112 @@ def test_checkpoint_round_trip_and_continuation_on_card(card, tmp_path,
     witness_same, witness = _state_bits(a, b)
     same, diff = _state_bits(step_from(restored), a)
     assert same or (not witness_same and diff <= witness), (diff, witness)
+
+
+# the autotuner's candidates: (N, d, ell, n) of the apply and (N, d, k, r)
+# of the write-back (e = k): main-path shapes and ragged ones
+TUNE_APPLY = [(68, 1024, 64, 768), (2, 12, 12, 768), (2, 768, 64, 12),
+              (3, 300, 130, 70), (1, 200, 300, 40), (2, 1000, 17, 45)]
+TUNE_PROJECT = [(68, 1024, 64, 768), (2, 768, 64, 12), (3, 200, 64, 40),
+                (2, 130, 80, 20)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,d,ell,n", TUNE_APPLY)
+@pytest.mark.parametrize("u_dtype", ["float32", "int8"])
+def test_every_apply_candidate_matches_plain_on_card(card, N, d, ell, n,
+                                                     u_dtype):
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.lowrank import kernel
+    shape = (N, d, ell, n)
+    u, c, b, g = autotune._operands("batched_lowrank_apply", shape, u_dtype,
+                                    card)
+    want = lowrank_ref.batched_lowrank_apply_ref(u.float(), c, b, g)
+    cands = autotune.candidates("batched_lowrank_apply", shape, u_dtype)
+    assert len(cands) > 1
+    for cand in cands:
+        got = kernel.batched_lowrank_apply(u, c, b, g, col_tile=cand.col_tile)
+        torch.testing.assert_close(got, want, **_tol(d, "float32"),
+                                   msg=lambda m: f"{cand}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,d,k,r", TUNE_PROJECT)
+def test_every_project_candidate_matches_plain_on_card(card, N, d, k, r):
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.lowrank import kernel
+    gen = torch.Generator(device=card).manual_seed(d + k)
+    vq = _int8(N, d, k, gen, card)
+    w_top = torch.randn(N, k, k, generator=gen, device=card) / 127
+    a = torch.randn(N, d, r, generator=gen, device=card)
+    w_bot = torch.randn(N, r, k, generator=gen, device=card)
+    for cand in autotune.candidates("batched_project_quantize",
+                                    (N, d, k, r, k)):
+        got = kernel.batched_project_quantize(vq, w_top, a, w_bot,
+                                              blocks=cand.blocks)
+        lowrank_ref.project_quantize_differences(got, vq, w_top, a, w_bot)
+
+
+@pytest.mark.cuda
+def test_column_tile_reaches_the_apply_kernel(card):
+    from repro_torch.kernels import autotune, build, registry
+    from repro_torch.kernels.lowrank import kernel
+    shape = (2, 300, 64, 200)
+    u, c, b, g = autotune._operands("batched_lowrank_apply", shape,
+                                    "float32", card)
+    default = kernel.batched_lowrank_apply(u, c, b, g)
+    widest = kernel.batched_lowrank_apply(u, c, b, g, col_tile=64)
+    assert torch.equal(default, widest)
+    pinned = registry.batched_lowrank_apply(
+        u, c, b, g, config=autotune.TileConfig(col_tile=8))
+    torch.testing.assert_close(pinned, default, **_tol(300, "float32"))
+    out = torch.empty_like(g)
+    lib = build.library("lowrank").repro_batched_lowrank_apply
+    for tile in (24, 128):          # no such template instance
+        assert build.launch(lib, g.device, u.data_ptr(), 0, c.data_ptr(),
+                            b.data_ptr(), g.data_ptr(), out.data_ptr(),
+                            *shape, tile) == 1      # cudaErrorInvalidValue
+    big = torch.zeros(1, 8, 1984, device=card)
+    cb = torch.zeros(1, 1984, device=card)
+    assert build.launch(lib, g.device, big.data_ptr(), 0, cb.data_ptr(),
+                        b.data_ptr(), g.data_ptr(), out.data_ptr(), 1, 8,
+                        1984, 8, 64) == 1           # P does not fit
+    with pytest.raises(ValueError, match="column tile 64 does not launch"):
+        kernel.batched_lowrank_apply(big, cb, b[:1],
+                                     torch.zeros(1, 8, 8, device=card),
+                                     col_tile=64)
+
+
+@pytest.mark.cuda
+def test_microbatched_step_on_card_matches_cpu(card):
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.core.factory import OptimizerConfig, make_optimizer
+    from repro_torch.data import pipeline
+    from repro_torch.kernels.flash import kernel as flash_kernel
+    from repro_torch.models import model
+    from repro_torch.train import trainer
+    cfg = registry.get_reduced("paper-lm-100m")
+    params = model.init_params(cfg, torch.Generator().manual_seed(0))
+    batch = pipeline.SyntheticLM(pipeline.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=16, global_batch=8,
+        seed=0)).batch(0)
+    runs = {}
+    for device in (card, torch.device("cpu")):
+        p = tree.unflatten(params, [x.to(device)
+                                    for x in tree.flatten(params)])
+        tx = make_optimizer(OptimizerConfig(
+            name="sketchy", learning_rate=3e-3, total_steps=20, rank=4,
+            block_size=32, update_every=1))
+        state = tx.init(tree.flatten(p))
+        step = trainer.make_train_step(cfg, tx, microbatches=4)
+        before = flash_kernel.launches
+        p, state, m = step(p, state, {k: torch.from_numpy(v).to(device)
+                                      for k, v in batch.items()})
+        if device.type == "cuda":
+            assert flash_kernel.launches - before == 4 * cfg.num_layers
+        runs[device.type] = (float(m["loss"]), tree.flatten(p))
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
+    for got, want in zip(runs["cuda"][1], runs["cpu"][1]):
+        torch.testing.assert_close(got.detach().cpu(), want.detach(),
+                                   rtol=1e-3, atol=1e-4)

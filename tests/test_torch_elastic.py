@@ -51,6 +51,7 @@ from repro_torch.models import model as model_lib
 from repro_torch.sharding import rules as trules
 from repro_torch.train import checkpoint as tckpt
 from repro_torch.train import elastic as telastic
+from repro_torch.train import trainer as ttrainer
 
 
 class _Clock:
@@ -242,11 +243,11 @@ def _leaf_kinds(storage: str) -> list:
         if not isinstance(leaf.value, torch.Tensor):
             continue
         shape = list(leaf.value.shape)
-        per = telastic._PER_PARAM.search(leaf.name)
+        per = ttrainer._PER_PARAM.search(leaf.name)
         if leaf.name.startswith("0::"):
             kind, index = "param", len([x for x in out
                                         if x[2] == "param"])
-        elif telastic._POOLED.search(leaf.name):
+        elif ttrainer._POOLED.search(leaf.name):
             kind, index = "pooled", None
         elif per and leaf.role not in ("count", "hyperparam"):
             kind, index = "per_param", int(per.group(1))

@@ -17,6 +17,8 @@ is plain Python and is checked here too: which kernel each dtype takes,
 that every head dim fits the block's shared memory and that the grid
 covers every query tile, and the bf16 kernel's alignment rule.
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -107,9 +109,14 @@ def test_attention_gradient_matches_jax(causal):
 
 
 def test_flash_route_raises_off_cpu_and_cuda():
-    q = torch.zeros(1, 2, 4, 16, device="meta")
+    """A device with no kernel raises; a meta tensor (the dry run's shapes)
+    takes the plain version's."""
+    q = types.SimpleNamespace(device=torch.device("xla"))
     with pytest.raises(ValueError, match="no kernel for device"):
         kernel_registry.flash_attention(q, q, q)
+    m = torch.zeros(1, 2, 4, 16, device="meta")
+    got = kernel_registry.flash_attention(m, m, m)
+    assert (got.device.type, got.shape) == ("meta", m.shape)
 
 
 # (B, Hq, S): the main paths' shapes, S 4096, rows that fill no tile, B * Hq

@@ -37,6 +37,8 @@ kernels' own accuracy and tiling are held on the card
 emulation's and data of mean 3 shows the need of the accumulator's
 promotion, which the emulation cannot.
 """
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -165,20 +167,23 @@ def test_empty_pool(dtype):
 
 
 def test_registry_dispatches_on_device():
-    """CPU tensors take the plain versions; a device with no kernel raises
-    (nothing falls back)."""
+    """CPU tensors take the plain versions, meta tensors (the dry run's
+    shapes) too; a device with no kernel raises (nothing falls back)."""
     a = torch.randn(2, 6, 3, generator=torch.Generator().manual_seed(0))
     torch.testing.assert_close(registry.batched_gram(a),
                                gram_ref.batched_gram_ref(a), rtol=0, atol=0)
     torch.testing.assert_close(registry.gram(a[0]), gram_ref.gram_ref(a[0]),
                                rtol=0, atol=0)
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        registry.batched_gram(a.to("meta"))
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        registry.gram(a[0].to("meta"))
+    got = registry.batched_gram(a.to("meta"))
+    assert (got.device.type, got.shape) == ("meta", (2, 3, 3))
     m = a[0].to("meta")
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        registry.lowrank_apply(m, m[0], 1.0, m)
+    got = registry.lowrank_apply(m, m[0], 1.0, m)
+    assert (got.device.type, got.shape) == ("meta", (6, 3))
+    elsewhere = types.SimpleNamespace(device=torch.device("xla"))
+    with pytest.raises(ValueError, match="no kernel for device xla"):
+        registry.batched_gram(elsewhere)
+    with pytest.raises(ValueError, match="no kernel for device xla"):
+        registry.gram(elsewhere)
 
 
 # (N, d, ell, r): ell = 12 straddles the int8/f32 boundary inside one tile

@@ -134,5 +134,3 @@ def test_graft_none_leaves_no_grafting_state():
     tx = tsadagrad.sadagrad(4)
     state = tx.init([torch.zeros(16)])
     assert all(leaf.graft is None for leaf in state.leaves)
-    with pytest.raises(NotImplementedError, match="graft"):
-        tapi.EngineConfig(graft="rmsprop")

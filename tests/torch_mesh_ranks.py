@@ -20,7 +20,13 @@ tests import this module for them).  Scenarios:
     ``remesh_opt_state`` of a Sketchy state (fp32 and int8 storage) of the
     reduced deepseek-moe-16b on both: each rank's local shards;
   * ``moe_ep``: the moe block's expert-parallel forward and gradients on
-    (1, 4) and (2, 2) meshes (MOE_CASES), and ``moe_impl="gspmd"``.
+    (1, 4) and (2, 2) meshes (MOE_CASES), and ``moe_impl="gspmd"``;
+  * ``microbatch`` (any world): one data-parallel Adam step of the reduced
+    paper-lm-100m, each rank microbatching its slice of the batch in 2
+    (tests/test_torch_microbatch.py);
+  * ``pipeline`` (any world): ``gpipe_apply`` of the reference test's
+    layer stack over the world, its output and gradients
+    (tests/test_torch_pipeline.py).
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.sharding import rules  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train import compression, elastic  # noqa: E402
+from repro_torch.train import pipeline_parallel, trainer  # noqa: E402
 
 WORLD = 4
 F32 = np.float32
@@ -329,8 +336,84 @@ def run_moe_ep(rank: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# microbatching under a data-parallel group
+
+
+MICROBATCH_ARCH = "paper-lm-100m"
+
+
+def microbatch_inputs() -> tuple:
+    """(the reduced arch's f32 parameters as numpy, one batch of 8 x 16)."""
+    from repro_torch.data import pipeline as data_lib
+    cfg = registry.get_reduced(MICROBATCH_ARCH)
+    rng = np.random.default_rng(5)
+    shapes = model_lib.param_shapes(cfg)
+    init = tree.unflatten(shapes, [
+        (rng.normal(size=s) * (s[-2] ** -0.5 if len(s) > 1 else 0.0))
+        .astype(F32) for s in tree.flatten(shapes)])
+    batch = data_lib.SyntheticLM(data_lib.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=16, global_batch=8,
+        seed=0)).batch(0)
+    return init, batch
+
+
+def run_microbatch(rank: int) -> dict:
+    from repro_torch.core.factory import OptimizerConfig, make_optimizer
+    init, batch = microbatch_inputs()
+    cfg = registry.get_reduced(MICROBATCH_ARCH)
+    params = convert.params_from_numpy(cfg, init)
+    tx = make_optimizer(OptimizerConfig(
+        name="adam", learning_rate=1e-2, schedule="constant",
+        grad_clip=None))
+    step = trainer.make_train_step(cfg, tx, microbatches=2,
+                                   data_parallel_group=dist.group.WORLD)
+    params, _, metrics = step(params, tx.init(tree.flatten(params)),
+                              {k: torch.from_numpy(v)
+                               for k, v in batch.items()})
+    return dict(loss=float(metrics["loss"]),
+                params=[p.detach().numpy() for p in tree.flatten(params)])
+
+
+# ---------------------------------------------------------------------------
+# pipeline parallelism: the reference test's stack (tests/test_distributed.py
+# :25-49), L 8, D 16, batch 8 x 4, 4 microbatches
+
+
+PIPE_L, PIPE_D, PIPE_M = 8, 16, 4
+
+
+def pipeline_inputs() -> tuple:
+    """(layers {"w": (L, D, D), "b": (L, D)}, x (8, 4, D)) as f32 numpy."""
+    rng = np.random.default_rng(0)
+    layers = {"w": (rng.normal(size=(PIPE_L, PIPE_D, PIPE_D)) * 0.2)
+              .astype(F32),
+              "b": (rng.normal(size=(PIPE_L, PIPE_D)) * 0.1).astype(F32)}
+    x = rng.normal(size=(8, 4, PIPE_D)).astype(F32)
+    return layers, x
+
+
+def pipe_block(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+def run_pipeline(rank: int) -> dict:
+    layers, x = pipeline_inputs()
+    world = dist.get_world_size()
+    n = PIPE_L // world
+    local = {k: torch.from_numpy(v[rank * n:(rank + 1) * n].copy())
+             .requires_grad_(True) for k, v in layers.items()}
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = pipeline_parallel.gpipe_apply(dist.group.WORLD, local, pipe_block,
+                                      xt, PIPE_M)
+    torch.sum(y ** 2).backward()
+    return dict(y=y.detach().numpy(), gx=xt.grad.numpy(),
+                grads={k: v.grad.numpy() for k, v in local.items()})
+
+
 SCENARIOS = {"compression": run_compression, "elastic": run_elastic,
-             "moe_ep": run_moe_ep}
+             "moe_ep": run_moe_ep, "microbatch": run_microbatch,
+             "pipeline": run_pipeline}
 
 
 def main(scenario: str, rank: int, world: int, rendezvous: str,
