@@ -49,6 +49,14 @@ no result line:
    k = 2 (ell - 1) = 126, 22 for the 12-row side) and phase 4d's shrink
    merge (``shrink_merge_gram_shapes``: k = 2 ell = 128, 24), timed beside
    the plain version and ``bmm`` with its bound, one round's calls summed.
+2l. the kernels past the old limits (``phase_kernel_limits``): kernels 1,
+   2, 2', 5 and 6 at LIMIT_BLOCKS blocks of d 16, k 8 and kernel 8 at
+   LIMIT_ROWS batch rows of a 40-position sequence (more than a 2-D grid's
+   65,535, one launch each); kernel 7 causal at (S, Sk) of
+   LIMIT_CAUSAL (the mask aligned at the end; rows that see no key are the
+   mean of V) and at the head dims of LIMIT_HEAD_DIMS, GQA and MHA, in f32
+   and bf16; each against its plain version at the card tests'
+   tolerances (tests/test_torch_cuda.py).
 2t. tune (kernels/autotune.py): kernels 2, 2' and 6 at the main path's
    shapes (``tune_specs``), every candidate (the apply's column tiles, the
    write-back's block counts) against the plain version on the same
@@ -250,13 +258,16 @@ no result line:
    at the step).
 9a. train full width (TRAIN_FULL): ``repro_torch.launch.train --arch
    qwen2-vl-72b`` (1 of its 80 layers; the vision frontend a stub, the
-   pipeline's embeddings in) and ``musicgen-large`` (12 of 48 layers, 4
-   codebooks), Sketchy at the launcher's defaults, 3 steps, peak lr 3e-5
-   and 3e-4 (TRAIN_FULL_LR), the depth cut through a patched
+   pipeline's embeddings in), ``musicgen-large`` (12 of 48 layers, 4
+   codebooks) and ``mamba2-370m`` (whole: 48 layers), Sketchy at the
+   launcher's defaults, 3 steps, peak lr 3e-5, 3e-4 and 3e-4
+   (TRAIN_FULL_LR), the depth cut through a patched
    ``registry.get_config``, the caching allocator's expandable segments on
    for this phase alone; every launch count set to 0 just before and read
    just after (kernel 1 twice a pool group at the refresh, kernel 2 twice a
-   group a step, kernel 7 twice a layer a step); the losses finite, near
+   group a step, kernel 7 twice an attention layer and kernel 8 twice a
+   mamba layer a step: the forward and the remat recompute, ``per_step``);
+   the losses finite, near
    log V and falling, every weight matrix moved, no leaf by more than the
    grafted step allows, batch 0's loss lower after the run than at step 0;
    the second-moment bytes the reference's; prints the step times, each
@@ -267,6 +278,16 @@ no result line:
    a 16-token teacher-forced decode against it (DECODE_BF16_RTOL), and
    phase 7d's timed feedback gradients through ``lm_head`` with kernel 7's
    launches (once a layer a gradient).
+9c. mamba2-370m at full width (48 layers, d_model 1024, vocab 50,280,
+   ssm_state 128, head dim 64): served through ``repro_torch.launch.serve
+   --arch mamba2-370m --no-reduced`` with SERVE_ARGV's traffic, monitor
+   and adapter over the tied embedding (d = 51,486,720) through
+   ``phase_serve`` (kernels 3, 4 and 8 at the counts predicted from the
+   code; p50, p99, ``observe`` and peak printed); then the forward at B 1,
+   S 128 from the seeded weights on the card against the port's CPU plain
+   path on the same weights: the whole forward's difference printed (the
+   seeded model is chaotic), each layer held from the CPU's input to it
+   (MAMBA_LAYER_RTOL of its update's norm).
 10. dry run (launch/dryrun.py): ``python -m repro_torch.launch.dryrun
    --arch paper-lm-100m --shape train_4k`` on a fake group of 256 ranks (the
    production 16 x 16 mesh, the probes), its plan printed; then the plan
@@ -461,15 +482,40 @@ ZAMBA_SERVE_ARGV = ["--arch", "zamba2-7b", "--no-reduced", "--traffic",
 # 1,192-block head make 2,032 blocks of 1024^2; musicgen-large keeps 12 of
 # its 48 layers, 804 blocks (PERF.md §4)
 TRAIN_FULL = [("qwen2-vl-72b", 1, 1, 1_066_549_120),
-              ("musicgen-large", 12, 2, 420_906_720)]
+              ("musicgen-large", 12, 2, 420_906_720),
+              ("mamba2-370m", 48, 4, 242_050_072)]
 TRAIN_FULL_STEPS = 3
 TRAIN_FULL_ARGV = ["--steps", str(TRAIN_FULL_STEPS), "--log-every", "1"]
 # each run's peak lr: the main path's 3e-4, but 3e-5 for qwen2-vl-72b,
 # whose loss at 3e-4 rose from 12.78 to 20.09 in the one step that moves
 # the weights (the reference's falls and then rises at that lr at d_model
 # 2048, vlm_width_lr_cpu.py; whether it would rise as the port's does at
-# the full 8,192 is not shown, PERF.md §7)
-TRAIN_FULL_LR = {"qwen2-vl-72b": "3e-5", "musicgen-large": "3e-4"}
+# the full 8,192 is not shown, PERF.md §7).  mamba2-370m at 3e-4: the port
+# on the CPU at full width falls over 3 steps there (10.8364, 10.8411,
+# 10.8347; scripts/full_width_lr_cpu.py --arch mamba2-370m); the
+# reference's gradient is NaN from step 0 at any lr (its SSD's exp
+# overflows above the diagonal, ROADMAP queue 3)
+TRAIN_FULL_LR = {"qwen2-vl-72b": "3e-5", "musicgen-large": "3e-4",
+                 "mamba2-370m": "3e-4"}
+# phase 9c: mamba2-370m whole, served with SERVE_ARGV's traffic, monitor and
+# adapter, and the forward at MAMBA_FORWARD_SHAPE (B, S) on the card against
+# the CPU's plain path on the same seeded weights, layer by layer: each
+# layer's update of the residual stream in bf16 within MAMBA_LAYER_RTOL of
+# the CPU's in norm (the card's scan in bf16 with f32 sums, the CPU's in
+# f32 as the reference runs it there; a bf16 rounding is 2^-9, and a layer
+# rounds its projections, convolution, gate and norm a dozen times)
+MAMBA_SERVE_ARGV = ["--arch", "mamba2-370m"] + SERVE_ARGV
+MAMBA_FORWARD_SHAPE = (1, 128)
+MAMBA_LAYER_RTOL = 3e-2
+# phase 2l: the kernels past a 2-D grid's limit of 65,535 blocks on its y
+# and z dims (kernels 1, 2, 2', 5, 6 at LIMIT_BLOCKS blocks of (d, k) =
+# LIMIT_DK; kernel 8 at LIMIT_ROWS batch rows), kernel 7 causal at (S, Sk)
+# with S != Sk and at head dims that are no instantiated width
+LIMIT_BLOCKS = 65_536 + 1_000
+LIMIT_DK = (16, 8)
+LIMIT_ROWS = 70_000
+LIMIT_CAUSAL = [(64, 192), (128, 4096), (192, 64)]
+LIMIT_HEAD_DIMS = [8, 40, 72, 100, 144, 200, 240]
 # phase 9b, the same families' model at full width, driven directly (the
 # serving engine takes token-input archs only): (arch, layers kept; None
 # keeps all); qwen2-vl-72b cut as phase 7d cuts the qwens
@@ -774,7 +820,7 @@ def flash_full_width() -> list:
     DENSE_FULL_BATCH x DENSE_FULL_SEQ (gemma-2b's is FLASH_HD256's last)
     and each TRAIN_FULL arch's training step at the launcher's batch and
     sequence (qwen2-vl-72b's GQA 64/8 at hd 128, musicgen-large's MHA
-    32/32 at hd 64)."""
+    32/32 at hd 64; mamba2-370m has no attention)."""
     train = train_lib.parse_args([])
     runs = [("deepseek-moe-16b", SERVE_FEEDBACK_BATCH, SERVE_FEEDBACK_SEQ),
             (EP_ARCH, EP_BATCH, EP_SEQ)]
@@ -784,8 +830,9 @@ def flash_full_width() -> list:
     shapes = []
     for arch, B, S in runs:
         cfg = registry.get_config(arch)
-        shapes.append((B, cfg.num_heads, cfg.num_kv_heads, S, cfg.head_dim,
-                       True))
+        if cfg.num_heads:
+            shapes.append((B, cfg.num_heads, cfg.num_kv_heads, S,
+                           cfg.head_dim, True))
     return shapes
 
 
@@ -1417,6 +1464,15 @@ def per_gradient(cfg) -> dict:
         return dict(flash_attention=cfg.num_layers * passes, ssd_scan=0)
     return dict(flash_attention=len(cfg.shared_attn_layers()) * passes,
                 ssd_scan=cfg.num_layers * passes)
+
+
+def per_step(cfg) -> dict:
+    """Launches of kernels 7 and 8 in one training step of ``cfg``: each
+    attention site and each mamba layer once in the forward, and once more
+    in the backward's recompute when ``cfg.remat`` is on (every layer has
+    parameters, so the backward passes through all of them)."""
+    once = per_gradient(dataclasses.replace(cfg, remat=False))
+    return {k: v * (2 if cfg.remat else 1) for k, v in once.items()}
 
 
 _zero_counts = kernel_registry.zero_launch_counts
@@ -3493,8 +3549,9 @@ def phase_train_full(dev, arch: str, layers: int, groups: int,
     under ``_expandable_segments``, every launch count set to 0 just before
     and read just after: the refresh at count 0 launches kernel 1 once a
     side of each of the ``groups`` pool groups, kernel 2 twice a group
-    every step, kernel 7 twice a layer every step (the forward and the
-    remat recompute); no other kernel.  Each ``eigh`` call is timed on the
+    every step, kernels 7 and 8 ``per_step`` every step (twice an
+    attention or mamba layer: the forward and the remat recompute); no
+    other kernel.  Each ``eigh`` call is timed on the
     host clock between two synchronizations.  Fails unless every loss is
     finite and near log(V) (random weights; musicgen's averages its 4
     codebooks), the last step's loss is below the first's, every weight
@@ -3548,7 +3605,7 @@ def phase_train_full(dev, arch: str, layers: int, groups: int,
     steps = TRAIN_FULL_STEPS
     expected = dict(dict.fromkeys(COUNTERS, 0), batched_gram=2 * groups,
                     batched_lowrank_apply=2 * groups * steps,
-                    flash_attention=2 * layers * steps)
+                    **{k: v * steps for k, v in per_step(cfg).items()})
     losses = [r["loss"] for r in log]
     log_v = math.log(cfg.vocab_size)
     print(f"{label}: {n_params} bf16 parameters, lr {args.lr}; step times "
@@ -3591,6 +3648,218 @@ def phase_train_full(dev, arch: str, layers: int, groups: int,
         fail(f"{label}: second-moment bytes {nbytes}, expected "
              f"{second_moment_bytes}")
     return dict(launches, peak=peak, reserved=reserved)
+
+
+def phase_mamba_full(dev) -> dict:
+    """Phase 9c: mamba2-370m whole at full width, served through
+    ``phase_serve`` (MAMBA_SERVE_ARGV: kernels 3 and 4 once an observation
+    or adaptation step, kernel 8 twice a layer a feedback gradient through
+    the tied embedding), then the forward at MAMBA_FORWARD_SHAPE from the
+    seeded weights on the card (bf16 scan kernel) against the CPU's plain
+    path on the same weights (f32 scan).  The seeded model is chaotic (a
+    relative change of 1e-6 in its input grows to 3.3e-3 at its logits in
+    f32 on the CPU; bf16 and f32 on the CPU differ by 0.44), so the whole
+    forward's difference is printed and each layer is held instead: fed the
+    CPU's input to that layer, the card's update of the residual stream
+    (the layer's output less its input) within MAMBA_LAYER_RTOL of the
+    CPU's in norm, and the logits from the CPU's last hidden state too.
+    Fails unless every logit is finite and kernel 8 launched once a layer
+    in each pass.  Returns the serve run's launches with its p50, p99 and
+    peak and the worst layer's error."""
+    launches, report = phase_serve(dev, MAMBA_SERVE_ARGV)
+    for name in ("gram", "lowrank_apply", "ssd_scan"):
+        if launches[name] == 0:
+            fail(f"serve (mamba2-370m): {name} was never launched")
+    lat = report["latencies_s"]
+    out = dict(launches, p50_ms=float(np.percentile(lat, 50)) * 1e3,
+               p99_ms=float(np.percentile(lat, 99)) * 1e3,
+               peak=torch.cuda.max_memory_allocated(dev))
+    del report
+    torch.cuda.empty_cache()
+    cfg = registry.get_config("mamba2-370m")
+    label = "mamba2-370m full-width forward, card against CPU"
+    params = model_lib.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    cpu_params = tree.unflatten(params, [p.cpu() for p in
+                                         tree.flatten(params)])
+    B, S = MAMBA_FORWARD_SHAPE
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(1))
+    rel = lambda a, b: float((a.float() - b.float()).norm()
+                             / b.float().norm())
+    _zero_counts()
+    with torch.no_grad():
+        card = model_lib.forward(cfg, params, {"tokens": tokens.to(dev)})
+        torch.cuda.synchronize()
+        whole_scans = _counts()["ssd_scan"]
+        t0 = time.perf_counter()
+        want = model_lib.forward(cfg, cpu_params, {"tokens": tokens})
+        cpu_s = time.perf_counter() - t0
+        whole = rel(card.cpu(), want)
+        finite = bool(torch.isfinite(card).all())
+        same_top = float((card.cpu().argmax(-1) == want.argmax(-1))
+                         .float().mean())
+        del card
+        x = model_lib.embed_tokens(cfg, cpu_params, {"tokens": tokens})
+        layers = []
+        _zero_counts()
+        for i in range(cfg.num_layers):
+            y = model_lib._mamba_layer(
+                cfg, model_lib.layer(cpu_params["layers"], i), x)
+            y_card = model_lib._mamba_layer(
+                cfg, model_lib.layer(params["layers"], i), x.to(dev)).cpu()
+            layers.append(rel(y_card.float() - x.float(),
+                              y.float() - x.float()))
+            x = y
+        torch.cuda.synchronize()
+        layer_scans = _counts()["ssd_scan"]
+        h = model_lib.rms_norm(x, cpu_params["final_norm"], cfg.norm_eps)
+        head = rel(model_lib.project_logits(cfg, params, h.to(dev)).cpu(),
+                   model_lib.project_logits(cfg, cpu_params, h))
+    del params, cpu_params
+    torch.cuda.empty_cache()
+    worst = max(layers)
+    print(f"{label}: B {B}, S {S}; the whole forward (free running, "
+          f"chaotic) relative error {whole:.3e}, same argmax "
+          f"{same_top:.4f}, finite {finite}; layer by layer from the CPU's "
+          f"input: each layer's update within {worst:.3e} of the CPU's "
+          f"(tolerance {MAMBA_LAYER_RTOL}; by layer "
+          f"{[round(e, 5) for e in layers]}), the logits from the CPU's last "
+          f"hidden state {head:.3e}; kernel 8 {whole_scans} and "
+          f"{layer_scans} launches; CPU forward {cpu_s:.1f} s")
+    if not finite or whole_scans != cfg.num_layers \
+            or layer_scans != cfg.num_layers:
+        fail(f"{label}: finite {finite}, kernel 8 launched {whole_scans} "
+             f"and {layer_scans} times, expected {cfg.num_layers}")
+    if not max(worst, head) <= MAMBA_LAYER_RTOL:
+        fail(f"{label}: a layer's update or the logits off by "
+             f"{max(worst, head)}, over {MAMBA_LAYER_RTOL}")
+    return dict(out, layer_rel=worst, head_rel=head, forward_rel=whole)
+
+
+def phase_kernel_limits(dev) -> None:
+    """Phase 2l: the kernels past the limits of a 2-D grid and of causal
+    attention with S == Sk and the instantiated head dims, each call one
+    launch (its count read around it), against its plain version at the
+    card tests' tolerances: kernels 1, 2, 2', 5 and 6 at LIMIT_BLOCKS
+    blocks, kernel 8 at LIMIT_ROWS batch rows (three chunks: all three of
+    its phases), kernel 7 causal at LIMIT_CAUSAL (the rows that see no key
+    also against the mean of V) and at LIMIT_HEAD_DIMS, GQA (8 on 2) and
+    MHA, causal at S 130 and not causal at Sk 70, f32 and bf16; a bf16
+    call of kernel 7 also within MODEL_RTOL[bf16] of the plain version in
+    norm, as the card tests hold it (its outputs are ~0.03 at Sk 4096, so
+    the absolute tolerance alone cannot see a wrong offset or scale)."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    N, (d, k) = LIMIT_BLOCKS, LIMIT_DK
+    errs, rels = {}, {}
+
+    def once(name, counter, fn, want, tol):
+        before = _counts()[counter]
+        got = fn()
+        torch.cuda.synchronize()
+        if _counts()[counter] != before + 1:
+            fail(f"limits: {name} launched {_counts()[counter] - before} "
+                 f"times, expected once")
+        if tol is None:         # the write-back: its own comparison
+            want(got)
+            errs[name] = 0.0
+            return
+        diff = (got.float() - want.float()).abs()
+        errs[name] = float(diff.max())
+        if not bool((diff <= tol[0] + tol[1] * want.float().abs()).all()):
+            fail(f"limits: {name} disagrees with its plain version (max "
+                 f"abs diff {errs[name]:.3e})")
+
+    f32 = (1e-4 * math.sqrt(d), 1e-5)
+    a = torch.randn(N, d, k, generator=gen, device=dev)
+    once(f"batched_gram N={N}", "batched_gram",
+         lambda: gram_kernel.batched_gram(a), gram_ref.batched_gram_ref(a),
+         f32)
+    vq = torch.randint(-127, 128, (N, d, k), generator=gen, device=dev,
+                       dtype=torch.int8)
+    colw = torch.rand(N, k, generator=gen, device=dev) / 127
+    r = torch.randn(N, d, 4, generator=gen, device=dev)
+    once(f"batched_gram_mixed N={N}", "batched_gram_mixed",
+         lambda: gram_kernel.batched_gram_mixed(vq, colw, r),
+         gram_ref.batched_gram_mixed_ref(vq, colw, r), f32)
+    u = torch.randn(N, d, k, generator=gen, device=dev)
+    g = torch.randn(N, d, 12, generator=gen, device=dev)
+    c = torch.rand(N, k, generator=gen, device=dev)
+    b = torch.rand(N, generator=gen, device=dev)
+    once(f"batched_lowrank_apply N={N}", "batched_lowrank_apply",
+         lambda: lowrank_kernel.batched_lowrank_apply(u, c, b, g),
+         lowrank_ref.batched_lowrank_apply_ref(u, c, b, g), f32)
+    scale = torch.rand(N, 1, 1, generator=gen, device=dev) / 127
+    once(f"batched_lowrank_apply int8 N={N}", "batched_lowrank_apply_int8",
+         lambda: kernel_registry.batched_lowrank_apply_quantized(
+             vq, scale, c, b, g),
+         lowrank_ref.batched_lowrank_apply_quantized_ref(vq, scale, c, b, g),
+         f32)
+    w_top = torch.randn(N, k, k, generator=gen, device=dev) / 127
+    w_bot = torch.randn(N, 4, k, generator=gen, device=dev)
+    once(f"batched_project_quantize N={N}", "batched_project_quantize",
+         lambda: lowrank_kernel.batched_project_quantize(vq, w_top, r, w_bot),
+         lambda got: lowrank_ref.project_quantize_differences(
+             got, vq, w_top, r, w_bot), None)
+    del a, vq, colw, r, u, g, c, b, scale, w_top, w_bot
+    B, S, H, P, Nst, chunk = LIMIT_ROWS, 40, 2, 16, 16, 16
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(B, S, H, P, generator=gen, device=dev) * 0.5
+        dlog = -torch.randn(B, S, H, generator=gen, device=dev).abs() * 0.1
+        Bm = torch.randn(B, S, Nst, generator=gen, device=dev) * 0.3
+        Cm = torch.randn(B, S, Nst, generator=gen, device=dev) * 0.3
+        x, Bm, Cm = x.to(dtype), Bm.to(dtype), Cm.to(dtype)
+        once(f"ssd_scan B={B} {dtype}", "ssd_scan",
+             lambda: ssd_kernel.ssd_scan(x, dlog, Bm, Cm, chunk),
+             ssd_ref.ssd_ref(x.float(), dlog, Bm.float(), Cm.float(), chunk),
+             (5e-6 * S if dtype == torch.float32 else 0.15, 0.0))
+    del x, dlog, Bm, Cm
+
+    def attention(Bq, Hq, Hkv, Sq, Sk, hd, dtype, causal):
+        q = torch.randn(Bq, Sq, Hq, hd, generator=gen, device=dev)
+        kv = [torch.randn(Bq, Sk, Hkv, hd, generator=gen, device=dev)
+              for _ in "kv"]
+        q, kk, v = (t.to(dtype).transpose(1, 2) for t in [q] + kv)
+        tol = (2e-5 if dtype == torch.float32 else 0.05, 0.0)
+        want = flash_ref.attention_ref(q.float(), kk.float(), v.float(),
+                                       causal=causal)
+        name = (f"flash_attention S={Sq} Sk={Sk} hd={hd} Hq={Hq} Hkv={Hkv} "
+                f"causal={causal} {dtype}")
+        holder = {}
+
+        def run():
+            holder["out"] = flash_kernel.flash_attention(q, kk, v,
+                                                         causal=causal)
+            return holder["out"]
+        once(name, "flash_attention", run, want, tol)
+        if dtype == torch.bfloat16:
+            rel = float((holder["out"].float() - want).norm() / want.norm())
+            rels[name] = rel
+            if not rel <= MODEL_RTOL[dtype]:
+                fail(f"limits: {name}: relative error {rel:.3e} in norm, "
+                     f"over {MODEL_RTOL[dtype]}")
+        if causal and Sq > Sk:
+            mean = v.float().mean(2, keepdim=True).repeat_interleave(
+                Hq // Hkv, 1).expand(-1, -1, Sq - Sk, -1)
+            if not torch.allclose(holder["out"][:, :, :Sq - Sk].float(), mean,
+                                  atol=tol[0], rtol=0):
+                fail(f"limits: {name}: rows that see no key are not the "
+                     f"mean of V")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for Sq, Sk in LIMIT_CAUSAL:
+            attention(1, 8, 2, Sq, Sk, 64, dtype, True)
+        for hd in LIMIT_HEAD_DIMS:
+            for Hkv in (2, 8):
+                attention(2, 8, Hkv, 130, 130, hd, dtype, True)
+                attention(2, 8, Hkv, 130, 70, hd, dtype, False)
+    worst = max(errs.values())
+    print(f"limits: {len(errs)} calls, one launch each, every one within "
+          f"its tolerance; max abs diff {worst:.3e}; by call: "
+          + ", ".join(f"{n} {e:.2e}" for n, e in errs.items()))
+    print(f"limits: kernel 7 in bf16, relative error in norm: worst "
+          f"{max(rels.values()):.3e}; by call: "
+          + ", ".join(f"{n} {e:.2e}" for n, e in rels.items()))
 
 
 def phase_vlm_audio_full(dev, arch: str, layers) -> dict:
@@ -3719,6 +3988,8 @@ def main() -> int:
     done("1")
 
     kernels = phase_kernels(dev)
+    phase_kernel_limits(dev)
+    done("2l")
     phase_shampoo_grams(dev, torch.Generator(device=dev).manual_seed(3))
     phase_merge_grams(dev, torch.Generator(device=dev).manual_seed(4))
     phase_merge_grams(dev, torch.Generator(device=dev).manual_seed(5),
@@ -3827,6 +4098,8 @@ def main() -> int:
     vlm_audio = {arch: phase_vlm_audio_full(dev, arch, layers)
                  for arch, layers in VLM_AUDIO_FULL}
     done("9b")
+    mamba = phase_mamba_full(dev)
+    done("9c")
     phase_dryrun(dev)
     done("10")
 
@@ -3845,9 +4118,11 @@ def main() -> int:
     print(f"deepseek-moe-16b serving: flash_attention "
           f"{moe['flash_attention']}, gram {moe['gram']} launches")
     for arch in trained:
-        print(f"{arch} trained at full width: {trained[arch]}; its "
-              f"feedback gradients: flash_attention "
-              f"{vlm_audio[arch]['flash_attention']}")
+        print(f"{arch} trained at full width: {trained[arch]}" + (
+            f"; its feedback gradients: flash_attention "
+            f"{vlm_audio[arch]['flash_attention']}" if arch in vlm_audio
+            else ""))
+    print(f"mamba2-370m served at full width: {mamba}")
     for row, (default, best) in sorted(tuned.items()):
         print(f"kernel {row} at the main path's shapes, a step's calls: "
               f"default {default:.4f} ms, tuned {best:.4f} ms")

@@ -1,9 +1,10 @@
-"""Loss curves of the JAX reference and of the PyTorch port at full-width
-paper-lm-100m with Sketchy at the launchers' default peak lr, on the CPU,
-from the same weights and batches.
+"""Loss curves of the JAX reference and of the PyTorch port at full width
+(paper-lm-100m, or ``--arch``: mamba2-370m, every layer) with Sketchy at
+the launchers' default peak lr, on the CPU, from the same weights and
+batches.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/full_width_lr_cpu.py \
-        --out OUT_DIR [--steps 12] [--lr 3e-3]
+        --out OUT_DIR [--steps 12] [--lr 3e-3] [--arch mamba2-370m]
 
 Two processes, one after the other, so neither package's memory stays
 resident while the other runs:
@@ -17,7 +18,7 @@ resident while the other runs:
    writes ``OUT_DIR/port.json``.  This part imports no JAX.
 
 The parent prints both loss curves as one JSON line.  About 3 minutes for
-the JAX part and 1-2 for the port on 8 CPU cores.
+the JAX part and 1-2 for the port on 8 CPU cores at paper-lm-100m.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def flags(args) -> list:
     return ["--steps", str(args.steps), "--lr", str(args.lr),
-            "--log-every", "1"]
+            "--log-every", "1", "--arch", args.arch]
 
 
 def part_jax(args) -> None:
@@ -46,7 +47,7 @@ def part_jax(args) -> None:
     from repro.models import model as model_lib
     from repro.train.trainer import make_train_step
 
-    cfg = registry.get_config("paper-lm-100m")
+    cfg = registry.get_config(args.arch)
     tx = make_optimizer(OptimizerConfig(
         name="sketchy", learning_rate=args.lr, total_steps=args.steps,
         rank=64, block_size=1024, update_every=10, weight_decay=1e-4))
@@ -77,7 +78,7 @@ def part_port(args) -> None:
     from repro_torch.launch import train as train_lib
     from repro_torch.models import model as model_lib
 
-    cfg = registry.get_config("paper-lm-100m")
+    cfg = registry.get_config(args.arch)
     saved = np.load(os.path.join(args.out, "init.npz"))
     # the JAX tree's flattening order is the port's canonical order
     like = model_lib.param_shapes(cfg)
@@ -95,6 +96,7 @@ def main() -> int:
     p.add_argument("--steps", type=int, default=12)
     p.add_argument("--lr", type=float, default=3e-3)
     p.add_argument("--part", choices=["jax", "port"], default=None)
+    p.add_argument("--arch", default="paper-lm-100m")
     args = p.parse_args()
     os.makedirs(args.out, exist_ok=True)
     if args.part == "jax":
@@ -108,13 +110,15 @@ def main() -> int:
     for part in ("jax", "port"):
         subprocess.run([sys.executable, os.path.abspath(__file__),
                         "--part", part, "--out", args.out,
-                        "--steps", str(args.steps), "--lr", str(args.lr)],
+                        "--steps", str(args.steps), "--lr", str(args.lr),
+                        "--arch", args.arch],
                        env=env, check=True)
     curves = {}
     for part in ("jax", "port"):
         with open(os.path.join(args.out, f"{part}.json")) as f:
             curves[part] = json.load(f)
-    print(json.dumps({"lr": args.lr, "steps": args.steps, **curves}))
+    print(json.dumps({"arch": args.arch, "lr": args.lr, "steps": args.steps,
+                      **curves}))
     return 0
 
 

@@ -87,18 +87,18 @@ PORT, REFERENCE = "port", "reference"
 # reference keys it by parameter path), and the engine's count, pool stacks
 # (Sketchy's sketches with their active ranks, Shampoo's factors and roots;
 # int8 stacks as values and scale) and per-leaf residue (diagonal
-# accumulators, Adam's moments, grafting accumulators).  The reference names
-# each of them with a "::.value" suffix (its Tagged wrapper).
+# accumulators, Adam's moments, grafting accumulators; in a pre-pool
+# checkpoint, each leaf's own block stacks under ".stats").  The reference
+# names each of them with a "::.value" suffix (its Tagged wrapper).
 _INT8 = r"(?:::\.values|::\.scale)?"
 _STATE = re.compile(
     r"\.count|\.hyperparams::\w+"
     r"|\.inner::momentum::\.momentum::(?P<momentum>.+)"
     r"|\.inner::precond::(?:\.count"
-    r"|\.pools::(?P<pool>\d+x\d+)::(?:"
-    rf"\.(?:left|right)::(?:\.eigvecs{_INT8}|\.eigvals|\.rho)|\.k"
-    rf"|\.(?:L|R){_INT8}|\.PL|\.PR)"
+    rf"|\.pools::(?P<pool>\d+x\d+)::(?:{checkpoint.POOL_SUFFIX})"
     r"|\.leaves::(?P<leaf>\d+)::(?:\.graft"
-    rf"|\.stats(?:::\.mu|::\.nu)?{_INT8}))")
+    rf"|\.stats(?:::\.mu|::\.nu)?{_INT8}"
+    rf"|\.stats::(?P<pre_pool>{checkpoint.POOL_SUFFIX})))")
 _PARAM = re.compile(r"\w+(?:::\w+)*")
 _VALUE = "::.value"
 
@@ -134,8 +134,8 @@ def _rename(name: str, to: str, param_paths: list) -> tuple:
         rest = rest[:m.start("momentum")] + (
             str(index) if to == PORT else param_paths[index])
     out = f"1::{rest}" + (_VALUE if to == REFERENCE else "")
-    return out, m.group("pool") is not None, \
-        None if index is None else int(index)
+    blocked = m.group("pool") is not None or m.group("pre_pool") is not None
+    return out, blocked, None if index is None else int(index)
 
 
 def convert_checkpoint(src: str, dst: str, *, to: str) -> str:

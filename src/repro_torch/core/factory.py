@@ -97,7 +97,7 @@ def make_optimizer(cfg: OptimizerConfig) -> transform.GradientTransformation:
                            transform.clip_by_global_norm(cfg.grad_clip)))
         stages.append(("precond", _direction(cfg, beta2)))
         if cfg.name != "adam":   # adam keeps its own first moment
-            stages.append(("momentum", transform.momentum(cfg.beta1)))
+            stages.append(("momentum", transform.momentum(cfg.beta1, ema=True)))
         if cfg.weight_decay:
             stages.append(("weight_decay",
                            transform.add_decayed_weights(cfg.weight_decay)))

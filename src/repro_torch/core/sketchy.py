@@ -25,6 +25,7 @@ ranks (``refresh_sharded_batched``), the factors on the wire in
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, ClassVar, NamedTuple, Optional
 
 import torch
@@ -80,7 +81,10 @@ class RankBudget:
 
 @dataclasses.dataclass(frozen=True)
 class SketchyConfig:
-    rank_budget: RankBudget = RankBudget()
+    # Deprecated alias for ``rank_budget=RankBudget(min_k=r, max_k=r,
+    # policy="static")``; after construction it reads as the capacity
+    # ``rank_budget.max_k``.  Pass ``rank_budget`` instead.
+    rank: Optional[int] = None
     block_size: int = 1024          # paper App. C
     beta2: Any = 0.999              # second-moment EMA (paper §5.2)
     update_every: int = 10          # FD observes every k-th gradient (§6)
@@ -99,8 +103,28 @@ class SketchyConfig:
     stats_reduction: str = "replicated"
     stats_axis: str = "data"
     stats_wire_dtype: str = "int8"
+    # None: from the deprecated ``rank`` (or the paper's DEFAULT_RANK)
+    rank_budget: Optional[RankBudget] = None
 
     def __post_init__(self):
+        budget = self.rank_budget
+        if budget is None:
+            rank = self.rank
+            if rank is not None:
+                warnings.warn(
+                    "SketchyConfig(rank=...) is deprecated; use "
+                    "rank_budget=RankBudget(min_k=r, max_k=r) (see the "
+                    "CHANGES.md migration table)",
+                    DeprecationWarning, stacklevel=3)
+            else:
+                rank = DEFAULT_RANK
+            budget = RankBudget(min_k=rank, max_k=rank, policy="static")
+        elif self.rank is not None and self.rank != budget.max_k:
+            raise ValueError(
+                f"pass either rank (deprecated) or rank_budget, not both "
+                f"(got rank={self.rank}, rank_budget.max_k={budget.max_k})")
+        object.__setattr__(self, "rank_budget", budget)
+        object.__setattr__(self, "rank", budget.max_k)
         if self.stats_wire_dtype not in WIRE_DTYPES:
             raise ValueError(f"unknown stats_wire_dtype "
                              f"{self.stats_wire_dtype!r}; expected one of "

@@ -79,16 +79,25 @@ class TraceState(NamedTuple):
     roles = {"momentum": "momentum"}     # train/checkpoint.py
 
 
-def momentum(beta1: float) -> GradientTransformation:
-    """EMA momentum in the parameter dtype (the paper's
-    ``moving_average_for_momentum``): ``beta1 * mu + (1 - beta1) * g``."""
+def momentum(beta1: float, *, ema: bool = True,
+             dtype: torch.dtype | None = None) -> GradientTransformation:
+    """Heavy-ball / EMA momentum.  ``ema=True`` is the paper's
+    ``moving_average_for_momentum``, ``beta1 * mu + (1 - beta1) * g``;
+    ``ema=False`` accumulates ``beta1 * mu + g``.  The buffer is held in
+    ``dtype`` (default: each parameter's); the update leaves in the
+    gradient's dtype."""
 
     def init_fn(params):
-        return TraceState(momentum=[torch.zeros_like(p) for p in params])
+        return TraceState(momentum=[torch.zeros_like(p, dtype=dtype or p.dtype)
+                                    for p in params])
 
     def update_fn(updates, state, params=None):
-        mu = [_weak(beta1, m) * m + _weak(1.0 - beta1, m) * u.to(m.dtype)
-              for u, m in zip(updates, state.momentum)]
+        if ema:
+            mu = [_weak(beta1, m) * m + _weak(1.0 - beta1, m) * u.to(m.dtype)
+                  for u, m in zip(updates, state.momentum)]
+        else:
+            mu = [_weak(beta1, m) * m + u.to(m.dtype)
+                  for u, m in zip(updates, state.momentum)]
         out = [m.to(u.dtype) for u, m in zip(updates, mu)]
         return out, TraceState(momentum=mu)
 

@@ -5,9 +5,17 @@
 // through their strides (the last dim contiguous) -> O in Q's dtype.  The
 // logits, the running max and normalizer and the output accumulator are
 // f32; the probabilities are rounded to V's dtype before the product with V,
-// and the normalizer sums them unrounded.  Masked logits are -1e30 (not
-// -inf: exp of a difference of two stays finite); a row whose normalizer is
-// 0 divides by 1.  KV head h / G is read in place, never repeated in memory.
+// and the normalizer sums them unrounded.  The causal mask is aligned at the
+// end, as attention_ref's tril(k = Sk - S): query i sees key j <= i + Sk -
+// S.  Masked logits are -1e30 (not -inf: exp of a difference of two stays
+// finite).  A row that sees no key (S > Sk) keeps its running max at
+// -1e30: each of its probabilities is 1, the slots past Sk too (V is zero
+// there), so it divides its sum of V by Sk and is the uniform mean of V
+// over the Sk keys, as attention_ref gives it.  Any hd from 1 to 256
+// runs on the instantiated width HD above it (16, 32, .., 128, then 256):
+// Q, K and V are zero past hd in shared memory, the scale is 1 / sqrt(hd)
+// of the true hd, and only hd columns of O are stored.  KV head h / G is
+// read in place, never repeated in memory.
 //
 // Replaces repro/kernels/flash/kernel.py::flash_attention_pallas (the
 // online softmax of _flash_kernel).  On the port's main paths it is every
@@ -75,6 +83,17 @@ struct Strides {
   long long b, s, h;  // elements; the head dim is contiguous
 };
 
+// What a row of the query tile sees under the causal mask: key j for
+// j <= row + off (off = Sk - S).  The key tiles a tile of rows q0 .. q0 +
+// rows - 1 reads: up to the last row's last key, or all of them when its
+// first row sees none (a row that sees no key is the uniform mean of V over
+// all Sk keys).
+__device__ __forceinline__ int causal_tiles(int tiles, int q0, int rows,
+                                            int off) {
+  if (q0 + off < 0) return tiles;
+  return min(tiles, (q0 + rows - 1 + off) / 64 + 1);
+}
+
 // ---- f32: SIMT FFMA -------------------------------------------------------
 
 __device__ __forceinline__ float row_max(float x) {  // over 16 lanes of tx
@@ -106,7 +125,7 @@ __global__ void __launch_bounds__(kThreads)
                       const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o,
                       Strides sq, Strides sk, Strides sv, Strides so, int S,
-                      int Sk, int group, int causal, float scale) {
+                      int Sk, int hd, int group, int causal, float scale) {
   constexpr int HD = 16 * NJ;
   constexpr int QS = HD + 1;       // padded rows: column reads hit 16 banks
   constexpr int PS = kTile + 1;
@@ -124,7 +143,7 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int e = tid; e < kTile * HD; e += kThreads) {
     const int r = e / HD, c = e % HD, row = q0 + r;
-    sq_[r * QS + c] = row < S ? qb[row * sq.s + c] : 0.f;
+    sq_[r * QS + c] = row < S && c < hd ? qb[row * sq.s + c] : 0.f;
   }
   float m[4], l[4], acc[4][NJ];
 #pragma unroll
@@ -134,15 +153,16 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = 0.f;
   }
+  const int off = Sk - S;
   int tiles = (Sk + kTile - 1) / kTile;
-  if (causal) tiles = min(tiles, (q0 + kTile - 1) / kTile + 1);
+  if (causal) tiles = causal_tiles(tiles, q0, kTile, off);
 
   for (int t = 0; t < tiles; ++t) {
     const int k0 = t * kTile;
     __syncthreads();  // the previous tile's readers of K, V and P are done
     for (int e = tid; e < kTile * HD; e += kThreads) {
       const int r = e / HD, c = e % HD, col = k0 + r;
-      const bool in = col < Sk;
+      const bool in = col < Sk && c < hd;
       sk_[r * QS + c] = in ? kb[col * sk.s + c] : 0.f;
       sv_[r * HD + c] = in ? vb[col * sv.s + c] : 0.f;
     }
@@ -172,7 +192,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx + 16 * j;
         float x = s[i][j] * scale;
-        if (col >= Sk || (causal && row < col)) x = kNegInf;
+        if (col >= Sk || (causal && col > row + off)) x = kNegInf;
         s[i][j] = x;
         mc = fmaxf(mc, x);
       }
@@ -211,10 +231,12 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
     if (row >= S) continue;
-    const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+    const float inv = 1.f / (m[i] == kNegInf ? static_cast<float>(Sk)
+                             : l[i] == 0.f    ? 1.f
+                                              : l[i]);
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj) {
-      ob[row * so.s + tx + 16 * jj] = acc[i][jj] * inv;
+      if (tx + 16 * jj < hd) ob[row * so.s + tx + 16 * jj] = acc[i][jj] * inv;
     }
   }
 }
@@ -222,7 +244,7 @@ __global__ void __launch_bounds__(kThreads)
 template <int NJ>
 int launch_simt(const float* q, const float* k, const float* v, float* o,
                 Strides sq, Strides sk, Strides sv, Strides so, int B,
-                int Hq, int Hkv, int S, int Sk, int causal,
+                int Hq, int Hkv, int S, int Sk, int hd, int causal,
                 cudaStream_t stream) {
   const size_t smem = simt_smem_bytes(16 * NJ);
   cudaError_t err = cudaFuncSetAttribute(
@@ -230,9 +252,9 @@ int launch_simt(const float* q, const float* k, const float* v, float* o,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kTile - 1) / kTile, Hq, B);
-  const float scale = 1.f / sqrtf(static_cast<float>(16 * NJ));
+  const float scale = 1.f / sqrtf(static_cast<float>(hd));
   flash_simt_kernel<NJ><<<grid, kThreads, smem, stream>>>(
-      q, k, v, o, sq, sk, sv, so, S, Sk, Hq / Hkv, causal, scale);
+      q, k, v, o, sq, sk, sv, so, S, Sk, hd, Hq / Hkv, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -248,19 +270,46 @@ constexpr size_t wgmma_smem_bytes(int hd, int wg) {
   return 2 * (64 * wg * hd + 4 * kKeys * hd) + 256;
 }
 
-// Stage rows row0 .. row0 + ROWS - 1 (zero past ``limit``) of a strided
-// (row, HD) bf16 matrix into the swizzled tile at ``dst``: one 16-byte
-// cp.async per 8 columns, consecutive threads on consecutive chunks of a
-// row.
+__device__ __forceinline__ void st_shared_b16(uint32_t addr, bf16 x) {
+  asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(addr),
+               "h"(__bfloat16_as_ushort(x))
+               : "memory");
+}
+
+// The element-by-element staging of ``load_tile``, out of line: the
+// model's tensors never take it, and inlined its loop took registers of
+// the kernel's main loop.
+template <int ROWS, int HD, int NT>
+__device__ __noinline__ void load_tile_by_element(
+    uint32_t dst, const bf16* __restrict__ src, long long stride, int row0,
+    int limit, int hd) {
+  for (int e = threadIdx.x; e < ROWS * HD; e += NT) {
+    const int r = e / HD, c = e % HD, row = row0 + r;
+    st_shared_b16(dst + repro::swz32_offset(ROWS, r, c),
+                  row < limit && c < hd ? src[row * stride + c]
+                                        : __float2bfloat16(0.f));
+  }
+}
+
+// Stage rows row0 .. row0 + ROWS - 1 (zero past ``limit``) and columns 0 ..
+// hd - 1 (zero up to HD) of a strided (row, hd) bf16 matrix into the
+// swizzled tile at ``dst``.  ``chunked`` (hd a multiple of 8, base and
+// strides 16-byte aligned): one 16-byte cp.async per 8 columns,
+// consecutive threads on consecutive chunks of a row.  Otherwise one
+// element a thread through registers (rows that are no 16-byte multiple).
 template <int ROWS, int HD, int NT>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const bf16* __restrict__ src,
                                           long long stride, int row0,
-                                          int limit) {
+                                          int limit, int hd, bool chunked) {
+  if (!chunked) {
+    load_tile_by_element<ROWS, HD, NT>(dst, src, stride, row0, limit, hd);
+    return;
+  }
   constexpr int CH = HD / 8;
   for (int c = threadIdx.x; c < ROWS * CH; c += NT) {
     const int r = c / CH, cc = c % CH, row = row0 + r;
-    const bool in = row < limit;
+    const bool in = row < limit && cc * 8 < hd;
     repro::cp_async16(dst + repro::swz32_offset(ROWS, r, cc * 8),
                       in ? src + row * stride + cc * 8 : src, in ? 16 : 0);
   }
@@ -272,7 +321,8 @@ __global__ void __launch_bounds__(128 * WG)
     flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ o,
                        Strides sq, Strides sk, Strides sv, Strides so, int S,
-                       int Sk, int Hq, int group, int causal, float scale) {
+                       int Sk, int hd, int Hq, int group, int causal,
+                       int chunked, float scale) {
   constexpr int HD = 16 * NJ, BM = 64 * WG, NT = 128 * WG;
   constexpr uint32_t kQBytes = BM * HD * 2, kKVBytes = kKeys * HD * 2;
   extern __shared__ unsigned char tiles_smem[];
@@ -292,12 +342,14 @@ __global__ void __launch_bounds__(128 * WG)
   const bf16* vb = v + b * sv.b + kvh * sv.h;
   const float scale2 = scale * kLog2e;       // logits in log2 units
 
+  const int off = Sk - S;
+  const bool cq = chunked & 1, ck = chunked & 2, cv = chunked & 4;
   int tiles = (Sk + kKeys - 1) / kKeys;
-  if (causal) tiles = min(tiles, (q0 + BM + kKeys - 1) / kKeys);
+  if (causal) tiles = causal_tiles(tiles, q0, BM, off);
 
-  load_tile<BM, HD, NT>(sq_, qb, sq.s, q0, S);
-  load_tile<kKeys, HD, NT>(sk_, kb, sk.s, 0, Sk);
-  load_tile<kKeys, HD, NT>(sv_, vb, sv.s, 0, Sk);
+  load_tile<BM, HD, NT>(sq_, qb, sq.s, q0, S, hd, cq);
+  load_tile<kKeys, HD, NT>(sk_, kb, sk.s, 0, Sk, hd, ck);
+  load_tile<kKeys, HD, NT>(sv_, vb, sv.s, 0, Sk, hd, cv);
   repro::cp_async_commit();
 
   // O in NH column halves of HW (one when hd <= 128)
@@ -314,16 +366,18 @@ __global__ void __launch_bounds__(128 * WG)
     const int st = t & 1, k0 = t * kKeys;
     if (t + 1 < tiles) {  // the next tile into the other stage
       load_tile<kKeys, HD, NT>(sk_ + (st ^ 1) * kKVBytes, kb, sk.s,
-                               k0 + kKeys, Sk);
+                               k0 + kKeys, Sk, hd, ck);
       load_tile<kKeys, HD, NT>(sv_ + (st ^ 1) * kKVBytes, vb, sv.s,
-                               k0 + kKeys, Sk);
+                               k0 + kKeys, Sk, hd, cv);
     }
     repro::cp_async_commit();
     repro::cp_async_wait<1>();  // this tile (and Q) have landed
     repro::fence_proxy_async();
     __syncthreads();
 
-    if (!causal || k0 <= w0 + 63) {  // uniform over the warpgroup
+    // uniform over the warpgroup: a key tile it sees, or every tile when
+    // its first row sees no key
+    if (!causal || w0 + off < 0 || k0 <= w0 + 63 + off) {
       float s[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) s[i] = 0.f;
@@ -340,7 +394,8 @@ __global__ void __launch_bounds__(128 * WG)
 
       // scale and mask; s[4i + e]: row e < 2 ? row_a : row_b, column
       // k0 + 8 i + col_t + (e & 1)
-      const bool edge = k0 + kKeys > Sk || (causal && k0 + kKeys - 1 > w0);
+      const bool edge =
+          k0 + kKeys > Sk || (causal && k0 + kKeys - 1 > w0 + off);
       float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
@@ -348,7 +403,7 @@ __global__ void __launch_bounds__(128 * WG)
         if (edge) {
           const int col = k0 + 8 * (i / 4) + col_t + (i & 1);
           const int row = (i & 2) ? row_b : row_a;
-          if (col >= Sk || (causal && col > row)) x = kNegInf;
+          if (col >= Sk || (causal && col > row + off)) x = kNegInf;
         }
         s[i] = x;
         if (i & 2) {
@@ -423,21 +478,42 @@ __global__ void __launch_bounds__(128 * WG)
   }
 
   bf16* ob = o + b * so.b + h * so.h;
-  const float inv_a = 1.f / (l_a == 0.f ? 1.f : l_a);
-  const float inv_b = 1.f / (l_b == 0.f ? 1.f : l_b);
+  // a row that saw no key: the sum of V over the Sk keys, over Sk
+  const float inv_a = 1.f / (m_a == kNegInf ? static_cast<float>(Sk)
+                             : l_a == 0.f   ? 1.f
+                                            : l_a);
+  const float inv_b = 1.f / (m_b == kNegInf ? static_cast<float>(Sk)
+                             : l_b == 0.f   ? 1.f
+                                            : l_b);
+  // an even hd: column pairs as 4-byte stores (O is contiguous, so every
+  // pair is aligned); an odd hd: one element at a time
+  const bool pairs = (hd & 1) == 0;
 #pragma unroll
   for (int hh = 0; hh < NH; ++hh) {
 #pragma unroll
     for (int i = 0; i < HW / 8; ++i) {
       const int col = hh * HW + 8 * i + col_t;
       const float* a = acc[hh] + 4 * i;
+      if (col >= hd) continue;
+      if (pairs) {
+        if (row_a < S) {
+          *reinterpret_cast<__nv_bfloat162*>(ob + row_a * so.s + col) =
+              __floats2bfloat162_rn(a[0] * inv_a, a[1] * inv_a);
+        }
+        if (row_b < S) {
+          *reinterpret_cast<__nv_bfloat162*>(ob + row_b * so.s + col) =
+              __floats2bfloat162_rn(a[2] * inv_b, a[3] * inv_b);
+        }
+        continue;
+      }
+      const bool two = col + 1 < hd;
       if (row_a < S) {
-        *reinterpret_cast<__nv_bfloat162*>(ob + row_a * so.s + col) =
-            __floats2bfloat162_rn(a[0] * inv_a, a[1] * inv_a);
+        ob[row_a * so.s + col] = __float2bfloat16(a[0] * inv_a);
+        if (two) ob[row_a * so.s + col + 1] = __float2bfloat16(a[1] * inv_a);
       }
       if (row_b < S) {
-        *reinterpret_cast<__nv_bfloat162*>(ob + row_b * so.s + col) =
-            __floats2bfloat162_rn(a[2] * inv_b, a[3] * inv_b);
+        ob[row_b * so.s + col] = __float2bfloat16(a[2] * inv_b);
+        if (two) ob[row_b * so.s + col + 1] = __float2bfloat16(a[3] * inv_b);
       }
     }
   }
@@ -446,30 +522,31 @@ __global__ void __launch_bounds__(128 * WG)
 template <int NJ, int WG>
 int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                  Strides sq, Strides sk, Strides sv, Strides so, int B,
-                 int Hq, int Hkv, int S, int Sk, int causal,
-                 cudaStream_t stream) {
+                 int Hq, int Hkv, int S, int Sk, int hd, int causal,
+                 int chunked, cudaStream_t stream) {
   const size_t smem = wgmma_smem_bytes(16 * NJ, WG);
   cudaError_t err = cudaFuncSetAttribute(
       flash_wgmma_kernel<NJ, WG>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * Hq, (S + 64 * WG - 1) / (64 * WG));
-  const float scale = 1.f / sqrtf(static_cast<float>(16 * NJ));
+  const float scale = 1.f / sqrtf(static_cast<float>(hd));
   flash_wgmma_kernel<NJ, WG><<<grid, 128 * WG, smem, stream>>>(
-      q, k, v, o, sq, sk, sv, so, S, Sk, Hq, Hq / Hkv, causal, scale);
+      q, k, v, o, sq, sk, sv, so, S, Sk, hd, Hq, Hq / Hkv, causal, chunked,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int NJ>
 int launch_hd(const void* q, const void* k, const void* v, void* o,
               Strides sq, Strides sk, Strides sv, Strides so, int B, int Hq,
-              int Hkv, int S, int Sk, int causal, int dtype, int block_m,
-              cudaStream_t stream) {
+              int Hkv, int S, int Sk, int hd, int causal, int dtype,
+              int block_m, int chunked, cudaStream_t stream) {
   if (dtype == 0) {
     return launch_simt<NJ>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), sq, sk, sv, so,
-        B, Hq, Hkv, S, Sk, causal, stream);
+        B, Hq, Hkv, S, Sk, hd, causal, stream);
   }
   const bf16* qt = static_cast<const bf16*>(q);
   const bf16* kt = static_cast<const bf16*>(k);
@@ -477,27 +554,29 @@ int launch_hd(const void* q, const void* k, const void* v, void* o,
   bf16* ot = static_cast<bf16*>(o);
   if (block_m == 64) {
     return launch_wgmma<NJ, 1>(qt, kt, vt, ot, sq, sk, sv, so, B, Hq, Hkv, S,
-                               Sk, causal, stream);
+                               Sk, hd, causal, chunked, stream);
   }
   return launch_wgmma<NJ, 2>(qt, kt, vt, ot, sq, sk, sv, so, B, Hq, Hkv, S,
-                             Sk, causal, stream);
+                             Sk, hd, causal, chunked, stream);
 }
 
 }  // namespace
 
-// q (B, S, Hq, hd), k and v (B, Sk, Hkv, hd), o like q, each given by its
-// batch, sequence and head strides in elements.  hd a multiple of 16 up to
-// 128, or 256; dtype 0 = f32 (SIMT kernel), 1 = bf16 (wgmma kernel,
-// block_m query rows per CTA: 64 or 128; base and strides 16-byte
-// aligned).  Returns the CUDA error of the launch.
+// q (B, S, Hq, hd), k and v (B, Sk, Hkv, hd), o like q (contiguous), each
+// given by its batch, sequence and head strides in elements.  hd from 1 to
+// 256, run on the width above it (16, 32, .., 128, 256); dtype 0 = f32
+// (SIMT kernel), 1 = bf16 (wgmma kernel, block_m query rows per CTA: 64 or
+// 128; chunked: bit 0, 1, 2 for q, k, v copied in 16-byte chunks, which
+// needs hd a multiple of 8 and base and strides 16-byte aligned).  Returns
+// the CUDA error of the launch.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, long long qsb,
     long long qss, long long qsh, long long ksb, long long kss,
     long long ksh, long long vsb, long long vss, long long vsh,
     long long osb, long long oss, long long osh, int B, int Hq, int Hkv,
-    int S, int Sk, int hd, int causal, int dtype, int block_m, void* stream) {
-  if (hd % 16 != 0 || hd < 16 || (hd > 128 && hd != 256) || Hkv <= 0 ||
-      Hq % Hkv != 0 ||
+    int S, int Sk, int hd, int causal, int dtype, int block_m, int chunked,
+    void* stream) {
+  if (hd < 1 || hd > 256 || Hkv <= 0 || Hq % Hkv != 0 ||
       (dtype != 0 && dtype != 1) ||
       (dtype == 1 && block_m != 64 && block_m != 128)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -507,9 +586,10 @@ extern "C" int repro_flash_attention(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_FLASH_HD(NJ)                                                  \
   case NJ:                                                                  \
-    return launch_hd<NJ>(q, k, v, o, sq, sk, sv, so, B, Hq, Hkv, S, Sk,     \
-                         causal, dtype, block_m, s);
-  switch (hd / 16) {
+    return launch_hd<NJ>(q, k, v, o, sq, sk, sv, so, B, Hq, Hkv, S, Sk, hd, \
+                         causal, dtype, block_m, chunked, s);
+  // the instantiated width: hd up to 128 rounded up to 16, else 256
+  switch (hd > 128 ? 16 : (hd + 15) / 16) {
     REPRO_FLASH_HD(1)
     REPRO_FLASH_HD(2)
     REPRO_FLASH_HD(3)

@@ -325,12 +325,14 @@ constexpr int smem_bytes(bool split) {
   return (stages > epilogue ? stages : epilogue) + 1024;
 }
 
-// Grid (tiles (tiles + 1) / 2, N): blockIdx.x enumerates the
-// upper-triangular tiles row by row.
+// Grid (N tiles (tiles + 1) / 2): blockIdx.x enumerates block n's
+// upper-triangular tiles row by row, n after n (the order of a 2-D grid of
+// tiles by N, without its limit of 65,535 on N).
 template <typename Src, bool SPLIT>
 __global__ void __launch_bounds__(kThreads, 1)
     gram_kernel(Src m, float* __restrict__ c, int d, int k, int tiles) {
-  int t = blockIdx.x, ti = 0;
+  const int tri = tiles * (tiles + 1) / 2;
+  int t = static_cast<int>(blockIdx.x % tri), ti = 0;
   while (t >= tiles - ti) {
     t -= tiles - ti;
     ++ti;
@@ -338,7 +340,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tj = ti + t;
   const int i0 = ti * kTile, j0 = tj * kTile;
   const bool diag = ti == tj;
-  const long long n = blockIdx.y;
+  const long long n = blockIdx.x / tri;
 
   extern __shared__ unsigned char gram_smem[];
   const uint32_t raw = repro::smem_addr(gram_smem);
@@ -473,7 +475,9 @@ int launch(Src m, float* c, int n, int d, int k, void* stream) {
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (k + kTile - 1) / kTile;
-  const dim3 grid(tiles * (tiles + 1) / 2, n);
+  const long long blocks = static_cast<long long>(tiles) * (tiles + 1) / 2 * n;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks));
   gram_kernel<Src, SPLIT>
       <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(m, c, d,
                                                                    k, tiles);

@@ -178,8 +178,8 @@ template <typename TU, int NT>
 __global__ void __launch_bounds__(kThreads, 2)
     apply_kernel(const TU* __restrict__ u, const float* __restrict__ coeffs,
                  const float* __restrict__ base, const float* __restrict__ g,
-                 float* __restrict__ y, int d, int ell, int m, int vec_u,
-                 int vec_g) {
+                 float* __restrict__ y, int n_blocks, int d, int ell, int m,
+                 int vec_u, int vec_g) {
   constexpr int BN = 8 * NT, GS = g_stride(BN), US = u_stride<TU>();
   constexpr int PS = p_stride(BN);
   constexpr int NTW = NT >= 4 ? NT / 4 : 1;  // first product: 2 x NTW tiles
@@ -187,8 +187,14 @@ __global__ void __launch_bounds__(kThreads, 2)
   constexpr bool kExact = sizeof(TU) == 1;
   constexpr int kUVec = 16 / sizeof(TU);
   constexpr int kStage = stage_bytes(BN, sizeof(TU));
+  // grid (ceil(m / BN), min(N, 65,535), ceil(N / 65,535)): n from the y
+  // and z indices, special registers the compiler reads again where it
+  // needs n, as a 2-D grid's blockIdx.y (a flat index would hold n in
+  // registers: 12 B of spills at NT 8)
   const int j0 = blockIdx.x * BN;
-  const long long n = blockIdx.y;
+  const long long n =
+      static_cast<long long>(blockIdx.z) * gridDim.y + blockIdx.y;
+  if (n >= n_blocks) return;  // the last z slice's tail
   const TU* un = u + n * d * ell;
   const float* gn = g + n * d * m;
   float* yn = y + n * d * m;
@@ -443,9 +449,11 @@ int launch_nt(const TU* u, const float* coeffs, const float* base,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int vec_u = ell * sizeof(TU) % 16 == 0 && aligned16(u);
   const int vec_g = m % 4 == 0 && aligned16(g);
-  const dim3 grid((m + 8 * NT - 1) / (8 * NT), n);
+  const int slice = n < 65535 ? (n > 0 ? n : 1) : 65535;
+  const dim3 grid((m + 8 * NT - 1) / (8 * NT), slice,
+                  (n + slice - 1) / slice);
   apply_kernel<TU, NT><<<grid, kThreads, smem, stream>>>(
-      u, coeffs, base, g, y, d, ell, m, vec_u, vec_g);
+      u, coeffs, base, g, y, n, d, ell, m, vec_u, vec_g);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -379,30 +379,32 @@ __device__ __forceinline__ int8_t quantize_one(float x, float s) {
   return static_cast<int8_t>(fminf(fmaxf(rintf(x / s), -127.f), 127.f));
 }
 
-// Grid (blocks, N); VEC4: four values a thread (size % 4 == 0, both bases
-// aligned), a float4 load and one 4-byte store.
+// Grid (N xblocks): xblocks blocks for each of the N blocks, n after n;
+// VEC4: four values a thread (size % 4 == 0, both bases aligned), a float4
+// load and one 4-byte store.
 template <bool VEC4>
 __global__ void __launch_bounds__(kThreads)
     quantize_kernel(const float* __restrict__ un,
                     const unsigned int* __restrict__ absmax,
                     int8_t* __restrict__ values, float* __restrict__ scale,
-                    long long size) {
-  const long long n = blockIdx.y;
+                    long long size, int xblocks) {
+  const long long n = blockIdx.x / xblocks;
+  const int bx = static_cast<int>(blockIdx.x % xblocks);
   const float amax = __uint_as_float(absmax[n]);
   const float s = amax > 0.f ? amax / 127.f : 1.f;
-  if (blockIdx.x == 0 && threadIdx.x == 0) scale[n] = s;
-  const long long step = (long long)gridDim.x * kThreads;
+  if (bx == 0 && threadIdx.x == 0) scale[n] = s;
+  const long long step = (long long)xblocks * kThreads;
   if (VEC4) {
     const float4* src = reinterpret_cast<const float4*>(un + n * size);
     char4* dst = reinterpret_cast<char4*>(values + n * size);
-    for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x;
+    for (long long i = bx * (long long)kThreads + threadIdx.x;
          i < size / 4; i += step) {
       const float4 x = src[i];
       dst[i] = make_char4(quantize_one(x.x, s), quantize_one(x.y, s),
                           quantize_one(x.z, s), quantize_one(x.w, s));
     }
   } else {
-    for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x;
+    for (long long i = bx * (long long)kThreads + threadIdx.x;
          i < size; i += step) {
       values[n * size + i] = quantize_one(un[n * size + i], s);
     }
@@ -448,6 +450,7 @@ extern "C" int repro_batched_project_quantize(
       partial, amax, d, k, r, e, work, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 fixup_grid(static_cast<unsigned>(tiles));
   fixup_kernel<<<fixup_grid, kThreads, 0, s>>>(partial, un, amax, d, e, work);
   err = cudaGetLastError();
@@ -456,16 +459,19 @@ extern "C" int repro_batched_project_quantize(
   const bool vec4 = size % 4 == 0 && vec.un &&
                     reinterpret_cast<uintptr_t>(out) % 4 == 0;
   const long long per_thread = vec4 ? 4 : 1;
-  const dim3 qgrid(
-      (unsigned)std::min<long long>(
-          (size + per_thread * kThreads - 1) / (per_thread * kThreads), 1024),
-      n);
+  // blocks for each of the n: enough for one pass, at most 1,024, and at
+  // most 2^31 - 1 in all
+  const int xblocks = static_cast<int>(std::max<long long>(
+      1, std::min<long long>(
+             {(size + per_thread * kThreads - 1) / (per_thread * kThreads),
+              1024, 0x7fffffffLL / n})));
+  const dim3 qgrid(static_cast<unsigned>(static_cast<long long>(xblocks) * n));
   if (vec4) {
     quantize_kernel<true><<<qgrid, kThreads, 0, s>>>(
-        un, amax, out, static_cast<float*>(scale), size);
+        un, amax, out, static_cast<float*>(scale), size, xblocks);
   } else {
     quantize_kernel<false><<<qgrid, kThreads, 0, s>>>(
-        un, amax, out, static_cast<float*>(scale), size);
+        un, amax, out, static_cast<float*>(scale), size, xblocks);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -257,7 +257,11 @@ __global__ void __launch_bounds__(kThreads)
                        int chunks, int vec_b, int vec_u) {
   constexpr int RT = P / 16, WPR = kWarps / RT, MT = 16 / WPR, PS = P + 8;
   const int NT = (N + 7) / 8, NK = round16(N), NS = NK + 8;
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  // grid (B H (chunks - 1)): chunk after chunk of head h of batch row b,
+  // the order of a (chunks - 1, H, B) grid without its limit on B
+  const int c = static_cast<int>(blockIdx.x % (chunks - 1));
+  const long long bh = blockIdx.x / (chunks - 1);
+  const int h = static_cast<int>(bh % H), b = static_cast<int>(bh / H);
   const long long pos0 = static_cast<long long>(b) * S +
                          static_cast<long long>(c) * Q;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -371,11 +375,17 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int QB = 16 * QT, HT = (4 / QT) * HW, NTP = P / 8;
   constexpr int US = HT * P + 8;
   const int NK = round16(N), NS = NK + 8;
-  const int c = blockIdx.x / qblocks, qb = blockIdx.x % qblocks;
+  // grid (B ceil(H / HT) chunks qblocks): the order of a (chunks qblocks,
+  // ceil(H / HT), B) grid without its limit on B
+  const int cq = chunks * qblocks, hts = (H + HT - 1) / HT;
+  const int cqi = static_cast<int>(blockIdx.x % cq);
+  const long long bht = blockIdx.x / cq;
+  const int c = cqi / qblocks, qb = cqi % qblocks;
   const int c0 = c * Q, valid = min(Q, S - c0), q0 = qb * QB;
   if (q0 >= valid) return;  // past S in a ragged last chunk
   const int rows = min(valid, q0 + QB);  // positions of the chunk it reads
-  const int h0 = blockIdx.y * HT, b = blockIdx.z;
+  const int h0 = static_cast<int>(bht % hts) * HT;
+  const int b = static_cast<int>(bht / hts);
   const int heads = min(HT, H - h0);
   const long long pos0 = static_cast<long long>(b) * S + c0;
   const bool inter = c > 0;
@@ -529,7 +539,10 @@ int launch_out(const T* u, const float* dlog, const T* bm, const T* cm,
   int err = allow_smem(chunk_out_kernel<T, P, QT, HW>, smem);
   if (err != 0) return err;
   const int qblocks = (Q + QB - 1) / QB;
-  const dim3 grid(chunks * qblocks, (H + HT - 1) / HT, B);
+  const long long blocks = static_cast<long long>(chunks) * qblocks *
+                           ((H + HT - 1) / HT) * B;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks));
   chunk_out_kernel<T, P, QT, HW><<<grid, kThreads, smem, stream>>>(
       u, dlog, bm, cm, states, y, S, H, N, Q, qblocks, chunks, vec_b, vec_u);
   return static_cast<int>(cudaGetLastError());
@@ -544,7 +557,9 @@ int launch_p(const T* u, const float* dlog, const T* bm, const T* cm, T* y,
     const size_t smem = state_smem(P, N, Q, sizeof(T));
     int err = allow_smem(chunk_state_kernel<T, P>, smem);
     if (err != 0) return err;
-    chunk_state_kernel<T, P><<<dim3(chunks - 1, H, B), kThreads, smem,
+    const long long blocks = static_cast<long long>(chunks - 1) * H * B;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    chunk_state_kernel<T, P><<<static_cast<unsigned>(blocks), kThreads, smem,
                                stream>>>(u, dlog, bm, states, keep, S, H, N,
                                          Q, chunks, vec_b, vec_u);
     err = static_cast<int>(cudaGetLastError());

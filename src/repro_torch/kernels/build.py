@@ -54,7 +54,7 @@ SIGNATURES = {
     },
     "flash": {
         "repro_flash_attention":
-            [_P, _P, _P, _P] + [_LL] * 12 + [_I] * 9 + [_P],
+            [_P, _P, _P, _P] + [_LL] * 12 + [_I] * 10 + [_P],
     },
     "ssd": {
         "repro_ssd_scan": [_P] * 7 + [_I] * 7 + [_P],

@@ -27,8 +27,19 @@ SMEM_LIMIT = 232_448    # dynamic shared memory a Hopper block can use
 KEYS = 64               # keys per K/V tile (both kernels)
 ALIGN = 16              # bytes: the bf16 kernel's cp.async chunks
 SMS = 132               # the H100's streaming multiprocessors
-HEAD_DIMS = tuple(range(16, 129, 16)) + (256,)
+HEAD_DIMS = tuple(range(16, 129, 16)) + (256,)   # the instantiated widths
+MAX_HEAD_DIM = 256
 launches = 0
+
+
+def padded_head_dim(hd: int) -> int:
+    """The instantiated width a head dim runs on (csrc/flash.cu): hd up to
+    128 rounded up to a multiple of 16, above that 256.  Q, K and V are
+    zero from hd up to it in shared memory."""
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention kernel takes a head dim from 1 "
+                         f"to {MAX_HEAD_DIM}, got {hd}")
+    return -(-hd // 16) * 16 if hd <= 128 else MAX_HEAD_DIM
 
 
 class Plan(NamedTuple):
@@ -37,6 +48,7 @@ class Plan(NamedTuple):
     threads: int
     grid: tuple         # (x, y, z)
     smem_bytes: int
+    width: int          # the instantiated head dim (padded_head_dim)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -52,17 +64,20 @@ def plan(dtype: torch.dtype, B: int, Hq: int, S: int, hd: int) -> Plan:
     (its tiles allow one block a SM whatever the rows, so the block takes
     two warpgroups), grid (B * Hq, query tiles),
     shared Q and two stages of K and V tiles in bf16 plus 256 bytes of
-    alignment.  Raises where a grid dimension would overflow."""
+    alignment.  Tiles and shared memory are those of the instantiated
+    width ``padded_head_dim(hd)``.  Raises where a grid dimension would
+    overflow."""
+    width = padded_head_dim(hd)
     if dtype == torch.float32:
         grid = (math.ceil(S / KEYS), Hq, B)
         p = Plan("simt_f32", 64, 256, grid,
-                 4 * (2 * 64 * (hd + 1) + 64 * hd + 64 * 65))
+                 4 * (2 * 64 * (width + 1) + 64 * width + 64 * 65), width)
     elif dtype == torch.bfloat16:
         block_m = 128 if B * Hq * math.ceil(S / 128) >= 2 * SMS or \
-            (hd > 128 and S > 64) else 64
+            (width > 128 and S > 64) else 64
         grid = (B * Hq, math.ceil(S / block_m), 1)
         p = Plan("wgmma_bf16", block_m, 2 * block_m, grid,
-                 2 * (block_m * hd + 4 * KEYS * hd) + 256)
+                 2 * (block_m * width + 4 * KEYS * width) + 256, width)
     else:
         raise TypeError(f"no flash_attention kernel for {dtype}")
     if p.grid[0] > MAX_GRID_X or max(p.grid[1:]) > MAX_GRID:
@@ -71,26 +86,27 @@ def plan(dtype: torch.dtype, B: int, Hq: int, S: int, hd: int) -> Plan:
     return p
 
 
-def check_aligned(name: str, t: torch.Tensor, strides: tuple) -> None:
-    """The bf16 kernel copies 16-byte chunks of each row: the base address
-    and the batch, head and sequence ``strides`` (elements) of ``t`` must be
-    multiples of 16 bytes (the model's (B, S, H, hd) tensors always are)."""
+def check_aligned(t: torch.Tensor, strides: tuple) -> bool:
+    """Whether the bf16 kernel copies ``t`` in 16-byte chunks (cp.async):
+    its head dim a multiple of 8 and its base address and batch, head and
+    sequence ``strides`` (elements) multiples of 16 bytes, as the model's
+    (B, S, H, hd) tensors are at every ported config.  Otherwise the kernel
+    stages it one element a thread."""
     nbytes = t.element_size()
-    if t.data_ptr() % ALIGN or any(s * nbytes % ALIGN for s in strides[:3]):
-        raise ValueError(f"flash_attention bf16 kernel needs {name}'s base "
-                         f"and strides 16-byte aligned, got address "
-                         f"{t.data_ptr()} and strides {strides}")
+    return t.shape[-1] * nbytes % ALIGN == 0 and t.data_ptr() % ALIGN == 0 \
+        and all(s * nbytes % ALIGN == 0 for s in strides[:3])
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Attention forward for CUDA q (B, Hq, S, hd) and k, v (B, Hkv, Sk, hd)
-    of one dtype (f32 or bf16), Hq % Hkv == 0, hd a multiple of 16 up to
-    128 or 256 (``HEAD_DIMS``), each with a contiguous last dim and any
-    other strides (the model's (B, S, H, hd) tensors arrive as transposed
-    views and are read in place;
-    in bf16 the base and strides 16-byte aligned, ``check_aligned``).
-    Causal attention needs S == Sk (query i sees keys j <= i).  Returns
+    of one dtype (f32 or bf16), Hq % Hkv == 0, any hd from 1 to 256 (run on
+    ``padded_head_dim(hd)``), each with a contiguous last dim and any other
+    strides (the model's (B, S, H, hd) tensors arrive as transposed views
+    and are read in place; in bf16 in 16-byte chunks where
+    ``check_aligned``, else element by element).  The causal mask is
+    aligned at the end, as ``attention_ref``'s: query i sees keys j <= i +
+    Sk - S, and a row that sees none is the uniform mean of V.  Returns
     (B, Hq, S, hd) in q's dtype, stored (B, S, Hq, hd)."""
     global launches
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -115,18 +131,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             or Hq % Hkv:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes a head dim that is "
-                         f"a multiple of 16 up to 128, or 256, got {hd}")
-    if causal and S != Sk:
-        raise ValueError(f"causal flash_attention kernel needs S == Sk, got "
-                         f"{S} and {Sk}")
+    padded_head_dim(hd)
     if B * Hq * S == 0:
         return q.new_empty((B, S, Hq, hd)).transpose(1, 2)
     p = plan(q.dtype, B, Hq, S, hd)
-    if p.kernel == "wgmma_bf16":
-        for name, t, st in zip("qkv", (q, k, v), strides):
-            check_aligned(name, t, st)
+    chunked = sum(1 << i for i, (t, st) in enumerate(zip((q, k, v), strides))
+                  if p.kernel == "wgmma_bf16" and check_aligned(t, st))
     out = q.new_empty((B, S, Hq, hd))             # stored (B, S, Hq, hd)
     # batch, sequence and head strides of q, k, v and the (B, Hq, S, hd)
     # view of out
@@ -135,7 +145,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     err = build.launch(build.library("flash").repro_flash_attention,
                        dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        out.data_ptr(), *args, B, Hq, Hkv, S, Sk, hd,
-                       int(causal), DTYPES[q.dtype], p.block_m)
+                       int(causal), DTYPES[q.dtype], p.block_m, chunked)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err} at q {tuple(q.shape)}, k "

@@ -21,7 +21,8 @@ from repro_torch.kernels import build, split_d
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SINGLE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-MAX_BLOCKS = 65535      # the grid's y dimension
+MAX_GRID_X = 2**31 - 1  # a grid's x dimension, which takes every block
+TILE = 128              # csrc/gram.cu kTile: output tiles of 128 x 128
 ROWS_MAX_K = 16         # csrc/gram_tall.cu kRowsMaxK: whole rows per thread
 launches = 0
 mixed_launches = 0
@@ -35,9 +36,19 @@ def _check_stack(name: str, t: torch.Tensor, device) -> None:
     if t.ndim != 3 or not t.is_contiguous():
         raise ValueError(f"{name} needs a contiguous (N, d, k) stack, got "
                          f"shape {tuple(t.shape)} strides {t.stride()}")
-    if t.shape[0] > MAX_BLOCKS:
-        raise ValueError(f"{name} takes at most {MAX_BLOCKS} blocks, got "
-                         f"{t.shape[0]}")
+
+
+def gram_grid(N: int, k: int) -> int:
+    """The batched Grams' one-dimensional grid (csrc/gram.cu): the
+    upper-triangular 128 x 128 tiles of each of the N outputs, (k / 128)
+    (k / 128 + 1) / 2 of them, block n's after block n - 1's.  Raises
+    where it would pass the grid's x limit."""
+    tiles = math.ceil(k / TILE)
+    blocks = N * tiles * (tiles + 1) // 2
+    if blocks > MAX_GRID_X:
+        raise ValueError(f"batched Gram kernel's grid of {blocks} blocks is "
+                         f"over the card's {MAX_GRID_X} (N {N}, k {k})")
+    return blocks
 
 
 def batched_gram(a: torch.Tensor) -> torch.Tensor:
@@ -49,6 +60,7 @@ def batched_gram(a: torch.Tensor) -> torch.Tensor:
                         f"{a.dtype}")
     _check_stack("batched_gram kernel", a, a.device)
     N, d, k = a.shape
+    gram_grid(N, k)
     out = torch.empty((N, k, k), dtype=torch.float32, device=a.device)
     if N == 0 or k == 0:
         return out
@@ -83,6 +95,7 @@ def batched_gram_mixed(vq: torch.Tensor, colw: torch.Tensor,
             or colw.device != a.device:
         raise ValueError(f"shape mismatch: vq {tuple(vq.shape)}, colw "
                          f"{tuple(colw.shape)}, a {tuple(a.shape)}")
+    gram_grid(N, k + r)
     colw = colw.contiguous()
     out = torch.empty((N, k + r, k + r), dtype=torch.float32, device=a.device)
     if N == 0:

@@ -31,7 +31,8 @@ from repro_torch.kernels import build, split_d
 
 U_DTYPES = {torch.float32: 0, torch.int8: 2}
 G_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-MAX_BLOCKS = 65535      # the grid's z / y dimension
+MAX_GRID_X = 2**31 - 1  # a grid's x dimension
+MAX_GRID_YZ = 65535     # a grid's y and z dimensions
 MAX_ELL = 1024          # the single-block expand pass holds P's tile in
                         # shared memory: ell * 8 f32
 BATCHED_MAX_ELL = 1984  # the batched apply's P (ell x 8 at its narrowest
@@ -82,6 +83,23 @@ def apply_col_tiles(ell: int, usize: int) -> tuple:
                  if apply_smem_bytes(ell, t, usize) <= SMEM_LIMIT)
 
 
+def apply_grid(N: int, ell: int, m: int, usize: int,
+               col_tile: int = 0) -> tuple:
+    """The batched apply's grid (csrc/lowrank.cu): G's column tiles at
+    ``col_tile`` (0: the widest that fits, ``apply_col_tiles``) on x, the N
+    blocks on y in slices of at most 65,535 and the slices on z (block n =
+    z 65,535 + y, the last slice's tail idle), so N is bound by 65,535^2
+    and not by 65,535.  Raises where it would pass the grid's limits."""
+    tile = col_tile or (apply_col_tiles(ell, usize) or (8,))[0]
+    slice_ = max(min(N, MAX_GRID_YZ), 1)
+    grid = (math.ceil(m / tile), slice_, math.ceil(N / slice_))
+    if grid[0] > MAX_GRID_X or grid[2] > MAX_GRID_YZ:
+        raise ValueError(f"batched_lowrank_apply kernel's grid {grid} is "
+                         f"over the card's limits (N {N}, {m} columns at "
+                         f"tile {tile})")
+    return grid
+
+
 def batched_lowrank_apply(u: torch.Tensor, coeffs: torch.Tensor,
                           base: torch.Tensor, g: torch.Tensor,
                           col_tile: int = 0) -> torch.Tensor:
@@ -113,10 +131,10 @@ def batched_lowrank_apply(u: torch.Tensor, coeffs: torch.Tensor,
         raise ValueError(f"shape mismatch: u {tuple(u.shape)}, coeffs "
                          f"{tuple(coeffs.shape)}, base {tuple(base.shape)}, "
                          f"g {tuple(g.shape)}")
-    if N > MAX_BLOCKS or not 0 < ell <= BATCHED_MAX_ELL:
-        raise ValueError(f"batched_lowrank_apply kernel takes at most "
-                         f"{MAX_BLOCKS} blocks and 0 < ell <= "
+    if not 0 < ell <= BATCHED_MAX_ELL:
+        raise ValueError(f"batched_lowrank_apply kernel takes 0 < ell <= "
                          f"{BATCHED_MAX_ELL}, got N={N}, ell={ell}")
+    apply_grid(N, ell, m, u.element_size(), col_tile)
     if col_tile and col_tile not in apply_col_tiles(ell, u.element_size()):
         raise ValueError(f"batched_lowrank_apply kernel: column tile "
                          f"{col_tile} does not launch at ell {ell}, "
@@ -215,9 +233,13 @@ def project_plan(N: int, d: int, k: int, r: int, e: int,
     tiles = (math.ceil(d / PROJECT_ROWS), math.ceil(e / PROJECT_COLS), N)
     panels = math.ceil(k / PROJECT_DEPTH) + math.ceil(r / PROJECT_DEPTH)
     units = math.prod(tiles) * panels
-    if blocks and not 0 < blocks <= units:
-        raise ValueError(f"the write-back takes 1 to {units} blocks at "
+    top = min(units, MAX_GRID_X)
+    if blocks and not 0 < blocks <= top:
+        raise ValueError(f"the write-back takes 1 to {top} blocks at "
                          f"(N, d, k, r, e) = {(N, d, k, r, e)}, got {blocks}")
+    if math.prod(tiles) > MAX_GRID_X:
+        raise ValueError(f"the write-back's fixup grid of {math.prod(tiles)} "
+                         f"tiles is over the card's {MAX_GRID_X}")
     blocks = blocks or min(units, SMS * PROJECT_BLOCKS_PER_SM)
     return ProjectPlan(
         tiles, panels, blocks, PROJECT_THREADS,
@@ -307,9 +329,6 @@ def batched_project_quantize(vq: torch.Tensor, w_top: torch.Tensor,
         raise ValueError(f"shape mismatch: vq {tuple(vq.shape)}, w_top "
                          f"{tuple(w_top.shape)}, a {tuple(a.shape)}, w_bot "
                          f"{tuple(w_bot.shape)}")
-    if N > MAX_BLOCKS:
-        raise ValueError(f"batched_project_quantize kernel takes at most "
-                         f"{MAX_BLOCKS} blocks, got {N}")
     values = torch.empty((N, d, e), dtype=torch.int8, device=a.device)
     if values.numel() == 0:
         return values, torch.ones((N, 1, 1), dtype=torch.float32,

@@ -13,6 +13,9 @@ kernel.
 """
 from __future__ import annotations
 
+import math
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import build
@@ -20,8 +23,38 @@ from repro_torch.kernels import build
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64)
 MAX_STATE = 128
-MAX_BATCH = 65535       # the grid's z dimension
+MAX_GRID_X = 2**31 - 1  # a grid's x dimension, which takes every block
 launches = 0
+
+
+class Plan(NamedTuple):
+    chunks: int         # chunks of Q positions
+    Q: int
+    out_blocks: int     # the chunk outputs' grid (phase 3)
+    state_blocks: int   # the chunk states' grid (phase 1; 0 for one chunk)
+    pass_blocks: int    # the state pass's grid (phase 2; 0 for <= 2 chunks)
+
+
+def plan(B: int, S: int, H: int, P: int, N: int, chunk: int) -> Plan:
+    """The launches of csrc/ssd.cu, each on a one-dimensional grid in the
+    order of a (x, y, B) grid with the batch rows last, so that B is bound
+    by the grid's x limit and not by 65,535.  Phase 3: per batch row, per
+    tile of HT heads, per chunk, per QB query rows (QB = 16, 32, 64 and HT
+    = 4, 2, 2 for Q up to 16, up to 32, above); phase 1: per batch row,
+    head and chunk but the last; phase 2: 256-thread blocks, one thread per
+    4 state values of every (b, h).  Raises where a grid would pass the
+    x limit."""
+    Q = min(chunk, S)
+    chunks = -(-S // Q)
+    QB, HT = (16, 4) if Q <= 16 else (32, 2) if Q <= 32 else (64, 2)
+    out = chunks * math.ceil(Q / QB) * math.ceil(H / HT) * B
+    state = (chunks - 1) * H * B
+    passes = math.ceil(B * H * P * N // 4 / 256) if chunks > 2 else 0
+    p = Plan(chunks, Q, out, state, passes)
+    if max(out, state, passes) > MAX_GRID_X:
+        raise ValueError(f"ssd_scan kernel's grid {p} is over the card's "
+                         f"{MAX_GRID_X} (B {B}, S {S}, H {H})")
+    return p
 
 
 def ssd_scan(u: torch.Tensor, dlog: torch.Tensor, Bm: torch.Tensor,
@@ -53,16 +86,14 @@ def ssd_scan(u: torch.Tensor, dlog: torch.Tensor, Bm: torch.Tensor,
         raise ValueError(f"shape mismatch: u {tuple(u.shape)}, dlog "
                          f"{tuple(dlog.shape)}, Bm {tuple(Bm.shape)}, Cm "
                          f"{tuple(Cm.shape)}")
-    if P not in HEAD_DIMS or not 1 <= N <= MAX_STATE or B > MAX_BATCH \
-            or chunk < 1:
+    if P not in HEAD_DIMS or not 1 <= N <= MAX_STATE or chunk < 1:
         raise ValueError(f"ssd_scan kernel takes P in {HEAD_DIMS}, N up to "
-                         f"{MAX_STATE}, at most {MAX_BATCH} batch rows and "
-                         f"a positive chunk, got P={P}, N={N}, B={B}, "
-                         f"chunk={chunk}")
+                         f"{MAX_STATE} and a positive chunk, got P={P}, "
+                         f"N={N}, B={B}, chunk={chunk}")
     y = torch.empty_like(u)
     if y.numel() == 0:
         return y
-    Q = min(chunk, S)
+    Q = plan(B, S, H, P, N, chunk).Q
     # the state each chunk but the last adds (the state pass turns it into
     # the state entering the next chunk) and its decay exp(A_end)
     slots = -(-S // Q) - 1

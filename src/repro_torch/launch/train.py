@@ -54,6 +54,7 @@ import json
 import os
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -156,6 +157,20 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
     return args
 
 
+def batch_leaf(key: str, value: np.ndarray,
+               device: torch.device) -> torch.Tensor:
+    """One batch leaf on ``device`` (``Run.batch``)."""
+    if key == "mask":
+        narrow = {np.dtype(np.float64): np.float32,
+                  np.dtype(np.int64): np.int32,
+                  np.dtype(np.uint64): np.uint32}
+        value = value.astype(narrow.get(value.dtype, value.dtype), copy=False)
+        return torch.from_numpy(np.ascontiguousarray(value)).to(device)
+    return torch.from_numpy(value).to(
+        device=device,
+        dtype=torch.float32 if value.dtype.kind == "f" else torch.long)
+
+
 @dataclasses.dataclass
 class Run:
     """A training run set up from the flags: model config, data, the step
@@ -173,11 +188,10 @@ class Run:
     def batch(self, step: int) -> dict:
         """Batch ``step`` on the device: token leaves as long, the vlm's
         ``embeds`` as f32 (the model casts them to its dtype, as the
-        reference does)."""
-        return {k: torch.from_numpy(v).to(
-            device=self.device,
-            dtype=torch.float32 if v.dtype.kind == "f" else torch.long)
-            for k, v in self.data.batch(step).items()}
+        reference does), a loss ``mask`` in the dtype ``jnp.asarray``
+        gives it (64-bit numbers narrowed to 32, bool kept)."""
+        return {k: batch_leaf(k, v, self.device)
+                for k, v in self.data.batch(step).items()}
 
     def step(self, step: int) -> dict:
         """Train on batch ``step``; returns the step's metrics tensors."""

@@ -2,8 +2,8 @@
 reference (port of repro/models/model.py: ``param_shapes`` :69,
 ``param_struct`` :113, ``_moe_block`` :154, ``_mamba_layer`` :162,
 ``_hybrid_stack`` :188, ``embed_tokens`` :225, ``_positions`` :239,
-``forward`` :250, ``project_logits`` :281, ``loss_fn`` :292; the loss
-``mask`` :298-304, which no caller sets, is not ported).
+``forward`` :250, ``project_logits`` :281, ``loss_fn`` :292 with its
+``mask`` :298-304).
 
 Parameters are a nested dict of tensors in the reference's layout, layer
 weights stacked on a leading (L, ...) dim, so blocking and pooling see the
@@ -269,9 +269,20 @@ def project_logits(cfg: ModelConfig, params: dict,
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
-    """Mean next-token cross entropy in f32, over every label (with K
-    codebooks over B, S and K)."""
+    """Next-token cross entropy in f32 (with K codebooks over B, S and
+    K): the mean over every label, or with ``batch["mask"]`` (broadcast up
+    to the NLL's rank by trailing dims) the masked sum over
+    ``max(sum(mask), 1)``."""
     logits = forward(cfg, params, batch).float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, batch["labels"][..., None])[..., 0]
-    return torch.mean(logz - gold)
+    nll = logz - gold
+    mask = batch.get("mask")
+    if mask is None:
+        return torch.mean(nll)
+    while mask.dim() < nll.dim():
+        mask = mask[..., None]
+    count = torch.sum(mask)
+    if not count.is_floating_point():
+        count = count.float()
+    return torch.sum(nll * mask) / torch.clamp(count, min=1.0)

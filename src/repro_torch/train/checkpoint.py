@@ -36,13 +36,15 @@ Migration, as the reference's shims (:286, :392): a float stack restored
 into an int8 template is quantized (round to nearest, so a restore is
 reproducible), an int8 pair restored into a float template is dequantized
 (``values * scale``), and a fixed-rank checkpoint restored into a budgeted
-template keeps the template's uniform active ranks.  The reference's
-pre-pool shim has no counterpart: the port never had that layout.
+template keeps the template's uniform active ranks.  A pre-pool checkpoint
+(the reference's per-leaf engine layout, :191, carried across by
+``convert.convert_checkpoint``) is repacked into the template's pools.
 """
 from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import threading
 from typing import Any, Callable, NamedTuple, Optional
@@ -56,6 +58,14 @@ _SEP = "::"
 _QP_VALUES = "::.values"    # an int8 stack: <base>::.values, <base>::.scale
 _QP_SCALE = "::.scale"
 _ACTIVE_RANK = "::.k"       # the rank budget's (N,) int32 active ranks
+# What a pool stack holds, after ``<prefix>.pools::<KEY>::``: Sketchy's
+# sketch pair (int8 eigenvectors as values and scale) and active ranks,
+# Shampoo's factors (L and R, int8 alike) and roots
+POOL_SUFFIX = (r"\.(?:left|right)::(?:\.eigvecs(?:::\.values|::\.scale)?"
+               r"|\.eigvals|\.rho)|\.k|\.(?:L|R)(?:::\.values|::\.scale)?"
+               r"|\.PL|\.PR")
+_PRE_POOL_STATS = re.compile(rf"^(.*)\.leaves::(\d+)::\.stats::({POOL_SUFFIX})$")
+_POOL_LEAF = re.compile(r"^(.*)\.pools::(\d+x\d+)::(.+)$")
 _KEEP = 3
 
 
@@ -228,6 +238,72 @@ def _load(path: str, rec: dict, leaf: Leaf) -> torch.Tensor:
     return _cast(_load_rec(path, rec), leaf.value)
 
 
+def _migrate_pre_pool(path: str, recs: dict, kept: list) -> Optional[list]:
+    """A pre-pool checkpoint into the pooled template (reference :191).
+    The old layout keeps each leaf's block stacks at
+    ``<prefix>.leaves::<j>::.stats::<suffix>``; the template's
+    ``<prefix>.pools::<KEY>::<suffix>`` concatenates its member leaves'
+    stacks in leaf order, core/pool.py's pack order.  Leaf j belongs to
+    the one group whose stacks match its suffixes and per-block shapes.
+    None when the checkpoint is not of the old layout."""
+    targets = [(i, _POOL_LEAF.match(leaf.name))
+               for i, leaf in enumerate(kept)]
+    targets = [(i, m) for i, m in targets if m]
+    old: dict = {}      # prefix -> leaf j -> {suffix: record}
+    for name, rec in recs.items():
+        m = _PRE_POOL_STATS.match(name)
+        if m:
+            old.setdefault(m.group(1), {}).setdefault(
+                int(m.group(2)), {})[m.group(3)] = rec
+    if not targets or not old:
+        return None
+    want: dict = {}     # prefix -> KEY -> {suffix: (template index, shape)}
+    for i, m in targets:
+        want.setdefault(m.group(1), {}).setdefault(m.group(2), {})[
+            m.group(3)] = (i, tuple(kept[i].value.shape))
+    out: dict = {}
+    consumed: set = set()
+    for prefix, groups in want.items():
+        members = old.get(prefix, {})
+        assign: dict = {key: [] for key in groups}
+        for j in sorted(members):
+            matches = [key for key, sfxs in groups.items()
+                       if set(sfxs) == set(members[j]) and all(
+                           tuple(members[j][sfx]["shape"])[1:] == shp[1:]
+                           for sfx, (_, shp) in sfxs.items())]
+            if len(matches) != 1:
+                raise ValueError(
+                    f"pre-pool migration: leaf {prefix}.leaves::{j} matches "
+                    f"{len(matches)} shape groups: cannot regroup")
+            assign[matches[0]].append(j)
+        for key, ids in assign.items():
+            for sfx, (i, shp) in groups[key].items():
+                parts = [members[j][sfx] for j in ids]
+                if not parts:
+                    raise ValueError(f"pre-pool migration: no leaf fills "
+                                     f"{kept[i].name!r}")
+                _check_role(kept[i], parts[0])
+                consumed.update(r["name"] for r in parts)
+                arr = torch.cat([_load_rec(path, r) for r in parts])
+                if tuple(arr.shape) != shp:
+                    raise ValueError(
+                        f"pre-pool migration: pool {kept[i].name} expects "
+                        f"{shp}, regrouped stacks give {tuple(arr.shape)}")
+                out[i] = _cast(arr, kept[i].value)
+    loaded = []
+    for i, leaf in enumerate(kept):
+        if i in out:
+            loaded.append(out[i])
+            continue
+        if leaf.name not in recs:
+            raise ValueError(f"pre-pool migration: template leaf "
+                             f"{leaf.name!r} missing from checkpoint")
+        loaded.append(_load(path, recs[leaf.name], leaf))
+        consumed.add(leaf.name)
+    _check_consumed("pre-pool", recs, consumed)
+    return loaded
+
+
 def _migrate_quantized(path: str, recs: dict, kept: list) -> Optional[list]:
     """Stacks across second-moment storages (reference :286): a template
     int8 pair ``<base>::.values`` / ``<base>::.scale`` from a checkpointed
@@ -355,7 +431,9 @@ def restore(directory: str, template, *, step: Optional[int] = None
     recs = {r["name"]: r for r in records}
     loaded = None
     if [leaf.name for leaf in kept] != [r["name"] for r in records]:
-        loaded = _migrate_quantized(path, recs, kept)
+        loaded = _migrate_pre_pool(path, recs, kept)
+        if loaded is None:
+            loaded = _migrate_quantized(path, recs, kept)
         if loaded is None:
             loaded = _migrate_fixed_rank(path, recs, kept)
         if loaded is None and len(kept) != len(records):

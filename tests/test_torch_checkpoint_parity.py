@@ -7,6 +7,10 @@ state at init (names, dtypes, shapes, roles, ``blocked`` and
 storage, async (fp32 and int8), with a ``rho_greedy`` budget, Shampoo and
 Adam.
 A leaf with no counterpart raises.
+(a'') A reference checkpoint from before pooling (its engine state in the
+per-leaf layout, built as tests/test_pool.py builds it), converted, restores
+in the port to the reference's leaves bit for bit, at fp32 and int8
+storage; into another optimizer family it raises in both packages.
 (a') The migration shims: the reference saves a Sketchy state (random
 statistics) at one storage or with fixed ranks; ``repro.train.checkpoint.
 restore`` and the port's ``restore`` of the renamed checkpoint load it into
@@ -26,6 +30,7 @@ int8 ``rtol=1e-4`` plus 1e-5 of the largest magnitude (int8 on the fused
 path, the reference's "on"), bf16 ``rtol=2^-8`` plus 1e-3 of it, Shampoo
 ``rtol=1e-4`` plus 1e-4 of it.
 """
+import collections
 import functools
 import json
 import os
@@ -38,6 +43,7 @@ import torch
 from torch_parity import assert_close_scaled, torch_one_thread  # noqa: F401
 
 from repro.configs import registry as jregistry
+from repro.core import api as japi, pool as jpool
 from repro.core import factory as jfactory
 from repro.core.sketchy import RankBudget as JRankBudget
 from repro.models import model as jmodel
@@ -252,3 +258,75 @@ def test_migration_shims_match_the_reference(tmp_path, shim):
     got, _, _ = tckpt.restore(str(tmp_path / "port"),
                               (tparams, tdst.init(tree.flatten(tparams))))
     _same_leaves(want, got)
+
+
+def _synthesize_pre_pool_state(state, params, block_size):
+    """Re-slice a pooled reference engine state into the per-leaf layout it
+    had before pooling (tagged), as an old checkpoint stored it (a copy of
+    tests/test_pool.py's helper)."""
+    OldState = collections.namedtuple("OldState", ["count", "leaves"])
+    OldLeaf = collections.namedtuple("OldLeaf", ["stats", "graft"])
+    index = jpool.build_index(
+        tuple(tuple(p.shape) for p in jax.tree.leaves(params)), block_size)
+    leaves = []
+    for i, plan in enumerate(index.leaves):
+        leaf = state.leaves[i]
+        if plan.group is None:
+            leaves.append(OldLeaf(stats=leaf.stats, graft=None))
+            continue
+        key = index.groups[plan.group].key
+        sliced = jax.tree.map(
+            lambda t: japi.Tagged(
+                t.value[plan.offset:plan.offset + plan.info.num_blocks],
+                t.meta),
+            state.pools[key], is_leaf=lambda x: isinstance(x, japi.Tagged))
+        leaves.append(OldLeaf(stats=sliced, graft=leaf.graft))
+    return OldState(count=state.count, leaves=tuple(leaves))
+
+
+def _pre_pool_checkpoint(tmp_path, opt: dict):
+    """The reference's ``(params, opt_state)`` of ``opt`` (random
+    statistics) with its engine state in the pre-pool layout, saved by the
+    reference and converted for the port; returns the reference's pooled
+    state and both packages' parameters."""
+    jtx, _ = _txs(opt)
+    jparams, tparams = _params()
+    rng = np.random.default_rng(2)
+    js = jax.tree.map(lambda x: _noise(rng, x), jtx.init(jparams))
+    old = _synthesize_pre_pool_state(js.inner["precond"], jparams,
+                                     OPT["block_size"])
+    jold = js._replace(inner=dict(js.inner, precond=old))
+    jckpt.save(str(tmp_path / "ref"), 5, (jparams, jold))
+    convert.convert_checkpoint(str(tmp_path / "ref"), str(tmp_path / "port"),
+                               to="port")
+    return js, jparams, tparams
+
+
+@pytest.mark.parametrize("storage", ["fp32", "int8"])
+def test_pre_pool_checkpoint_restores_as_the_reference(tmp_path, storage):
+    """A reference checkpoint from before pooling restores in the port to
+    the reference's leaves, bit for bit (reference train/checkpoint.py
+    :191, tests/test_pool.py:309)."""
+    opt = dict(name="sketchy", second_moment_dtype=storage)
+    js, jparams, tparams = _pre_pool_checkpoint(tmp_path, opt)
+    jtx, ttx = _txs(opt)
+    want, step, _ = jckpt.restore(str(tmp_path / "ref"),
+                                  (jparams, jtx.init(jparams)))
+    got, tstep, _ = tckpt.restore(str(tmp_path / "port"),
+                                  (tparams, ttx.init(tree.flatten(tparams))))
+    assert step == tstep == 5
+    _same_leaves(want, got)
+    _same_leaves((jparams, js), got)
+
+
+def test_pre_pool_checkpoint_of_another_family_raises(tmp_path):
+    """A pre-pool Sketchy checkpoint restored into Shampoo fails loudly in
+    both packages (tests/test_pool.py:330)."""
+    _, jparams, tparams = _pre_pool_checkpoint(tmp_path,
+                                               dict(name="sketchy"))
+    jtx, ttx = _txs(dict(name="shampoo"))
+    with pytest.raises(ValueError):
+        jckpt.restore(str(tmp_path / "ref"), (jparams, jtx.init(jparams)))
+    with pytest.raises(ValueError):
+        tckpt.restore(str(tmp_path / "port"),
+                      (tparams, ttx.init(tree.flatten(tparams))))
