@@ -57,6 +57,17 @@ no result line:
    mean of V) and at the head dims of LIMIT_HEAD_DIMS, GQA and MHA, in f32
    and bf16; each against its plain version at the card tests'
    tolerances (tests/test_torch_cuda.py).
+   Past the old capacity limits: kernel 8 at every P and N of
+   LIMIT_SSD_P x LIMIT_SSD_N, kernel 7 past hd 256 (LIMIT_WIDE_HEAD_DIMS),
+   each in f32, bf16 and fp16, kernel 7 in fp16 at LIMIT_HEAD_DIMS,
+   kernels 2 and 2' at LIMIT_APPLY_ELLS, kernel 4 at LIMIT_TALL_ELLS and
+   kernel 1 in fp16, each one launch within its tolerance (fp16 attention
+   also within MODEL_RTOL in norm).
+2n. new instantiations (``phase_new_instantiations``): each timed once at
+   a realistic shape beside its plain version, its library call and its
+   bound (kernel 7 fp16 at S 4096 hd 128 and the wide kernel at hd 512;
+   kernel 8 fp16 at mamba2-370m's S 4096 and at P 128, N 256; kernels 2
+   and 4 at ell 4,096; kernel 1 fp16); their rows join the JSON line.
 2t. tune (kernels/autotune.py): kernels 2, 2' and 6 at the main path's
    shapes (``tune_specs``), every candidate (the apply's column tiles, the
    write-back's block counts) against the plain version on the same
@@ -256,6 +267,11 @@ no result line:
    (tokens, embeddings, or tokens of 4 codebooks): logits, a
    teacher-forced decode and one Sketchy step (rank 8, block 32, a refresh
    at the step).
+8d. card against CPU of the reduced paper-lm-100m, zamba2-7b,
+   mamba2-370m and deepseek-moe-16b under SETTINGS (float16, the "dots"
+   remat policy, bf16 attention logits; remat on): the loss, the logits
+   and every gradient within SETTINGS_RTOL, finite, and kernels 7 and 8
+   launched in fp16 three times a layer (two forwards and the recompute).
 9a. train full width (TRAIN_FULL): ``repro_torch.launch.train --arch
    qwen2-vl-72b`` (1 of its 80 layers; the vision frontend a stub, the
    pipeline's embeddings in), ``musicgen-large`` (12 of 48 layers, 4
@@ -288,6 +304,15 @@ no result line:
    path on the same weights: the whole forward's difference printed (the
    seeded model is chaotic), each layer held from the CPU's input to it
    (MAMBA_LAYER_RTOL of its update's norm).
+9d. the reference's model settings at full width
+   (``phase_train_settings``): paper-lm-100m through ``launch.train`` at
+   MAIN_PATH_ARGV under SETTINGS and under SETTINGS_FULL_REMAT, each with
+   the launch counts read around it and the wrappers' calls counted by
+   dtype (16 f32 Grams, 96 f32 applies, 288 fp16 attentions), losses
+   finite and falling, fp16 parameters, the fp32 runs' second-moment bytes
+   (98,292,176: the statistics are f32 whatever the model's dtype), the
+   two peaks printed; then mamba2-370m whole at float16 as phase 9a trains
+   it (kernel 8 288 fp16 launches, 242,050,072 B).
 10. dry run (launch/dryrun.py): ``python -m repro_torch.launch.dryrun
    --arch paper-lm-100m --shape train_4k`` on a fake group of 256 ranks (the
    production 16 x 16 mesh, the probes), its plan printed; then the plan
@@ -516,6 +541,37 @@ LIMIT_DK = (16, 8)
 LIMIT_ROWS = 70_000
 LIMIT_CAUSAL = [(64, 192), (128, 4096), (192, 64)]
 LIMIT_HEAD_DIMS = [8, 40, 72, 100, 144, 200, 240]
+# phase 2l past the kernels' old capacity limits (every shape and dtype the
+# reference takes): kernel 8 at every P of LIMIT_SSD_P with every N of
+# LIMIT_SSD_N over three chunks, kernel 7 at LIMIT_WIDE_HEAD_DIMS (the wide
+# kernel), each in HALF_DTYPES, kernel 7 in fp16 at LIMIT_HEAD_DIMS, kernels
+# 2 and 2' at LIMIT_APPLY_ELLS (chunks of U's columns), kernel 4 at
+# LIMIT_TALL_ELLS (227 KB of shared memory, then chunks) and kernel 1 in
+# fp16
+LIMIT_SSD_P = [8, 48, 128, 192]
+LIMIT_SSD_N = [1, 96, 256, 384]
+LIMIT_WIDE_HEAD_DIMS = [264, 320, 512]
+LIMIT_APPLY_ELLS = [1985, 4000]
+LIMIT_TALL_ELLS = [1025, 4096, 8192]
+HALF_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# the reference's model settings the port runs since this slice (phases 8d
+# and 9d): float16 weights and activations, the "dots" remat policy and
+# bf16 attention logits; 9d also runs them at full remat to compare the
+# peak memory
+SETTINGS = dict(dtype="float16", remat_policy="dots",
+                attn_logits_dtype="bfloat16")
+SETTINGS_FULL_REMAT = dict(SETTINGS, remat_policy="full")
+SETTINGS_ARCHS = ["paper-lm-100m", "zamba2-7b", "mamba2-370m",
+                  "deepseek-moe-16b"]
+# phase 8d, the reduced families under SETTINGS on the card against the CPU
+# (card: kernels 7 and 8 in fp16, f32 statistics in kernel 7; CPU: the
+# plain versions, the scan in f32, the attention's logits rounded to bf16):
+# the loss, the logits in norm and each gradient leaf in norm; measured on
+# an H100 (NVIDIA H100 80GB HBM3, 700.00 W): the loss within 1.7e-4
+# (relative), the
+# logits 2.3e-3-1.8e-2, the worst leaf 8.3e-3-6.4e-2 (zamba2-7b), so each
+# limit is 1.5-6x the largest
+SETTINGS_RTOL = dict(loss=1e-3, logits=3e-2, grads=0.1)
 # phase 9b, the same families' model at full width, driven directly (the
 # serving engine takes token-input archs only): (arch, layers kept; None
 # keeps all); qwen2-vl-72b cut as phase 7d cuts the qwens
@@ -850,7 +906,8 @@ SSD_SWEEP = [(1, 32, 4, 16, 16, 8), (2, 64, 8, 16, 32, 16),
              (1, 48, 6, 32, 64, 16), (2, 70, 5, 32, 48, 32)]
 # the reference's tolerances (tests/test_kernels.py:210 and :230) against
 # the plain version on the f32 upcast inputs
-FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 0.05}
+FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 0.05,
+              torch.float16: 0.05}
 
 
 def _ssd_atol(dtype, S: int) -> float:
@@ -863,7 +920,8 @@ def _ssd_atol(dtype, S: int) -> float:
 # a kernel that dropped the later key tiles.  bf16 rounds p before P V and
 # the output once (unit roundoff 2^-8 each: ~3e-3 expected); f32 only sums
 # in another order.
-MODEL_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+MODEL_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2,
+              torch.float16: 1e-2}
 
 
 def _agree(label: str, got, want, atol: float) -> float:
@@ -1477,6 +1535,8 @@ def per_step(cfg) -> dict:
 
 _zero_counts = kernel_registry.zero_launch_counts
 _counts = kernel_registry.launch_counts
+# kernels 1, 2, 7 and 8's launches by operand dtype, counted in the wrappers
+_counts_by_dtype = kernel_registry.launch_counts_by_dtype
 
 
 def phase_main_path(dev, argv: list, expected: dict,
@@ -3513,14 +3573,14 @@ def phase_new_arch_reference(dev, arch: str) -> None:
 
 
 @contextlib.contextmanager
-def _cut_depth(layers: int):
-    """``registry.get_config`` returning configs cut to ``layers`` layers,
-    their widths kept: how phase 9a cuts the depth of what
-    ``launch.train`` builds, which has no depth flag (nor has the
-    reference's)."""
+def _config_with(**fields):
+    """``registry.get_config`` returning configs with ``fields`` replaced,
+    their widths kept: how phases 9a and 9d cut the depth (``num_layers``)
+    and set the model settings of what ``launch.train`` builds, which has
+    no flag for either (nor has the reference's)."""
     get = registry.get_config
     with mock.patch.object(registry, "get_config", lambda name: dataclasses
-                           .replace(get(name), num_layers=layers)):
+                           .replace(get(name), **fields)):
         yield
 
 
@@ -3542,7 +3602,7 @@ def _expandable_segments():
 
 
 def phase_train_full(dev, arch: str, layers: int, groups: int,
-                     second_moment_bytes: int) -> dict:
+                     second_moment_bytes: int, settings=None) -> dict:
     """Phase 9a: ``arch`` trained at full width with ``layers`` of its
     layers through ``repro_torch.launch.train`` (TRAIN_FULL_ARGV: Sketchy
     at the launcher's defaults, 3 steps, the peak lr of TRAIN_FULL_LR),
@@ -3560,11 +3620,15 @@ def phase_train_full(dev, arch: str, layers: int, groups: int,
     before any update), and the second-moment bytes are the reference's.
     Prints the step times, ``eigh``'s, the peak memory allocated and
     reserved, the losses, the updates' sizes and the bytes; returns the
-    launch counts with the peaks."""
-    label = f"train full width ({arch}, {layers} of its layers)"
+    launch counts with the peaks.  ``settings`` (phase 9d) replaces more
+    of the config's fields than its depth."""
+    settings = settings or {}
+    label = f"train full width ({arch}, {layers} of its layers" + "".join(
+        f", {k} {v}" for k, v in settings.items()) + ")"
     args = train_lib.parse_args(TRAIN_FULL_ARGV + [
         "--arch", arch, "--lr", TRAIN_FULL_LR[arch]])
-    cfg = dataclasses.replace(registry.get_config(arch), num_layers=layers)
+    cfg = dataclasses.replace(registry.get_config(arch), num_layers=layers,
+                              **settings)
     eigh, eighs = fd_lib._eigh, []
 
     def timed_eigh(C):
@@ -3578,8 +3642,8 @@ def phase_train_full(dev, arch: str, layers: int, groups: int,
     with _expandable_segments():
         torch.cuda.reset_peak_memory_stats(dev)
         _zero_counts()
-        with _cut_depth(layers), mock.patch.object(fd_lib, "_eigh",
-                                                   timed_eigh):
+        with _config_with(num_layers=layers, **settings), \
+                mock.patch.object(fd_lib, "_eigh", timed_eigh):
             run, log = train_lib.train(args)
         launches = _counts()
         peak = torch.cuda.max_memory_allocated(dev)
@@ -3608,7 +3672,8 @@ def phase_train_full(dev, arch: str, layers: int, groups: int,
                     **{k: v * steps for k, v in per_step(cfg).items()})
     losses = [r["loss"] for r in log]
     log_v = math.log(cfg.vocab_size)
-    print(f"{label}: {n_params} bf16 parameters, lr {args.lr}; step times "
+    print(f"{label}: {n_params} {cfg.dtype} parameters, lr {args.lr}; step "
+          f"times "
           f"(s) {[r['time_s'] for r in log]} (refresh at step 0); eigh "
           f"{[f'{n} matrices in {t:.3f} s' for n, t in eighs]}; losses "
           f"{losses} (log V {log_v:.4f}); batch 0 after the run "
@@ -3737,6 +3802,314 @@ def phase_mamba_full(dev) -> dict:
     return dict(out, layer_rel=worst, head_rel=head, forward_rel=whole)
 
 
+def phase_new_instantiations(dev) -> dict:
+    """Phase 2n: each instantiation this slice added, timed once at a
+    realistic shape beside its plain version, its library call and its
+    bound, after a check against the plain version: kernel 7 in fp16 at S
+    4096, hd 128 (sdpa), and at hd 512 in bf16 (the wide kernel; sdpa);
+    kernel 8 in fp16 at mamba2-370m's S 4096 and at P 128, N 256 in bf16
+    (slices and chunks; no library call); kernels 2 and 4 at ell 4,096
+    (chunks; 227 KB of shared memory) beside ``b G + U (c o U^T G)`` as
+    bmm + baddbmm and matmuls; kernel 1 in fp16 at the main path's largest
+    Gram (bmm, whose fp16 output rounds).  Bounds: the bytes read once and
+    written once, or the operations at the rate of the inputs' type (bf16
+    and fp16 on the tensor cores; the applies at the 3xTF32 rate; the fp16
+    Gram at one tf32 product), whichever is larger.  Returns the JSON rows
+    by name (their launches set from phase 9d)."""
+    gen = torch.Generator(device=dev).manual_seed(30)
+    rows = {}
+
+    def row(name, source, replaces, got, want, atol, fn, plain, lib,
+            t_bytes, t_ops, rtol=None):
+        err = (got.float() - want.float()).abs()
+        if rtol is None:
+            diff = float(err.max())
+            if diff > atol:
+                fail(f"{name}: kernel disagrees with its plain version (max "
+                     f"abs diff {diff:.3e}, tolerance {atol})")
+        else:
+            share = float((err / (atol + rtol * want.float().abs())).max())
+            diff = float(err.max())
+            if share > 1:
+                fail(f"{name}: kernel disagrees with its plain version (max "
+                     f"abs diff {diff:.3e})")
+        reps = 5
+        ms, lib_ms = _in_turns(fn, lib, reps) if lib else (
+            cuda_ms(fn, reps), None)
+        plain_ms = cuda_ms(plain, 2)
+        bound = max(t_bytes, t_ops)
+        print(f"new instantiation {name}: {ms:.4f} ms ({bound / ms:.1%} of "
+              f"its bound {bound:.4f} ms: bytes {t_bytes:.4f}, operations "
+              f"{t_ops:.4f}), plain {plain_ms:.4f} ms, library "
+              + (f"{lib_ms:.4f} ms" if lib else "none")
+              + f"; max abs diff {diff:.3e}")
+        rows[name] = dict(name=name, route="cuda", source=source,
+                          replaces=replaces, launches=0, max_abs_err=diff,
+                          ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                          bound_by="bytes" if t_bytes > t_ops
+                          else "operations", library_ms=lib_ms)
+
+    # kernel 7: fp16 at S 4096, hd 128; the wide kernel at hd 512
+    for name, (B, H, S, hd), dt in (
+            ("flash_attention_f16", (1, 32, 4096, 128), torch.float16),
+            ("flash_attention_hd512", (1, 8, 4096, 512), torch.bfloat16)):
+        q, k, v = (torch.randn(B, S, H, hd, generator=gen, device=dev)
+                   .to(dt).transpose(1, 2) for _ in "qkv")
+        got = flash_kernel.flash_attention(q, k, v, causal=True)
+        want = flash_ref.attention_ref(q.float(), k.float(), v.float(),
+                                       causal=True)
+        _agree(name, got, want, FLASH_ATOL[dt])
+        pairs = S * (S + 1) // 2
+        t_bytes, t_ops = bound_ms(2 * 4 * B * H * S * hd,
+                                  4 * B * H * pairs * hd, BF16_FLOPS_PER_S)
+        row(name, "src/repro_torch/csrc/flash.cu",
+            "src/repro/kernels/flash/kernel.py:80", got, want,
+            FLASH_ATOL[dt],
+            lambda: flash_kernel.flash_attention(q, k, v, causal=True),
+            lambda: flash_ref.attention_ref(q, k, v, causal=True),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True), t_bytes, t_ops)
+        del q, k, v, got, want
+    # kernel 8: fp16 at mamba2-370m's S 4096; bf16 at P 128, N 256
+    for name, (B, S, H, P, N, chunk), dt in (
+            ("ssd_scan_f16", (1, 4096, 32, 64, 128, 256), torch.float16),
+            ("ssd_scan_p128_n256", (1, 4096, 16, 128, 256, 256),
+             torch.bfloat16)):
+        s = min(1.0, (64 / N) ** 0.5)
+        u = (torch.randn(B, S, H, P, generator=gen, device=dev) * 0.5).to(dt)
+        dlog = -torch.randn(B, S, H, generator=gen, device=dev).abs() * 0.1
+        Bm, Cm = ((torch.randn(B, S, N, generator=gen, device=dev) * 0.3 * s)
+                  .to(dt) for _ in "BC")
+        got = ssd_kernel.ssd_scan(u, dlog, Bm, Cm, chunk)
+        want = ssd_ref.ssd_ref(u.float(), dlog, Bm.float(), Cm.float(),
+                               chunk)
+        _agree(name, got, want, _ssd_atol(dt, S))
+        t_bytes, t_ops = bound_ms(
+            2 * 2 * B * S * H * P + 4 * B * S * H + 2 * 2 * B * S * N,
+            2 * _ssd_macs(B, S, H, P, N, chunk), BF16_FLOPS_PER_S)
+        row(name, "src/repro_torch/csrc/ssd.cu",
+            "src/repro/kernels/ssd/kernel.py:68", got, want, _ssd_atol(dt, S),
+            lambda: ssd_kernel.ssd_scan(u, dlog, Bm, Cm, chunk),
+            lambda: ssd_ref.ssd_ref(u, dlog, Bm, Cm, chunk), None, t_bytes,
+            t_ops)
+        del u, dlog, Bm, Cm, got, want
+    # kernel 2 at ell 4,096 (16 chunks of 256 columns), an f32 U; N 4 and
+    # n 2,048 give each chunk's launch 128 blocks (32 column tiles of 64)
+    N, d, ell, n = 4, 4096, 4096, 2048
+    u = torch.randn(N, d, ell, generator=gen, device=dev) / ell ** 0.5
+    g = torch.randn(N, d, n, generator=gen, device=dev)
+    c = torch.rand(N, ell, generator=gen, device=dev)
+    b = torch.rand(N, generator=gen, device=dev)
+    got = lowrank_kernel.batched_lowrank_apply(u, c, b, g)
+    want = lowrank_ref.batched_lowrank_apply_ref(u, c, b, g)
+    flops = _apply_flops(N, d, ell, n)
+    t_bytes, t_f32 = bound_ms(4 * (N * d * ell + N * ell + N + 2 * N * d * n),
+                              flops)
+    row("batched_lowrank_apply_ell4096", "src/repro_torch/csrc/lowrank.cu",
+        "src/repro/kernels/lowrank/kernel.py:97", got, want,
+        1e-4 * math.sqrt(d),
+        lambda: lowrank_kernel.batched_lowrank_apply(u, c, b, g),
+        lambda: lowrank_ref.batched_lowrank_apply_ref(u, c, b, g),
+        lambda: torch.baddbmm(g * b[:, None, None], u,
+                              c[:, :, None] * torch.bmm(u.mT, g)),
+        t_bytes, _tf32x3(t_f32), rtol=1e-5)
+    del u, g, c, b, got, want
+    # kernel 4 at ell 4,096 (its expand pass on 128 KB of shared memory)
+    d, ell, n = 1 << 18, 4096, 1
+    u = torch.randn(d, ell, generator=gen, device=dev) / ell ** 0.5
+    g = torch.randn(d, n, generator=gen, device=dev)
+    c = torch.rand(ell, generator=gen, device=dev)
+    b = torch.rand((), generator=gen, device=dev)
+    got = lowrank_kernel.lowrank_apply(u, c, b, g)
+    want = lowrank_ref.lowrank_apply_ref(u.double(), c.double(), b.double(),
+                                         g.double())
+    t_bytes, t_ops = bound_ms(4 * (d * ell + ell + 1 + 2 * d * n),
+                              4 * d * ell * n)
+    row("lowrank_apply_ell4096", "src/repro_torch/csrc/lowrank_tall.cu",
+        "src/repro/kernels/lowrank/kernel.py:51", got, want,
+        1e-4 * math.sqrt(d),
+        lambda: lowrank_kernel.lowrank_apply(u, c, b, g),
+        lambda: lowrank_ref.lowrank_apply_ref(u, c, b, g),
+        lambda: b * g + u @ (c[:, None] * (u.T @ g)), t_bytes, t_ops,
+        rtol=1e-5)
+    del u, g, c, b, got, want
+    # kernel 1 in fp16 at the main path's largest Gram
+    N, d, k = 104, 768, 1088
+    a = torch.randn(N, d, k, generator=gen, device=dev).half()
+    got = gram_kernel.batched_gram(a)
+    want = gram_ref.batched_gram_ref(a)
+    # the operations at fp16's tensor-core peak (bf16's): the least time
+    # for fp16 operands, though the kernel multiplies them in tf32
+    t_bytes, t_ops = bound_ms(2 * N * d * k + 4 * N * k * k,
+                              N * d * k * (k + 1), BF16_FLOPS_PER_S)
+    row("batched_gram_f16", "src/repro_torch/csrc/gram.cu",
+        "src/repro/kernels/gram/kernel.py:99", got, want,
+        1e-3 * math.sqrt(d), lambda: gram_kernel.batched_gram(a),
+        lambda: gram_ref.batched_gram_ref(a), lambda: torch.bmm(a.mT, a),
+        t_bytes, t_ops, rtol=1e-4)
+    del a, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_settings_reference(dev, arch: str) -> dict:
+    """Phase 8d: the reduced ``arch`` under SETTINGS (float16, the "dots"
+    remat policy, bf16 attention logits) on the card and on the CPU from
+    the same seeded weights and batch: the loss, the logits and every
+    gradient (SETTINGS_RTOL: relative, in norm), all finite, in float16;
+    kernels 7 and 8 launched on the card in fp16 for its attention and
+    mamba layers (in the forward, in loss_fn's forward and again in the
+    backward's recompute: the "dots" policy keeps only the projections;
+    the reduced configs turn remat off, so it is turned on here)."""
+    cfg = dataclasses.replace(registry.get_reduced(arch), remat=True,
+                              **SETTINGS)
+    params = model_lib.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 24)))
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        p = tree.unflatten(params, [x.to(device).requires_grad_(True)
+                                    for x in tree.flatten(params)])
+        b = {k: v.to(device) for k, v in batch.items()}
+        _zero_counts()
+        with torch.no_grad():
+            logits = model_lib.forward(cfg, p, b).float().cpu()
+        loss = model_lib.loss_fn(cfg, p, b)
+        grads = torch.autograd.grad(loss, tree.flatten(p))
+        out[device.type] = (loss.item(), logits, [g.float().cpu()
+                                                  for g in grads])
+        if device.type == "cuda":
+            launches = _counts_by_dtype()
+    (loss_c, logits_c, grads_c), (loss_0, logits_0, grads_0) = \
+        out["cuda"], out["cpu"]
+    rel = lambda a, b: float((a - b).norm() / b.norm())
+    worst = max(rel(a, b) for a, b in zip(grads_c, grads_0)
+                if float(b.norm()) > 0)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads_c) \
+        and math.isfinite(loss_c)
+    attn = len(cfg.shared_attn_layers()) if cfg.family == "hybrid" else (
+        cfg.num_layers if cfg.family in model_lib.ATTENTION_STACKS else 0)
+    mamba = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    expected = {}
+    if attn:
+        expected["flash_attention float16"] = 3 * attn
+    if mamba:
+        expected["ssd_scan float16"] = 3 * mamba
+    label = f"settings reference ({arch}, {SETTINGS})"
+    print(f"{label}: loss card {loss_c:.6f} / CPU {loss_0:.6f}, logits "
+          f"{rel(logits_c, logits_0):.3e}, worst gradient leaf "
+          f"{worst:.3e} (relative, in norm; tolerances {SETTINGS_RTOL}); "
+          f"finite {finite}; card launches by dtype {launches}")
+    if not finite:
+        fail(f"{label}: a non-finite loss or gradient")
+    if abs(loss_c - loss_0) > SETTINGS_RTOL["loss"] * abs(loss_0) \
+            or rel(logits_c, logits_0) > SETTINGS_RTOL["logits"] \
+            or worst > SETTINGS_RTOL["grads"]:
+        fail(f"{label}: card and CPU disagree")
+    if launches != expected:
+        fail(f"{label}: launches {launches}, expected {expected}")
+    return launches
+
+
+def _step_peak(dev, cfg, params: dict, batch: dict) -> int:
+    """The bytes one forward and backward of ``loss_fn`` allocates at its
+    peak over what was allocated before it: what the remat policy keeps
+    for the backward, with the gradients and the logits, and without the
+    optimizer's refresh, which sets a training run's peak."""
+    leaves = [p.detach().requires_grad_(True) for p in tree.flatten(params)]
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    loss = model_lib.loss_fn(cfg, tree.unflatten(params, leaves), batch)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    del loss, grads
+    return peak
+
+
+def phase_train_settings(dev) -> dict:
+    """Phase 9d: full-width paper-lm-100m (12 x 768, vocab 32,768) through
+    ``repro_torch.launch.train`` at MAIN_PATH_ARGV (Sketchy at the
+    launcher's defaults, fp32 storage, 12 steps) under SETTINGS, then under
+    SETTINGS_FULL_REMAT, each with every count set to 0 just before and
+    read just after (kernels 1, 2, 7 and 8 also by dtype); then
+    mamba2-370m whole at float16, 3 steps, as phase 9a trains it
+    (``phase_train_full``).  Fails unless every loss is finite and falls,
+    the parameters are fp16, the launches are the main path's (16 Grams and
+    96 applies on f32 operands, 288 fp16 flash attentions: the "dots"
+    policy keeps the projections, not kernel 7's output, so the backward
+    recomputes it as under full remat), and the second-moment bytes are
+    the bf16 runs' (f32 statistics whatever the model's dtype).  The peak
+    of a whole run lies in the refresh, so each run also measures one
+    forward and backward of batch 0 under the trained weights
+    (``_step_peak``): what each policy keeps.  Prints the losses, the
+    refresh and plain step times, both peaks and the launches by dtype;
+    returns them."""
+    none = dict.fromkeys(COUNTERS, 0)
+    expected = dict(none, batched_gram=16, batched_lowrank_apply=96,
+                    flash_attention=12 * TRAIN_FLASH_PER_STEP)
+    out = {}
+    for name, settings in (("dots", SETTINGS),
+                           ("full", SETTINGS_FULL_REMAT)):
+        label = f"paper-lm-100m full width, {settings}"
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_counts()
+        with _config_with(**settings):
+            run, log = train_lib.train(train_lib.parse_args(MAIN_PATH_ARGV))
+        launches = _counts()
+        by_dtype = _counts_by_dtype()
+        peak = torch.cuda.max_memory_allocated(dev)
+        nbytes = api.second_moment_bytes(run.opt_state)
+        dtypes = {p.dtype for p in tree.flatten(run.params)}
+        step_peak = _step_peak(dev, run.cfg, run.params, run.batch(0))
+        del run
+        losses = [r["loss"] for r in log]
+        times = [r["time_s"] for r in log]
+        refresh = [t for i, t in enumerate(times) if i % 10 == 0]
+        plain = [t for i, t in enumerate(times) if i % 10]
+        print(f"{label}: losses {losses}; step times (s) refresh "
+              f"{refresh}, plain {plain} (median "
+              f"{statistics.median(plain):.4f}); peak memory allocated "
+              f"{peak} B, one forward and backward {step_peak} B over "
+              f"what was allocated; second-moment bytes {nbytes}; launches "
+              f"{launches}; by dtype {by_dtype}; parameters {dtypes}")
+        if not all(math.isfinite(x) for x in losses) \
+                or not losses[-1] < losses[0]:
+            fail(f"{label}: losses {losses}")
+        if dtypes != {torch.float16}:
+            fail(f"{label}: parameters {dtypes}")
+        if launches != expected:
+            fail(f"{label}: launches {launches}, expected {expected}")
+        if nbytes != FP32_SECOND_MOMENT_BYTES:
+            fail(f"{label}: second-moment bytes {nbytes}, expected "
+                 f"{FP32_SECOND_MOMENT_BYTES}")
+        out[name] = dict(launches=launches, by_dtype=by_dtype, peak=peak,
+                         step_peak=step_peak, losses=losses,
+                         refresh_s=refresh, plain_s=plain)
+    print(f"paper-lm-100m full width under {SETTINGS}: peak memory "
+          f"allocated with dots {out['dots']['peak']} B, with full remat "
+          f"{out['full']['peak']} B "
+          f"({out['dots']['peak'] / out['full']['peak']:.3f}x); one forward "
+          f"and backward with dots {out['dots']['step_peak']} B, with full "
+          f"remat {out['full']['step_peak']} B "
+          f"({out['dots']['step_peak'] / out['full']['step_peak']:.3f}x)")
+    arch, layers, groups, nbytes = TRAIN_FULL[-1]
+    mamba = phase_train_full(dev, arch, layers, groups, nbytes,
+                             dict(dtype="float16"))
+    # the phase's launches by dtype: its training run's (the counts above)
+    # and the trained loss's forward after it
+    by_dtype = _counts_by_dtype()
+    print(f"{arch} full width at float16: the phase's launches by dtype "
+          f"{by_dtype}")
+    if set(by_dtype) - {"ssd_scan float16", "batched_gram float32",
+                        "batched_lowrank_apply float32"}:
+        fail(f"{arch} at float16: launches by dtype {by_dtype}")
+    out[arch] = dict(mamba, by_dtype=by_dtype)
+    return out
+
+
 def phase_kernel_limits(dev) -> None:
     """Phase 2l: the kernels past the limits of a 2-D grid and of causal
     attention with S == Sk and the instantiated head dims, each call one
@@ -3748,7 +4121,12 @@ def phase_kernel_limits(dev) -> None:
     MHA, causal at S 130 and not causal at Sk 70, f32 and bf16; a bf16
     call of kernel 7 also within MODEL_RTOL[bf16] of the plain version in
     norm, as the card tests hold it (its outputs are ~0.03 at Sk 4096, so
-    the absolute tolerance alone cannot see a wrong offset or scale)."""
+    the absolute tolerance alone cannot see a wrong offset or scale).
+    Past the old capacity limits: kernel 7 at LIMIT_WIDE_HEAD_DIMS in
+    HALF_DTYPES and in fp16 at LIMIT_HEAD_DIMS (the same four calls a head
+    dim, fp16 also within MODEL_RTOL in norm), kernel 8 at every P and N of
+    LIMIT_SSD_P and LIMIT_SSD_N in HALF_DTYPES, kernels 2 and 2' at
+    LIMIT_APPLY_ELLS, kernel 4 at LIMIT_TALL_ELLS and kernel 1 in fp16."""
     gen = torch.Generator(device=dev).manual_seed(21)
     N, (d, k) = LIMIT_BLOCKS, LIMIT_DK
     errs, rels = {}, {}
@@ -3832,7 +4210,7 @@ def phase_kernel_limits(dev) -> None:
                                                          causal=causal)
             return holder["out"]
         once(name, "flash_attention", run, want, tol)
-        if dtype == torch.bfloat16:
+        if dtype != torch.float32:
             rel = float((holder["out"].float() - want).norm() / want.norm())
             rels[name] = rel
             if not rel <= MODEL_RTOL[dtype]:
@@ -3853,11 +4231,79 @@ def phase_kernel_limits(dev) -> None:
             for Hkv in (2, 8):
                 attention(2, 8, Hkv, 130, 130, hd, dtype, True)
                 attention(2, 8, Hkv, 130, 70, hd, dtype, False)
+    # past the capacity limits: kernel 7 past hd 256 and in fp16
+    for dtype in HALF_DTYPES:
+        for hd in LIMIT_WIDE_HEAD_DIMS:
+            for Hkv in (2, 8):
+                attention(2, 8, Hkv, 130, 130, hd, dtype, True)
+                attention(2, 8, Hkv, 130, 70, hd, dtype, False)
+    for hd in LIMIT_HEAD_DIMS:
+        for Hkv in (2, 8):
+            attention(2, 8, Hkv, 130, 130, hd, torch.float16, True)
+            attention(2, 8, Hkv, 130, 70, hd, torch.float16, False)
+    # kernel 8 at any P and N (B and C scaled down past N 64, so that C B^T
+    # keeps the sweep's size), three chunks of 16
+    B, S, H, chunk = 2, 40, 3, 16
+    for dtype in HALF_DTYPES:
+        for P in LIMIT_SSD_P:
+            for N in LIMIT_SSD_N:
+                s = min(1.0, (64 / N) ** 0.5)
+                x = (torch.randn(B, S, H, P, generator=gen, device=dev)
+                     * 0.5).to(dtype)
+                dlog = -torch.randn(B, S, H, generator=gen,
+                                    device=dev).abs() * 0.1
+                Bm, Cm = ((torch.randn(B, S, N, generator=gen, device=dev)
+                           * 0.3 * s).to(dtype) for _ in "BC")
+                once(f"ssd_scan P={P} N={N} {dtype}", "ssd_scan",
+                     lambda: ssd_kernel.ssd_scan(x, dlog, Bm, Cm, chunk),
+                     ssd_ref.ssd_ref(x.float(), dlog, Bm.float(), Cm.float(),
+                                     chunk), (_ssd_atol(dtype, S), 0.0))
+    # kernels 2 and 2' past ell 1,984 (U's columns in chunks), U scaled as
+    # orthonormal columns would keep Y's size
+    N, d, n = 3, 96, 40
+    f32 = (1e-4 * math.sqrt(d), 1e-5)
+    for ell in LIMIT_APPLY_ELLS:
+        u = torch.randn(N, d, ell, generator=gen, device=dev) / ell ** 0.5
+        g = torch.randn(N, d, n, generator=gen, device=dev)
+        c = torch.rand(N, ell, generator=gen, device=dev)
+        b = torch.rand(N, generator=gen, device=dev)
+        once(f"batched_lowrank_apply ell={ell}", "batched_lowrank_apply",
+             lambda: lowrank_kernel.batched_lowrank_apply(u, c, b, g),
+             lowrank_ref.batched_lowrank_apply_ref(u, c, b, g), f32)
+        vq = torch.randint(-127, 128, (N, d, ell), generator=gen, device=dev,
+                           dtype=torch.int8)
+        scale = torch.rand(N, 1, 1, generator=gen, device=dev) / 127 \
+            / ell ** 0.5
+        once(f"batched_lowrank_apply int8 ell={ell}",
+             "batched_lowrank_apply_int8",
+             lambda: kernel_registry.batched_lowrank_apply_quantized(
+                 vq, scale, c, b, g),
+             lowrank_ref.batched_lowrank_apply_quantized_ref(
+                 vq, scale, c, b, g), f32)
+    # kernel 4 past ell 1,024: 227 KB of shared memory, chunks past 7,264
+    d, n = 3000, 9
+    for ell in LIMIT_TALL_ELLS:
+        u = torch.randn(d, ell, generator=gen, device=dev) / ell ** 0.5
+        g = torch.randn(d, n, generator=gen, device=dev)
+        c = torch.rand(ell, generator=gen, device=dev)
+        b = torch.rand((), generator=gen, device=dev)
+        once(f"lowrank_apply ell={ell}", "lowrank_apply",
+             lambda: lowrank_kernel.lowrank_apply(u, c, b, g),
+             lowrank_ref.lowrank_apply_ref(u, c, b, g),
+             (1e-4 * math.sqrt(d), 1e-5))
+    # kernel 1 in fp16 at the main path's largest Gram (one tf32 product:
+    # fp16 is exact in tf32), at the card tests' 16-bit tolerance
+    a = torch.randn(104, 768, 1088, generator=gen, device=dev).half()
+    once("batched_gram fp16", "batched_gram",
+         lambda: gram_kernel.batched_gram(a), gram_ref.batched_gram_ref(a),
+         (1e-3 * math.sqrt(768), 1e-4))
+    del a, u, g, c, b, vq, scale, x, dlog, Bm, Cm
     worst = max(errs.values())
     print(f"limits: {len(errs)} calls, one launch each, every one within "
           f"its tolerance; max abs diff {worst:.3e}; by call: "
           + ", ".join(f"{n} {e:.2e}" for n, e in errs.items()))
-    print(f"limits: kernel 7 in bf16, relative error in norm: worst "
+    print(f"limits: kernel 7 in bf16 and fp16, relative error in norm: "
+          f"worst "
           f"{max(rels.values()):.3e}; by call: "
           + ", ".join(f"{n} {e:.2e}" for n, e in rels.items()))
 
@@ -3990,6 +4436,8 @@ def main() -> int:
     kernels = phase_kernels(dev)
     phase_kernel_limits(dev)
     done("2l")
+    new_rows = phase_new_instantiations(dev)
+    done("2n")
     phase_shampoo_grams(dev, torch.Generator(device=dev).manual_seed(3))
     phase_merge_grams(dev, torch.Generator(device=dev).manual_seed(4))
     phase_merge_grams(dev, torch.Generator(device=dev).manual_seed(5),
@@ -4092,6 +4540,9 @@ def main() -> int:
     for arch in NEW_ARCHS:
         phase_new_arch_reference(dev, arch)
     done("8c")
+    for arch in SETTINGS_ARCHS:
+        phase_settings_reference(dev, arch)
+    done("8d")
     trained = {arch: phase_train_full(dev, arch, *rest)
                for arch, *rest in TRAIN_FULL}
     done("9a")
@@ -4100,6 +4551,8 @@ def main() -> int:
     done("9b")
     mamba = phase_mamba_full(dev)
     done("9c")
+    settings = phase_train_settings(dev)
+    done("9d")
     phase_dryrun(dev)
     done("10")
 
@@ -4112,6 +4565,14 @@ def main() -> int:
     kernels["ssd_scan"]["launches"] = zamba["ssd_scan"]
     kernels["flash_attention_hd256"] = dict(
         hd256, launches=dense["gemma-2b"]["flash_attention"])
+    # this slice's instantiations: fp16 kernel 7 on phase 9d's paper-lm-100m
+    # run and fp16 kernel 8 on its mamba2-370m run; kernel 1's fp16 form
+    # and the shapes past the old limits are on no main path (Sketchy's
+    # Grams are f32 whatever the model's dtype)
+    new_rows["flash_attention_f16"]["launches"] = \
+        settings["dots"]["by_dtype"].get("flash_attention float16", 0)
+    new_rows["ssd_scan_f16"]["launches"] = settings["mamba2-370m"]["ssd_scan"]
+    kernels.update(new_rows)
     print(f"phase 4d: kernel 1 (batched_gram) {mesh['merge_grams']} "
           f"launches in the shrink merge; kernel 7 (flash_attention) "
           f"{mesh['flash_attention']} a rank in the expert-parallel run")

@@ -24,8 +24,8 @@ def params_from_numpy(cfg: ModelConfig, params: dict) -> dict:
     """The port's parameter dict (on the CPU) for a nested dict of numpy
     arrays in the reference's layout.  Keys and shapes must match
     ``param_shapes(cfg)``; values are cast exactly to ``cfg.dtype`` (bf16
-    arrives as ml_dtypes bfloat16 and goes through f32, which holds every
-    bf16 value)."""
+    arrives as ml_dtypes bfloat16 and float16 as numpy's, both through f32,
+    which holds every value of either)."""
     like = model_lib.param_shapes(cfg)
     if tree.structure(params) != tree.structure(like):
         raise ValueError("parameter tree keys differ from param_shapes(cfg)")

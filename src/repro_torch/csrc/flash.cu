@@ -1,8 +1,9 @@
 // Flash attention forward, causal or not, with grouped KV heads:
 //   O[b, i, h] = sum_j softmax_j(Q[b, i, h] . K[b, j, h / G] / sqrt(hd))
 //                V[b, j, h / G]
-// Q (B, S, Hq, hd), K and V (B, Sk, Hkv, hd), G = Hq / Hkv, f32 or bf16, read
-// through their strides (the last dim contiguous) -> O in Q's dtype.  The
+// Q (B, S, Hq, hd), K and V (B, Sk, Hkv, hd), G = Hq / Hkv, f32, bf16 or
+// fp16, read through their strides (the last dim contiguous) -> O in Q's
+// dtype.  The
 // logits, the running max and normalizer and the output accumulator are
 // f32; the probabilities are rounded to V's dtype before the product with V,
 // and the normalizer sums them unrounded.  The causal mask is aligned at the
@@ -14,8 +15,9 @@
 // over the Sk keys, as attention_ref gives it.  Any hd from 1 to 256
 // runs on the instantiated width HD above it (16, 32, .., 128, then 256):
 // Q, K and V are zero past hd in shared memory, the scale is 1 / sqrt(hd)
-// of the true hd, and only hd columns of O are stored.  KV head h / G is
-// read in place, never repeated in memory.
+// of the true hd, and only hd columns of O are stored.  A wider head (the
+// reference takes any) runs on flash_wide_kernel below, in every dtype.
+// KV head h / G is read in place, never repeated in memory.
 //
 // Replaces repro/kernels/flash/kernel.py::flash_attention_pallas (the
 // online softmax of _flash_kernel).  On the port's main paths it is every
@@ -24,15 +26,19 @@
 // hd 64), zamba2-7b's shared attention block in the serving feedback
 // gradient (B 4, H 32, S 16, hd 112), deepseek-moe-16b's (B 4, H 16, S 16,
 // hd 128) and gemma-2b's (hd 256, one KV head).  The wrapper
-// (kernels/flash/kernel.py ``plan``) picks the kernel by dtype; each dtype
-// has exactly one, instantiated for every head dim it takes.
+// (kernels/flash/kernel.py ``plan``) picks the kernel by dtype and head
+// dim: up to hd 256 each dtype has exactly one, instantiated for every
+// width it takes (bf16 and fp16 share one template), above it the wide
+// kernel.
 //
-// bf16: flash_wgmma_kernel.  Bound: the operations, 4 hd multiply-adds per
-// kept (query, key) pair at the tensor cores' 989 TFLOP/s in bf16, the type
-// the reference multiplies in (dot_general on bf16 with an f32 result);
-// at S 4096 the bytes of Q, K, V and O take a tenth of that time.  Design:
-// both products on Hopper's warpgroup tensor-core instruction (wgmma,
-// hopper.cuh) with f32 accumulators in registers.  A CTA of one or two
+// bf16 and fp16: flash_wgmma_kernel (fp16 with the .f16 form of the same
+// instructions; the notes below say bf16 for both).  Bound: the
+// operations, 4 hd multiply-adds per kept (query, key) pair at the tensor
+// cores' 989 TFLOP/s in bf16 and fp16, the type the reference multiplies
+// in (dot_general on bf16 with an f32 result); at S 4096 the bytes of Q,
+// K, V and O take a tenth of that time.  Design: both products on
+// Hopper's warpgroup tensor-core instruction (wgmma, hopper.cuh) with f32
+// accumulators in registers.  A CTA of one or two
 // warpgroups owns 64 or 128 query rows (64 when S <= 64, so a short
 // sequence wastes no warpgroup) of one (batch, head); each warpgroup owns 64
 // rows.  Per 64-key tile: S = Q K^T as hd / 16 m64n64k16 steps with Q (A)
@@ -68,6 +74,17 @@
 // the 16 threads of a row by warp shuffles) and the output columns
 // tx + 16 j of those rows.  Key tiles wholly above the diagonal are skipped.
 // No main path runs attention in f32.  At hd 256 its tiles take 214 KB.
+//
+// hd > 256, any dtype: flash_wide_kernel.  No config of the repo has such a
+// head; the kernel is the SIMT kernel's arithmetic in a form whose shared
+// memory does not grow with hd, right first and not fast (its bound is the
+// f32 FFMA rate; PERF.md has its time).  A block owns 64 query rows and 128
+// columns of O (ceil(hd / 128) blocks a query tile, each recomputing Q K^T
+// over the whole hd): per 64-key tile it sums Q K^T over 64-deep chunks of
+// Q and K staged in shared memory, then runs the online softmax and adds P
+// V for its 128 columns of V.  82 KB of shared memory whatever hd.  P is
+// rounded to V's dtype before its product, the normalizer sums it
+// unrounded, as in the other kernels.
 #include "tile.cuh"
 #include "hopper.cuh"
 
@@ -258,9 +275,10 @@ int launch_simt(const float* q, const float* k, const float* v, float* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- bf16: wgmma tensor cores ---------------------------------------------
+// ---- bf16 and fp16: wgmma tensor cores ------------------------------------
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 constexpr int kKeys = 64;  // keys per K/V tile
 
 // Q (64 WG rows) + two stages of K and V (64 keys each), bf16, and 256
@@ -270,24 +288,29 @@ constexpr size_t wgmma_smem_bytes(int hd, int wg) {
   return 2 * (64 * wg * hd + 4 * kKeys * hd) + 256;
 }
 
-__device__ __forceinline__ void st_shared_b16(uint32_t addr, bf16 x) {
-  asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(addr),
-               "h"(__bfloat16_as_ushort(x))
-               : "memory");
+__device__ __forceinline__ unsigned short bits16(bf16 x) {
+  return __bfloat16_as_ushort(x);
+}
+__device__ __forceinline__ unsigned short bits16(f16 x) {
+  return __half_as_ushort(x);
+}
+
+__device__ __forceinline__ void st_shared_b16(uint32_t addr,
+                                              unsigned short x) {
+  asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(addr), "h"(x) : "memory");
 }
 
 // The element-by-element staging of ``load_tile``, out of line: the
 // model's tensors never take it, and inlined its loop took registers of
 // the kernel's main loop.
-template <int ROWS, int HD, int NT>
+template <typename T, int ROWS, int HD, int NT>
 __device__ __noinline__ void load_tile_by_element(
-    uint32_t dst, const bf16* __restrict__ src, long long stride, int row0,
+    uint32_t dst, const T* __restrict__ src, long long stride, int row0,
     int limit, int hd) {
   for (int e = threadIdx.x; e < ROWS * HD; e += NT) {
     const int r = e / HD, c = e % HD, row = row0 + r;
     st_shared_b16(dst + repro::swz32_offset(ROWS, r, c),
-                  row < limit && c < hd ? src[row * stride + c]
-                                        : __float2bfloat16(0.f));
+                  row < limit && c < hd ? bits16(src[row * stride + c]) : 0);
   }
 }
 
@@ -297,13 +320,13 @@ __device__ __noinline__ void load_tile_by_element(
 // strides 16-byte aligned): one 16-byte cp.async per 8 columns,
 // consecutive threads on consecutive chunks of a row.  Otherwise one
 // element a thread through registers (rows that are no 16-byte multiple).
-template <int ROWS, int HD, int NT>
+template <typename T, int ROWS, int HD, int NT>
 __device__ __forceinline__ void load_tile(uint32_t dst,
-                                          const bf16* __restrict__ src,
+                                          const T* __restrict__ src,
                                           long long stride, int row0,
                                           int limit, int hd, bool chunked) {
   if (!chunked) {
-    load_tile_by_element<ROWS, HD, NT>(dst, src, stride, row0, limit, hd);
+    load_tile_by_element<T, ROWS, HD, NT>(dst, src, stride, row0, limit, hd);
     return;
   }
   constexpr int CH = HD / 8;
@@ -315,11 +338,12 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
   }
 }
 
-// Grid (B * Hq, ceil(S / (64 WG))); 128 WG threads; head dim 16 NJ.
-template <int NJ, int WG>
+// Grid (B * Hq, ceil(S / (64 WG))); 128 WG threads; head dim 16 NJ; T
+// bf16 or fp16.
+template <typename T, int NJ, int WG>
 __global__ void __launch_bounds__(128 * WG)
-    flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, bf16* __restrict__ o,
+    flash_wgmma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ o,
                        Strides sq, Strides sk, Strides sv, Strides so, int S,
                        int Sk, int hd, int Hq, int group, int causal,
                        int chunked, float scale) {
@@ -337,9 +361,9 @@ __global__ void __launch_bounds__(128 * WG)
   const int q0 = qt * BM, w0 = q0 + 64 * wg;  // this warpgroup's first row
   const int row_a = w0 + 16 * warp + lane / 4, row_b = row_a + 8;
   const int col_t = 2 * (lane % 4);
-  const bf16* qb = q + b * sq.b + h * sq.h;
-  const bf16* kb = k + b * sk.b + kvh * sk.h;
-  const bf16* vb = v + b * sv.b + kvh * sv.h;
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* kb = k + b * sk.b + kvh * sk.h;
+  const T* vb = v + b * sv.b + kvh * sv.h;
   const float scale2 = scale * kLog2e;       // logits in log2 units
 
   const int off = Sk - S;
@@ -347,9 +371,9 @@ __global__ void __launch_bounds__(128 * WG)
   int tiles = (Sk + kKeys - 1) / kKeys;
   if (causal) tiles = causal_tiles(tiles, q0, BM, off);
 
-  load_tile<BM, HD, NT>(sq_, qb, sq.s, q0, S, hd, cq);
-  load_tile<kKeys, HD, NT>(sk_, kb, sk.s, 0, Sk, hd, ck);
-  load_tile<kKeys, HD, NT>(sv_, vb, sv.s, 0, Sk, hd, cv);
+  load_tile<T, BM, HD, NT>(sq_, qb, sq.s, q0, S, hd, cq);
+  load_tile<T, kKeys, HD, NT>(sk_, kb, sk.s, 0, Sk, hd, ck);
+  load_tile<T, kKeys, HD, NT>(sv_, vb, sv.s, 0, Sk, hd, cv);
   repro::cp_async_commit();
 
   // O in NH column halves of HW (one when hd <= 128)
@@ -365,10 +389,10 @@ __global__ void __launch_bounds__(128 * WG)
   for (int t = 0; t < tiles; ++t) {
     const int st = t & 1, k0 = t * kKeys;
     if (t + 1 < tiles) {  // the next tile into the other stage
-      load_tile<kKeys, HD, NT>(sk_ + (st ^ 1) * kKVBytes, kb, sk.s,
-                               k0 + kKeys, Sk, hd, ck);
-      load_tile<kKeys, HD, NT>(sv_ + (st ^ 1) * kKVBytes, vb, sv.s,
-                               k0 + kKeys, Sk, hd, cv);
+      load_tile<T, kKeys, HD, NT>(sk_ + (st ^ 1) * kKVBytes, kb, sk.s,
+                                  k0 + kKeys, Sk, hd, ck);
+      load_tile<T, kKeys, HD, NT>(sv_ + (st ^ 1) * kKVBytes, vb, sv.s,
+                                  k0 + kKeys, Sk, hd, cv);
     }
     repro::cp_async_commit();
     repro::cp_async_wait<1>();  // this tile (and Q) have landed
@@ -384,7 +408,7 @@ __global__ void __launch_bounds__(128 * WG)
       repro::wgmma_fence();
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        repro::wgmma_ss_n64(
+        repro::wgmma_ss_n64<T>(
             s, repro::smem_desc(sq_ + 64 * wg * 32 + j * BM * 32, 0, 256),
             repro::smem_desc(sk_ + st * kKVBytes + j * kKeys * 32, 0, 256));
       }
@@ -447,14 +471,14 @@ __global__ void __launch_bounds__(128 * WG)
         }
       }
 
-      // P in bf16 as wgmma's A fragments: k16 slice j is S's column
-      // blocks 2j and 2j + 1
+      // P in T as wgmma's A fragments: k16 slice j is S's column blocks
+      // 2j and 2j + 1
       uint32_t pa[4][4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
 #pragma unroll
         for (int x = 0; x < 4; ++x) {
-          pa[j][x] = repro::pack_bf16(s[8 * j + 2 * x], s[8 * j + 2 * x + 1]);
+          pa[j][x] = repro::pack2<T>(s[8 * j + 2 * x], s[8 * j + 2 * x + 1]);
         }
       }
       repro::wgmma_fence();
@@ -462,7 +486,7 @@ __global__ void __launch_bounds__(128 * WG)
       for (int j = 0; j < 4; ++j) {
 #pragma unroll
         for (int hh = 0; hh < NH; ++hh) {  // V's columns hh HW .. + HW - 1
-          repro::wgmma_rs<HW>(
+          repro::wgmma_rs<HW, T>(
               acc[hh], pa[j],
               repro::smem_desc(sv_ + st * kKVBytes + hh * HW * kKeys * 2 +
                                    j * 512,
@@ -477,7 +501,7 @@ __global__ void __launch_bounds__(128 * WG)
     __syncthreads();  // every reader of this stage is done before refill
   }
 
-  bf16* ob = o + b * so.b + h * so.h;
+  T* ob = o + b * so.b + h * so.h;
   // a row that saw no key: the sum of V over the Sk keys, over Sk
   const float inv_a = 1.f / (m_a == kNegInf ? static_cast<float>(Sk)
                              : l_a == 0.f   ? 1.f
@@ -497,44 +521,61 @@ __global__ void __launch_bounds__(128 * WG)
       if (col >= hd) continue;
       if (pairs) {
         if (row_a < S) {
-          *reinterpret_cast<__nv_bfloat162*>(ob + row_a * so.s + col) =
-              __floats2bfloat162_rn(a[0] * inv_a, a[1] * inv_a);
+          *reinterpret_cast<uint32_t*>(ob + row_a * so.s + col) =
+              repro::pack2<T>(a[0] * inv_a, a[1] * inv_a);
         }
         if (row_b < S) {
-          *reinterpret_cast<__nv_bfloat162*>(ob + row_b * so.s + col) =
-              __floats2bfloat162_rn(a[2] * inv_b, a[3] * inv_b);
+          *reinterpret_cast<uint32_t*>(ob + row_b * so.s + col) =
+              repro::pack2<T>(a[2] * inv_b, a[3] * inv_b);
         }
         continue;
       }
       const bool two = col + 1 < hd;
       if (row_a < S) {
-        ob[row_a * so.s + col] = __float2bfloat16(a[0] * inv_a);
-        if (two) ob[row_a * so.s + col + 1] = __float2bfloat16(a[1] * inv_a);
+        ob[row_a * so.s + col] = repro::from_f32<T>(a[0] * inv_a);
+        if (two) ob[row_a * so.s + col + 1] = repro::from_f32<T>(a[1] * inv_a);
       }
       if (row_b < S) {
-        ob[row_b * so.s + col] = __float2bfloat16(a[2] * inv_b);
-        if (two) ob[row_b * so.s + col + 1] = __float2bfloat16(a[3] * inv_b);
+        ob[row_b * so.s + col] = repro::from_f32<T>(a[2] * inv_b);
+        if (two) ob[row_b * so.s + col + 1] = repro::from_f32<T>(a[3] * inv_b);
       }
     }
   }
 }
 
-template <int NJ, int WG>
-int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* o,
-                 Strides sq, Strides sk, Strides sv, Strides so, int B,
-                 int Hq, int Hkv, int S, int Sk, int hd, int causal,
-                 int chunked, cudaStream_t stream) {
+template <typename T, int NJ, int WG>
+int launch_wgmma(const T* q, const T* k, const T* v, T* o, Strides sq,
+                 Strides sk, Strides sv, Strides so, int B, int Hq, int Hkv,
+                 int S, int Sk, int hd, int causal, int chunked,
+                 cudaStream_t stream) {
   const size_t smem = wgmma_smem_bytes(16 * NJ, WG);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma_kernel<NJ, WG>,
+      flash_wgmma_kernel<T, NJ, WG>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * Hq, (S + 64 * WG - 1) / (64 * WG));
   const float scale = 1.f / sqrtf(static_cast<float>(hd));
-  flash_wgmma_kernel<NJ, WG><<<grid, 128 * WG, smem, stream>>>(
+  flash_wgmma_kernel<T, NJ, WG><<<grid, 128 * WG, smem, stream>>>(
       q, k, v, o, sq, sk, sv, so, S, Sk, hd, Hq, Hq / Hkv, causal, chunked,
       scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int NJ>
+int launch_16bit(const void* q, const void* k, const void* v, void* o,
+                 Strides sq, Strides sk, Strides sv, Strides so, int B,
+                 int Hq, int Hkv, int S, int Sk, int hd, int causal,
+                 int block_m, int chunked, cudaStream_t stream) {
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  T* ot = static_cast<T*>(o);
+  if (block_m == 64) {
+    return launch_wgmma<T, NJ, 1>(qt, kt, vt, ot, sq, sk, sv, so, B, Hq, Hkv,
+                                  S, Sk, hd, causal, chunked, stream);
+  }
+  return launch_wgmma<T, NJ, 2>(qt, kt, vt, ot, sq, sk, sv, so, B, Hq, Hkv, S,
+                                Sk, hd, causal, chunked, stream);
 }
 
 template <int NJ>
@@ -548,27 +589,196 @@ int launch_hd(const void* q, const void* k, const void* v, void* o,
         static_cast<const float*>(v), static_cast<float*>(o), sq, sk, sv, so,
         B, Hq, Hkv, S, Sk, hd, causal, stream);
   }
-  const bf16* qt = static_cast<const bf16*>(q);
-  const bf16* kt = static_cast<const bf16*>(k);
-  const bf16* vt = static_cast<const bf16*>(v);
-  bf16* ot = static_cast<bf16*>(o);
-  if (block_m == 64) {
-    return launch_wgmma<NJ, 1>(qt, kt, vt, ot, sq, sk, sv, so, B, Hq, Hkv, S,
-                               Sk, hd, causal, chunked, stream);
+  if (dtype == 1) {
+    return launch_16bit<bf16, NJ>(q, k, v, o, sq, sk, sv, so, B, Hq, Hkv, S,
+                                  Sk, hd, causal, block_m, chunked, stream);
   }
-  return launch_wgmma<NJ, 2>(qt, kt, vt, ot, sq, sk, sv, so, B, Hq, Hkv, S,
-                             Sk, hd, causal, chunked, stream);
+  return launch_16bit<f16, NJ>(q, k, v, o, sq, sk, sv, so, B, Hq, Hkv, S, Sk,
+                               hd, causal, block_m, chunked, stream);
+}
+
+// ---- hd > 256, any dtype: SIMT, Q K^T over depth chunks -------------------
+
+constexpr int kDepth = 64;     // columns of Q and K a chunk of Q K^T stages
+constexpr int kOutCols = 128;  // columns of O a block owns
+
+constexpr size_t wide_smem_bytes() {
+  // Q and K depth chunks and P [64][65], V's column slice [64][128]
+  return sizeof(float) * (3 * kTile * (kDepth + 1) + kTile * kOutCols);
+}
+
+// Grid (ceil(S / 64) * slices, Hq, B), slices = ceil(hd / 128); block x
+// owns query tile x / slices and columns 128 (x % slices) .. + 127 of O.
+// The thread map of flash_simt_kernel: thread (ty, tx) of the 16 x 16 grid
+// holds query rows 4 ty .. 4 ty + 3, their logits at key columns tx + 16 j
+// and their outputs at columns tx + 16 jj of the block's slice.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o, Strides sq,
+                      Strides sk, Strides sv, Strides so, int S, int Sk,
+                      int hd, int group, int causal, float scale,
+                      int slices) {
+  constexpr int DS = kDepth + 1, PS = kTile + 1, NJ = kOutCols / 16;
+  extern __shared__ float smem[];
+  float* sq_ = smem;               // [64][DS]
+  float* sk_ = sq_ + kTile * DS;   // [64][DS]
+  float* sp_ = sk_ + kTile * DS;   // [64][PS]
+  float* sv_ = sp_ + kTile * PS;   // [64][kOutCols]
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int q0 = static_cast<int>(blockIdx.x / slices) * kTile;
+  const int c0 = static_cast<int>(blockIdx.x % slices) * kOutCols;
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / group;
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* kb = k + b * sk.b + kvh * sk.h;
+  const T* vb = v + b * sv.b + kvh * sv.h;
+
+  float m[4], l[4], acc[4][NJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = 0.f;
+  }
+  const int off = Sk - S;
+  int tiles = (Sk + kTile - 1) / kTile;
+  if (causal) tiles = causal_tiles(tiles, q0, kTile, off);
+
+  for (int t = 0; t < tiles; ++t) {
+    const int k0 = t * kTile;
+    float s[4][4] = {};
+    for (int d0 = 0; d0 < hd; d0 += kDepth) {
+      __syncthreads();  // the last chunk's (and tile's) readers are done
+      for (int e = tid; e < kTile * kDepth; e += kThreads) {
+        const int r = e / kDepth, c = e % kDepth, dc = d0 + c;
+        sq_[r * DS + c] = q0 + r < S && dc < hd
+                              ? repro::to_f32(qb[(q0 + r) * sq.s + dc])
+                              : 0.f;
+        sk_[r * DS + c] = k0 + r < Sk && dc < hd
+                              ? repro::to_f32(kb[(k0 + r) * sk.s + dc])
+                              : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int dd = 0; dd < kDepth; ++dd) {
+        float qv[4], kv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qv[i] = sq_[(4 * ty + i) * DS + dd];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) kv[j] = sk_[(tx + 16 * j) * DS + dd];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        }
+      }
+    }
+
+    // online softmax over this tile, row by row; P rounded to T for its
+    // product with V, the normalizer summed unrounded
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + 4 * ty + i;
+      float mc = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx + 16 * j;
+        float x = s[i][j] * scale;
+        if (col >= Sk || (causal && col > row + off)) x = kNegInf;
+        s[i][j] = x;
+        mc = fmaxf(mc, x);
+      }
+      const float mn = fmaxf(m[i], row_max(mc));
+      const float alpha = expf(m[i] - mn);
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - mn);
+        ps += p;
+        sp_[(4 * ty + i) * PS + tx + 16 * j] =
+            repro::to_f32(repro::from_f32<T>(p));
+      }
+      l[i] = alpha * l[i] + row_sum(ps);
+      m[i] = mn;
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) acc[i][jj] *= alpha;
+    }
+    for (int e = tid; e < kTile * kOutCols; e += kThreads) {
+      const int r = e / kOutCols, c = e % kOutCols, col = c0 + c;
+      sv_[r * kOutCols + c] = k0 + r < Sk && col < hd
+                                  ? repro::to_f32(vb[(k0 + r) * sv.s + col])
+                                  : 0.f;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int c = 0; c < kTile; ++c) {
+      float pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = sp_[(4 * ty + i) * PS + c];
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) {
+        const float vv = sv_[c * kOutCols + tx + 16 * jj];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][jj] = fmaf(pv[i], vv, acc[i][jj]);
+      }
+    }
+  }
+
+  T* ob = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    if (row >= S) continue;
+    const float inv = 1.f / (m[i] == kNegInf ? static_cast<float>(Sk)
+                             : l[i] == 0.f    ? 1.f
+                                              : l[i]);
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      const int col = c0 + tx + 16 * jj;
+      if (col < hd) {
+        ob[row * so.s + col] = repro::from_f32<T>(acc[i][jj] * inv);
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch_wide(const void* q, const void* k, const void* v, void* o,
+                Strides sq, Strides sk, Strides sv, Strides so, int B, int Hq,
+                int Hkv, int S, int Sk, int hd, int causal,
+                cudaStream_t stream) {
+  const size_t smem = wide_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int slices = (hd + kOutCols - 1) / kOutCols;
+  const long long x = static_cast<long long>((S + kTile - 1) / kTile) * slices;
+  if (x > 0x7fffffffLL || Hq > 65535 || B > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned>(x), Hq, B);
+  const float scale = 1.f / sqrtf(static_cast<float>(hd));
+  flash_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, sv, so, S, Sk, hd,
+      Hq / Hkv, causal, scale, slices);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q (B, S, Hq, hd), k and v (B, Sk, Hkv, hd), o like q (contiguous), each
-// given by its batch, sequence and head strides in elements.  hd from 1 to
-// 256, run on the width above it (16, 32, .., 128, 256); dtype 0 = f32
-// (SIMT kernel), 1 = bf16 (wgmma kernel, block_m query rows per CTA: 64 or
-// 128; chunked: bit 0, 1, 2 for q, k, v copied in 16-byte chunks, which
-// needs hd a multiple of 8 and base and strides 16-byte aligned).  Returns
-// the CUDA error of the launch.
+// given by its batch, sequence and head strides in elements.  dtype 0 =
+// f32, 1 = bf16, 2 = fp16.  hd from 1 to 256 runs on the width above it
+// (16, 32, .., 128, 256): f32 on the SIMT kernel, bf16 and fp16 on the
+// wgmma kernel (block_m query rows per CTA: 64 or 128; chunked: bit 0, 1,
+// 2 for q, k, v copied in 16-byte chunks, which needs hd a multiple of 8
+// and base and strides 16-byte aligned).  A wider hd runs on the wide
+// kernel in every dtype (block_m and chunked unread).  Returns the CUDA
+// error of the launch.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, long long qsb,
     long long qss, long long qsh, long long ksb, long long kss,
@@ -576,14 +786,25 @@ extern "C" int repro_flash_attention(
     long long osb, long long oss, long long osh, int B, int Hq, int Hkv,
     int S, int Sk, int hd, int causal, int dtype, int block_m, int chunked,
     void* stream) {
-  if (hd < 1 || hd > 256 || Hkv <= 0 || Hq % Hkv != 0 ||
-      (dtype != 0 && dtype != 1) ||
-      (dtype == 1 && block_m != 64 && block_m != 128)) {
+  if (hd < 1 || Hkv <= 0 || Hq % Hkv != 0 || dtype < 0 || dtype > 2 ||
+      (dtype != 0 && hd <= 256 && block_m != 64 && block_m != 128)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Strides sq{qsb, qss, qsh}, sk{ksb, kss, ksh}, sv{vsb, vss, vsh},
       so{osb, oss, osh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd > 256) {
+    if (dtype == 0) {
+      return launch_wide<float>(q, k, v, o, sq, sk, sv, so, B, Hq, Hkv, S, Sk,
+                                hd, causal, s);
+    }
+    if (dtype == 1) {
+      return launch_wide<bf16>(q, k, v, o, sq, sk, sv, so, B, Hq, Hkv, S, Sk,
+                               hd, causal, s);
+    }
+    return launch_wide<f16>(q, k, v, o, sq, sk, sv, so, B, Hq, Hkv, S, Sk, hd,
+                            causal, s);
+  }
 #define REPRO_FLASH_HD(NJ)                                                  \
   case NJ:                                                                  \
     return launch_hd<NJ>(q, k, v, o, sq, sk, sv, so, B, Hq, Hkv, S, Sk, hd, \

@@ -1,6 +1,6 @@
 // Batched Grams C[n] = M[n]^T M[n] of a packed pool stack, for two kinds of
 // M (N, d, k):
-//   repro_batched_gram:        M = A, f32 or bf16;
+//   repro_batched_gram:        M = A, f32, bf16 or fp16;
 //   repro_batched_gram_mixed:  M = [V, A], V (N, d, ell) int8, A (N, d, r) f32,
 //                              k = ell + r, and the result weighted
 //                              C = C0 o w w^T, w = [colw, 1].
@@ -27,13 +27,13 @@
 // mean 3; variants.py gram), so each 32-row depth chunk starts a fresh
 // accumulator, which is then added into a separate register sum with
 // FADD: the error then does not grow with d (0.24x on the same data).
-// bf16 and int8 values are exact in tf32 (lo = 0): the bf16 Gram runs one
-// product and stages no lo panels; the mixed Gram's V columns store
-// lo = 0, which changes no bit.  The bound is the operations at the tf32
-// rate over three products (494.7 / 3 TFLOP/s) for f32 columns; the mixed
-// Gram's exact int8 columns need two against an f32 column and none of the
-// tf32 rate against each other (int8 tensor cores; chip_smoke.py counts
-// each block of columns).
+// bf16, fp16 and int8 values are exact in tf32 (lo = 0): the bf16 and
+// fp16 Grams run one product and stage no lo panels; the mixed Gram's V
+// columns store lo = 0, which changes no bit.  The bound is the operations
+// at the tf32 rate over three products (494.7 / 3 TFLOP/s) for f32
+// columns; the mixed Gram's exact int8 columns need two against an f32
+// column and none of the tf32 rate against each other (int8 tensor cores;
+// chip_smoke.py counts each block of columns).
 //
 // Design: one block of two warpgroups owns one 128 x 128 upper-triangular
 // output tile (n, ti, tj), the diagonal included, and loops over all of d
@@ -48,17 +48,18 @@
 // k contiguous columns), so the tile must be transposed on its way in; a
 // TMA copy cannot transpose or split, so the staging goes through
 // registers.  Each thread owns a 4 x 4 unit of each operand per chunk: 4
-// rows of M and 4 columns (16 bytes a row of f32, 8 of bf16, 4 of int8); a
-// warp covers 4 rows of 128 columns, each one contiguous 512 / 256 /
-// 128-byte run.  (8 rows of 16 columns a warp, which needs no permutation
-// below, touches twice the cache lines an instruction and ran 17-26 %
-// slower; variants.py gram.)  It converts, splits and stores the unit
-// transposed: one 16-byte store per column, holding 4 consecutive depths,
-// into the 128-byte-swizzled K-major panels.  Lanes permute the order of their 4 columns (XOR with bits 1-2
-// of the lane) so that the 8 lanes of each quarter-warp hit 8 distinct
-// 16-byte bank groups.  Two stages: the chunk's asynchronous products run
-// on one while the threads split and store the next chunk (loaded from
-// device memory one iteration earlier) into the other.  Columns past k and
+// rows of M and 4 columns (16 bytes a row of f32, 8 of bf16 or fp16, 4 of
+// int8); a warp covers 4 rows of 128 columns, each one contiguous 512 /
+// 256 / 128-byte run.  (8 rows of 16 columns a warp, which needs no
+// permutation below, touches twice the cache lines an instruction and ran
+// 17-26 % slower; variants.py gram.)  It converts, splits and stores the
+// unit transposed: one 16-byte store per column, holding 4 consecutive
+// depths, into the 128-byte-swizzled K-major panels.  Lanes permute the
+// order of their 4 columns (XOR with bits 1-2 of the lane) so that the 8
+// lanes of each quarter-warp hit 8 distinct 16-byte bank groups.  Two
+// stages: the chunk's asynchronous products run on one while the threads
+// split and store the next chunk (loaded from device memory one iteration
+// earlier) into the other.  Columns past k and
 // rows past d are zero.  The epilogue stages the tile through shared memory
 // (XOR-swizzled, no padding) so that both the direct store and the mirrored
 // store of an off-diagonal tile are coalesced.
@@ -69,6 +70,7 @@
 // no group straddles ell, V's rows may be 12 bytes); anything else reads
 // element by element.
 #include <cstdint>
+#include <type_traits>
 
 #include "hopper.cuh"
 #include "tile.cuh"
@@ -98,10 +100,12 @@ struct Unit {
 };
 
 // M = A: a row-major (N, d, k) stack.  vec: k a multiple of 4 and the base
-// aligned, so every 4-column group is one aligned vector a row.
+// aligned, so every 4-column group is one aligned vector a row.  An fp16
+// stack loads as a bf16 one (kBF16: 8 bytes a row) and unpacks as fp16.
 template <typename T>
 struct Dense {
   static constexpr bool kWeighted = false;
+  static constexpr bool kHalf = std::is_same<T, __half>::value;
   const T* a;
   int d, k, vec;
 
@@ -130,6 +134,7 @@ struct Dense {
 // and r multiples of 4 and the bases aligned.
 struct Mixed {
   static constexpr bool kWeighted = true;
+  static constexpr bool kHalf = false;
   const int8_t* v;
   const float* a;
   const float* colw;
@@ -212,13 +217,20 @@ __device__ __forceinline__ void load_unit(const Src& m, const Cursor& cur,
   }
 }
 
-// x[q][e] = element (row q, column e) of the unit as f32.
+// x[q][e] = element (row q, column e) of the unit as f32; with HALF a
+// kBF16 unit holds fp16 values.
+template <bool HALF>
 __device__ __forceinline__ void unpack(const Unit& u, int kind,
                                        float (&x)[4][4]) {
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     const uint4 w = u.row[q];
-    if (kind == kBF16) {
+    if (HALF && kind == kBF16) {
+      x[q][0] = __half2float(__ushort_as_half(w.x & 0xffffu));
+      x[q][1] = __half2float(__ushort_as_half(w.x >> 16));
+      x[q][2] = __half2float(__ushort_as_half(w.y & 0xffffu));
+      x[q][3] = __half2float(__ushort_as_half(w.y >> 16));
+    } else if (kind == kBF16) {
       x[q][0] = __uint_as_float(w.x << 16);
       x[q][1] = __uint_as_float(w.x & 0xffff0000u);
       x[q][2] = __uint_as_float(w.y << 16);
@@ -247,12 +259,12 @@ __device__ __forceinline__ void st_shared_v4(uint32_t addr,
 
 // Store a unit transposed: column e ^ rot's 4 depths as one 16-byte chunk
 // at off[e] of the hi panel and, with SPLIT, of the lo panel.
-template <bool SPLIT>
+template <bool SPLIT, bool HALF>
 __device__ __forceinline__ void store_unit(const Unit& u, int kind,
                                            uint32_t hi, uint32_t lo,
                                            const uint32_t (&off)[4], int rot) {
   float x[4][4];
-  unpack(u, kind, x);
+  unpack<HALF>(u, kind, x);
 #pragma unroll
   for (int q = 0; q < 4; ++q) {  // x[q][e] <- x[q][e ^ rot]
     float t0 = x[q][0], t1 = x[q][1], t2 = x[q][2], t3 = x[q][3];
@@ -369,9 +381,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   Unit ua, ub;
   load_unit(m, ca, ua, n, 4 * quad, i0 + col, d);
   if (!diag) load_unit(m, cb, ub, n, 4 * quad, j0 + col, d);
-  store_unit<SPLIT>(ua, ca.kind, base, base + 2 * kPanelBytes, off, rot);
+  store_unit<SPLIT, Src::kHalf>(ua, ca.kind, base, base + 2 * kPanelBytes,
+                                off, rot);
   if (!diag) {
-    store_unit<SPLIT>(ub, cb.kind, base + kPanelBytes,
+    store_unit<SPLIT, Src::kHalf>(ub, cb.kind, base + kPanelBytes,
                       base + 3 * kPanelBytes, off, rot);
   }
   load_unit(m, ca, ua, n, kDepth + 4 * quad, i0 + col, d);
@@ -396,9 +409,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     // readers finished before the last barrier), and the one after that
     // from device memory into registers
     if (ch + 1 < chunks) {
-      store_unit<SPLIT>(ua, ca.kind, nxt, nxt + 2 * kPanelBytes, off, rot);
+      store_unit<SPLIT, Src::kHalf>(ua, ca.kind, nxt, nxt + 2 * kPanelBytes,
+                                    off, rot);
       if (!diag) {
-        store_unit<SPLIT>(ub, cb.kind, nxt + kPanelBytes,
+        store_unit<SPLIT, Src::kHalf>(ub, cb.kind, nxt + kPanelBytes,
                           nxt + 3 * kPanelBytes, off, rot);
       }
       const int r0 = (ch + 2) * kDepth + 4 * quad;
@@ -490,8 +504,8 @@ bool aligned(const void* p, uintptr_t bytes) {
 
 }  // namespace
 
-// dtype: 0 = float32 (3xTF32), 1 = bfloat16 (one tf32 product: exact
-// operands).  Returns the cudaError_t of the launch.
+// dtype: 0 = float32 (3xTF32), 1 = bfloat16, 2 = float16 (one tf32
+// product: exact operands).  Returns the cudaError_t of the launch.
 extern "C" int repro_batched_gram(const void* a, void* c, int n, int d, int k,
                                   int dtype, void* stream) {
   float* out = static_cast<float*>(c);
@@ -506,6 +520,12 @@ extern "C" int repro_batched_gram(const void* a, void* c, int n, int d, int k,
     return launch<false>(
         Dense<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(a), d, k, vec},
         out, n, d, k, stream);
+  }
+  if (dtype == 2) {
+    const int vec = k % 4 == 0 && aligned(a, 8);
+    return launch<false>(
+        Dense<__half>{static_cast<const __half*>(a), d, k, vec}, out, n, d, k,
+        stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -39,7 +39,16 @@
 // a copy of G that L2 cannot hold, the step took 0.2-1.4 % longer; left
 // out, 6-8 % less; PERF.md).  ell runs in groups of 64 columns and d in
 // units, so only P's ell x bn is bounded by shared memory (bn 8 takes ell
-// up to 1984).  No split over d, no atomics: the same bits on every run.
+// up to 1984).  A wider U (the reference takes any ell) runs in chunks of
+// 256 of its columns, one launch each, in order: the first writes Y = base
+// G + U_0 P_0 as above, each later one Y += U_c P_c with P_c = c_c o U_c^T
+// G (Y read back where it was written, by the thread that wrote it).  256
+// columns keep the widest column tile, 64: every block reads all of its
+// chunk of U, so a tile of 8 would read U n / 8 times (at ell 4,096, n
+// 1,024 in chunks of 1,408 that took 24.6 ms, 9x the plain version; NVIDIA
+// H100 80GB HBM3, 700.00 W, PERF.md).  At ell <= 1984 that is one launch,
+// the kernel as it was.  No split over d, no atomics: the same bits on
+// every run.
 //
 // Products: mma.sync.m16n8k8 on tf32 operands from registers (the split
 // never doubles shared memory), f32 accumulators.  Each f32 operand is split
@@ -174,12 +183,16 @@ __device__ __forceinline__ void products(float (&acc)[4],
 // + 1 and n-tiles (w / 2) NTW .. + NTW - 1 of P's group (64 x bn); in the
 // second the 1 x NT2 tiles of row tile w % 4 and n-tiles (w / 4) NT2 .. +
 // NT2 - 1 of the unit's rows of Y (64 x bn).
+//
+// ell is the chunk's columns of U, from column 0 of u and coeffs, whose
+// rows are ldu apart (U's whole width); ``add``: Y += U P, Y = base G + U P
+// otherwise.
 template <typename TU, int NT>
 __global__ void __launch_bounds__(kThreads, 2)
     apply_kernel(const TU* __restrict__ u, const float* __restrict__ coeffs,
                  const float* __restrict__ base, const float* __restrict__ g,
                  float* __restrict__ y, int n_blocks, int d, int ell, int m,
-                 int vec_u, int vec_g) {
+                 int vec_u, int vec_g, int ldu, int add) {
   constexpr int BN = 8 * NT, GS = g_stride(BN), US = u_stride<TU>();
   constexpr int PS = p_stride(BN);
   constexpr int NTW = NT >= 4 ? NT / 4 : 1;  // first product: 2 x NTW tiles
@@ -195,7 +208,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const long long n =
       static_cast<long long>(blockIdx.z) * gridDim.y + blockIdx.y;
   if (n >= n_blocks) return;  // the last z slice's tail
-  const TU* un = u + n * d * ell;
+  const TU* un = u + n * d * ldu;
   const float* gn = g + n * d * m;
   float* yn = y + n * d * m;
   const int chunks1 = (d + kRows1 - 1) / kRows1;
@@ -222,7 +235,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         const int left = row < d ? min(kUVec, ell - col) : 0;
         const int bytes = left > 0 ? left * static_cast<int>(sizeof(TU)) : 0;
         repro::cp_async16(repro::smem_addr(st + r * US + c),
-                          bytes ? un + static_cast<long long>(row) * ell + col
+                          bytes ? un + static_cast<long long>(row) * ldu + col
                                 : un,
                           bytes);
       }
@@ -231,7 +244,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         const int r = i / kEll, c = i % kEll;
         const int row = r0 + r, col = e0 + c;
         st[r * US + c] = row < d && col < ell
-                             ? un[static_cast<long long>(row) * ell + col]
+                             ? un[static_cast<long long>(row) * ldu + col]
                              : TU(0);
       }
     }
@@ -344,8 +357,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const int e = gi * kEll + 16 * (rt0 + i) + 2 * gr;  // and e + 1
-          const float c0 = e < ell ? coeffs[n * ell + e] : 0.f;
-          const float c1 = e + 1 < ell ? coeffs[n * ell + e + 1] : 0.f;
+          const float c0 = e < ell ? coeffs[n * ldu + e] : 0.f;
+          const float c1 = e + 1 < ell ? coeffs[n * ldu + e + 1] : 0.f;
 #pragma unroll
           for (int jn = 0; jn < NTW; ++jn) {
             // columns j, j + 1 of rows e, e + 1: one 16-byte store each
@@ -405,7 +418,20 @@ __global__ void __launch_bounds__(kThreads, 2)
           for (int v = 0; v < 4; ++v) sum[jn][v] += acc[jn][v];
         }
       }
-      if (last) {  // Y = base G + sum, G from the unit's stage
+      if (last && add) {  // Y += sum
+#pragma unroll
+        for (int jn = 0; jn < NT2; ++jn) {
+          const int j = j0 + 8 * (nb + jn) + 2 * t;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = row0 + 8 * h;
+            if (row >= d || j >= m) continue;
+            float* yp = yn + static_cast<long long>(row) * m + j;
+            yp[0] += sum[jn][2 * h];
+            if (j + 1 < m) yp[1] += sum[jn][2 * h + 1];
+          }
+        }
+      } else if (last) {  // Y = base G + sum, G from the unit's stage
         const float bn_ = base[n];
         const float* sg =
             reinterpret_cast<const float*>(sk + kRows2 * US * sizeof(TU));
@@ -439,29 +465,35 @@ bool aligned16(const void* p) {
 
 template <typename TU, int NT>
 int launch_nt(const TU* u, const float* coeffs, const float* base,
-              const float* g, float* y, int n, int d, int ell, int m,
-              cudaStream_t stream) {
+              const float* g, float* y, int n, int d, int ell, int m, int ldu,
+              int add, cudaStream_t stream) {
   const size_t smem = smem_bytes(ell, 8 * NT, sizeof(TU));
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       apply_kernel<TU, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int vec_u = ell * sizeof(TU) % 16 == 0 && aligned16(u);
+  const int vec_u = ldu * sizeof(TU) % 16 == 0 && aligned16(u);
   const int vec_g = m % 4 == 0 && aligned16(g);
   const int slice = n < 65535 ? (n > 0 ? n : 1) : 65535;
   const dim3 grid((m + 8 * NT - 1) / (8 * NT), slice,
                   (n + slice - 1) / slice);
   apply_kernel<TU, NT><<<grid, kThreads, smem, stream>>>(
-      u, coeffs, base, g, y, n, d, ell, m, vec_u, vec_g);
+      u, coeffs, base, g, y, n, d, ell, m, vec_u, vec_g, ldu, add);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The columns of U a launch takes: all of them up to kMaxEll, else chunks
+// of kChunkEll (kernels/lowrank/kernel.py ``apply_chunks``).
+constexpr int kMaxEll = 1984;   // P's rows at bn 8 beside the stages
+constexpr int kChunkEll = 256;  // P's rows at bn 64
+int chunk_cols(int ell) { return ell <= kMaxEll ? ell : kChunkEll; }
+
+// One chunk of ell columns of U (row stride ldu).
 template <typename TU>
-int launch(const TU* u, const float* coeffs, const float* base, const float* g,
-           float* y, int n, int d, int ell, int m, int col_tile,
-           void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+int launch_chunk(const TU* u, const float* coeffs, const float* base,
+                 const float* g, float* y, int n, int d, int ell, int m,
+                 int ldu, int add, int col_tile, cudaStream_t s) {
   if (col_tile == 0) {
     // the widest column tile whose shared memory fits (64 up to ell 256)
     col_tile = smem_bytes(ell, 64, sizeof(TU)) <= kMaxSmem   ? 64
@@ -471,25 +503,45 @@ int launch(const TU* u, const float* coeffs, const float* base, const float* g,
   }
   switch (col_tile) {
     case 64:
-      return launch_nt<TU, 8>(u, coeffs, base, g, y, n, d, ell, m, s);
+      return launch_nt<TU, 8>(u, coeffs, base, g, y, n, d, ell, m, ldu, add,
+                              s);
     case 32:
-      return launch_nt<TU, 4>(u, coeffs, base, g, y, n, d, ell, m, s);
+      return launch_nt<TU, 4>(u, coeffs, base, g, y, n, d, ell, m, ldu, add,
+                              s);
     case 16:
-      return launch_nt<TU, 2>(u, coeffs, base, g, y, n, d, ell, m, s);
+      return launch_nt<TU, 2>(u, coeffs, base, g, y, n, d, ell, m, ldu, add,
+                              s);
     case 8:
-      return launch_nt<TU, 1>(u, coeffs, base, g, y, n, d, ell, m, s);
+      return launch_nt<TU, 1>(u, coeffs, base, g, y, n, d, ell, m, ldu, add,
+                              s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+template <typename TU>
+int launch(const TU* u, const float* coeffs, const float* base, const float* g,
+           float* y, int n, int d, int ell, int m, int col_tile,
+           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int cols = chunk_cols(ell);
+  for (int e0 = 0; e0 < ell; e0 += cols) {
+    const int w = ell - e0 < cols ? ell - e0 : cols;
+    const int err = launch_chunk(u + e0, coeffs + e0, base, g, y, n, d, w, m,
+                                 ell, e0 > 0, col_tile, s);
+    if (err != 0) return err;
+  }
+  return 0;
+}
+
 }  // namespace
 
-// u_dtype: 0 = float32, 2 = int8.  col_tile: the columns of G a block
-// takes, 8, 16, 32 or 64 (kernels/autotune.py), or 0 for the widest whose
-// shared memory fits.  Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for another col_tile, or where ell is too large
-// for P to fit shared memory at that tile).
+// u_dtype: 0 = float32, 2 = int8.  Any ell, past 1984 in chunks of 256
+// columns.  col_tile: the columns of G a block takes, 8, 16, 32 or 64
+// (kernels/autotune.py), or 0 for the widest whose shared memory fits each
+// chunk.  Returns the cudaError_t of the launches (cudaErrorInvalidValue
+// for another col_tile, or where a chunk is too wide for P to fit shared
+// memory at that tile).
 extern "C" int repro_batched_lowrank_apply(const void* u, int u_dtype,
                                            const float* coeffs,
                                            const float* base, const float* g,

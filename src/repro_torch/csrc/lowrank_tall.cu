@@ -24,6 +24,13 @@
 //           sum_e u[r][e] P[e][j], summed in order of e.
 // The batched apply (lowrank.cu) gives one block to each 64x64 tile of P,
 // which at ell = 8, n = 1 is one block on one SM for the whole of pass 1.
+//
+// Pass 2 holds ell x 8 floats of P in shared memory: above 48 KB (ell >
+// 1,536) it asks for up to the card's 227 KB (ell <= 7,264), and a wider U
+// (the reference takes any ell) runs pass 2 in chunks of at most 7,264 of
+// its columns, in order: the first adds base g, each chunk's sum is added
+// to the last one's in an f32 scratch (d, n), and the last rounds to y.
+// At ell <= 7,264 that is one launch, the kernel as it was.
 #include "split_d.cuh"
 
 namespace {
@@ -32,14 +39,20 @@ using repro::kColTile;
 using repro::kThreads;
 
 constexpr long long kMaxExpandBlocks = 1024;  // grid-stride over the rows
+constexpr int kMaxSmem = 232448;
+constexpr int kMaxEll = kMaxSmem / (4 * kColTile);  // pass 2's chunk
 
+// ell: the chunk's columns of U, from column 0 of u (rows ldu apart) and of
+// p's rows; ``first``: y = base g + U P, else yacc + U P; ``last``: into y,
+// else into yacc (f32, y's layout).
 template <typename TG>
 __global__ void __launch_bounds__(kThreads)
     expand_tall_kernel(const float* __restrict__ u, int ell,
                        const float* __restrict__ p,
                        const float* __restrict__ base,
                        const TG* __restrict__ g, TG* __restrict__ y,
-                       long long d, int n) {
+                       long long d, int n, int ldu, float* __restrict__ yacc,
+                       int first, int last) {
   extern __shared__ float sp[];  // [ell][jn]: P's column tile
   const int j0 = blockIdx.y * kColTile, jn = min(kColTile, n - j0);
   for (int e = threadIdx.x; e < ell * jn; e += kThreads) {
@@ -52,19 +65,29 @@ __global__ void __launch_bounds__(kThreads)
   const float b = *base;
   const long long stride = (long long)gridDim.x * rows;
   for (long long r = (long long)blockIdx.x * rows + ro; r < d; r += stride) {
-    const float* ur = u + r * ell;
+    const float* ur = u + r * ldu;
     float acc = 0.f;
 #pragma unroll 8
     for (int e = 0; e < ell; ++e) acc = fmaf(ur[e], sp[e * jn + j], acc);
     const long long at = r * n + j0 + j;
-    y[at] = repro::from_f32<TG>(b * repro::to_f32(g[at]) + acc);
+    if (first && last) {
+      y[at] = repro::from_f32<TG>(b * repro::to_f32(g[at]) + acc);
+      continue;
+    }
+    const float v = (first ? b * repro::to_f32(g[at]) : yacc[at]) + acc;
+    if (last) {
+      y[at] = repro::from_f32<TG>(v);
+    } else {
+      yacc[at] = v;
+    }
   }
 }
 
 template <typename TG>
 int launch(const float* u, const float* coeffs, const float* base,
-           const TG* g, float* partial, float* p, TG* y, long long d, int ell,
-           int n, int slabs, long long slab_rows, void* stream_ptr) {
+           const TG* g, float* partial, float* p, TG* y, float* yacc,
+           long long d, int ell, int n, int slabs, long long slab_rows,
+           void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   cudaError_t err = repro::cross_partial(u, ell, g, n, partial, d, slabs,
                                          slab_rows, stream);
@@ -77,39 +100,52 @@ int launch(const float* u, const float* coeffs, const float* base,
   const long long blocks = (d + rows - 1) / rows;
   const int expand_blocks =
       static_cast<int>(blocks < kMaxExpandBlocks ? blocks : kMaxExpandBlocks);
-  const size_t smem = sizeof(float) * ell * jn;
-  expand_tall_kernel<TG>
-      <<<dim3(expand_blocks, col_tiles), kThreads, smem, stream>>>(
-          u, ell, p, base, g, y, d, n);
-  return static_cast<int>(cudaGetLastError());
+  for (int e0 = 0; e0 < ell; e0 += kMaxEll) {
+    const int w = ell - e0 < kMaxEll ? ell - e0 : kMaxEll;
+    const size_t smem = sizeof(float) * w * jn;
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(expand_tall_kernel<TG>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    expand_tall_kernel<TG>
+        <<<dim3(expand_blocks, col_tiles), kThreads, smem, stream>>>(
+            u + e0, w, p + static_cast<long long>(e0) * n, base, g, y, d, n,
+            ell, yacc, e0 == 0, e0 + w == ell);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 }  // namespace
 
 // u (d, ell) f32, coeffs (ell,) f32, base: one f32 on the device, g and y
 // (d, n) with g_dtype 0 = float32, 1 = bfloat16, 2 = float16; partial: f32
-// scratch of slabs * ell * n elements, p: f32 scratch of ell * n.  The
+// scratch of slabs * ell * n elements, p: f32 scratch of ell * n, yacc: f32
+// scratch of d * n where ell > 7,264 (else unused, may be null).  The
 // caller picks slabs and slab_rows with slabs * slab_rows >= d.  Returns
 // the cudaError_t of the launches.
 extern "C" int repro_lowrank_tall(const float* u, const float* coeffs,
                                   const float* base, const void* g,
                                   int g_dtype, float* partial, float* p,
-                                  void* y, long long d, int ell, int n,
-                                  int slabs, long long slab_rows,
+                                  void* y, float* yacc, long long d, int ell,
+                                  int n, int slabs, long long slab_rows,
                                   void* stream) {
   if (g_dtype == 0) {
     return launch(u, coeffs, base, static_cast<const float*>(g), partial, p,
-                  static_cast<float*>(y), d, ell, n, slabs, slab_rows,
+                  static_cast<float*>(y), yacc, d, ell, n, slabs, slab_rows,
                   stream);
   }
   if (g_dtype == 1) {
     return launch(u, coeffs, base, static_cast<const __nv_bfloat16*>(g),
-                  partial, p, static_cast<__nv_bfloat16*>(y), d, ell, n,
-                  slabs, slab_rows, stream);
+                  partial, p, static_cast<__nv_bfloat16*>(y), yacc, d, ell,
+                  n, slabs, slab_rows, stream);
   }
   if (g_dtype == 2) {
     return launch(u, coeffs, base, static_cast<const __half*>(g), partial, p,
-                  static_cast<__half*>(y), d, ell, n, slabs, slab_rows,
+                  static_cast<__half*>(y), yacc, d, ell, n, slabs, slab_rows,
                   stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -3,21 +3,21 @@
 //   y[q] = sum_{s <= q} (C[q] . B[s]) exp(A[q] - A[s]) u[s]      (intra)
 //        + exp(A[q]) C[q] S_c^T                                  (inter)
 //   S_{c+1} = exp(A[Q-1]) S_c + sum_s exp(A[Q-1] - A[s]) u[s] B[s]^T
-// with S_0 = 0, the (P, N) state of each head.  u (B, S, H, P) f32 or bf16,
-// dlog (B, S, H) f32, B and C (B, S, N) in u's dtype, all contiguous -> y
-// (B, S, H, P) in u's dtype.
+// with S_0 = 0, the (P, N) state of each head.  u (B, S, H, P) f32, bf16
+// or fp16, dlog (B, S, H) f32, B and C (B, S, N) in u's dtype, all
+// contiguous -> y (B, S, H, P) in u's dtype.  Any P and any N.
 //
 // Replaces repro/kernels/ssd/kernel.py::ssd_pallas (_ssd_kernel).  On the
 // port's main path it is the scan of every Mamba2 mixer (models/ssm.py
 // ssd): zamba2-7b's 81 layers in the serving feedback gradient (B 4, S 16,
 // H 112, P 64, N 64, one chunk of 16).
 //
-// What bounds it: in bf16 the bytes.  Per chunk and batch row the scores
-// C B^T take Q (Q + 1) / 2 N multiply-adds, and each head Q (Q + 1) / 2 P
-// (intra), Q N P (inter) and Q N P (state): on the bf16 tensor cores that
-// is below the time to read u, dlog, B, C and write y (chip_smoke.py
-// prints both).  The f32 instantiation multiplies in f32 FFMA, where the
-// operations bound it.
+// What bounds it: in bf16 (and fp16) the bytes.  Per chunk and batch row
+// the scores C B^T take Q (Q + 1) / 2 N multiply-adds, and each head
+// Q (Q + 1) / 2 P (intra), Q N P (inter) and Q N P (state): on the bf16
+// tensor cores that is below the time to read u, dlog, B, C and write y
+// (chip_smoke.py prints both).  The f32 instantiation multiplies in f32
+// FFMA, where the operations bound it.
 //
 // Design: the Pallas kernel walks the chunks in order with the state in
 // VMEM.  Here the chunks run in parallel, in three phases (Mamba-2's own
@@ -41,7 +41,8 @@
 // size where Q < 64: 16 rows at Q <= 16, 32 at Q <= 32, else 64, so Q = 16
 // computes no zero rows; key tiles are the query block's size.
 //
-// Products: mma.sync.m16n8k16 (bf16 in, f32 accumulate) for every shape:
+// Products: mma.sync.m16n8k16 (bf16 in, f32 accumulate; fp16 with the
+// .f16 form, and the notes below say bf16 for both) for every shape:
 // warp-sized tiles fit Q = 16 directly, and at Q = 256 the products take
 // 15 us at the bf16 rate (zamba2-7b at S 4096; chip_smoke.py prints it), a
 // small part of the kernel's time, so wgmma was not tried.  C B^T is exact;
@@ -56,10 +57,24 @@
 // summed in order): it has no main path, and meets 5e-6 S absolute against
 // the plain version (chip_smoke.py).
 //
+// Any P and N (the reference takes any).  P in {16, 32, 64} with N <= 128
+// (every config of the repo) runs the kernels above as they were.  Any
+// other P and N run their WIDE instantiations (P 64, 64-row query blocks):
+// y[..., p] depends only on u[..., p] and the state's row p, so P runs as
+// independent 64-wide slices, the columns past P zero in shared memory and
+// not stored (u and y are read and written through the head stride P, so
+// no copy is made).  Only phase 3 sums over N (in C B^T and C S_c^T):
+// phases 1 and 2 run on each 128-column chunk of N in place, and phase 3
+// runs once a chunk, its partial y summed in f32 in a scratch (B, S, H, P),
+// chunk after chunk, the last adding its own and rounding to y.  One WIDE
+// form a phase (not one per slice width and query block) keeps the build's
+// time: a P of 8 then computes 64 columns for its 8.
+//
 // Determinism: no atomics; every sum runs in a fixed order, so two runs
 // give the same bits.  Positions past S and heads past H read as zeros and
 // are not written, so S and H need not be multiples of the chunk or the
 // head tile.
+#include <algorithm>
 #include <cstdint>
 
 #include "hopper.cuh"
@@ -68,20 +83,19 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr int kThreads = 128;   // four warps a block in every phase
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxN = 128;
+constexpr int kMaxN = 128;      // state columns a launch takes (an N chunk)
 constexpr int kKeys = 64;       // phase 1's key tile
 constexpr size_t kMaxSmem = 232448;
 
 // ---- one register of an mma.m16n8k16 operand fragment: two values --------
 
 template <typename T>
-struct Frag;
-template <>
-struct Frag<bf16> {
-  uint32_t v;  // bf16x2, the lower column in the low half
+struct Frag {
+  uint32_t v;  // bf16x2 or f16x2, the lower column in the low half
 };
 template <>
 struct Frag<float> {
@@ -89,10 +103,8 @@ struct Frag<float> {
 };
 
 template <typename T>
-__device__ __forceinline__ Frag<T> make_frag(float lo, float hi);
-template <>
-__device__ __forceinline__ Frag<bf16> make_frag<bf16>(float lo, float hi) {
-  return {repro::pack_bf16(lo, hi)};
+__device__ __forceinline__ Frag<T> make_frag(float lo, float hi) {
+  return {repro::pack2<T>(lo, hi)};
 }
 template <>
 __device__ __forceinline__ Frag<float> make_frag<float>(float lo, float hi) {
@@ -100,7 +112,8 @@ __device__ __forceinline__ Frag<float> make_frag<float>(float lo, float hi) {
 }
 
 // the elements at p and q of a shared-memory tile
-__device__ __forceinline__ Frag<bf16> load_frag(const bf16* p, const bf16* q) {
+template <typename T>
+__device__ __forceinline__ Frag<T> load_frag(const T* p, const T* q) {
   const uint32_t lo = *reinterpret_cast<const unsigned short*>(p);
   const uint32_t hi = *reinterpret_cast<const unsigned short*>(q);
   return {lo | (hi << 16)};
@@ -110,7 +123,8 @@ __device__ __forceinline__ Frag<float> load_frag(const float* p,
   return {*p, *q};
 }
 // two consecutive elements at p (p even)
-__device__ __forceinline__ Frag<bf16> load_frag2(const bf16* p) {
+template <typename T>
+__device__ __forceinline__ Frag<T> load_frag2(const T* p) {
   return {*reinterpret_cast<const uint32_t*>(p)};
 }
 __device__ __forceinline__ Frag<float> load_frag2(const float* p) {
@@ -125,6 +139,14 @@ __device__ __forceinline__ Frag<float> load_frag2(const float* p) {
 __device__ __forceinline__ void mma(float (&d)[4], const Frag<bf16> (&a)[4],
                                     const Frag<bf16> (&b)[2]) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0].v), "r"(a[1].v), "r"(a[2].v), "r"(a[3].v), "r"(b[0].v),
+        "r"(b[1].v));
+}
+__device__ __forceinline__ void mma(float (&d)[4], const Frag<f16> (&a)[4],
+                                    const Frag<f16> (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0].v), "r"(a[1].v), "r"(a[2].v), "r"(a[3].v), "r"(b[0].v),
@@ -158,8 +180,9 @@ __device__ __forceinline__ void mma(float (&d)[4], const Frag<float> (&a)[4],
   }
 }
 
-__device__ __forceinline__ void store2(bf16* p, float lo, float hi) {
-  *reinterpret_cast<uint32_t*>(p) = repro::pack_bf16(lo, hi);
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(p) = repro::pack2<T>(lo, hi);
 }
 __device__ __forceinline__ void store2(float* p, float lo, float hi) {
   *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
@@ -249,12 +272,19 @@ size_t state_smem(int P, int N, int Q, size_t esize) {
 // Grid (chunks - 1, H, B).  Warp w holds the 16 state rows p of row tile
 // w % (P / 16) and every (4 / (P / 16))-th n-tile of 8 columns from w /
 // (P / 16): out[p][n] = sum_s du[s][p] B[s][n], du = u exp(A_end - A).
-template <typename T, int P>
+// WIDE: P is the slice's width, u's columns 0 .. pv - 1 from u (head
+// stride ldp; u starts at the slice), the rest zero; N the chunk's width,
+// B's columns from bm (row stride ldn; bm starts at the chunk).  The state
+// of (slot, head) starts sld floats after the last (states starts at the
+// slice's first row and the chunk's first column), its rows ldn apart.
+// Otherwise ldp, pv, ldn and sld are unread: P and N are u's and B's.
+template <typename T, int P, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
     chunk_state_kernel(const T* __restrict__ u, const float* __restrict__ dlog,
                        const T* __restrict__ bm, float* __restrict__ states,
                        float* __restrict__ keep, int S, int H, int N, int Q,
-                       int chunks, int vec_b, int vec_u) {
+                       int chunks, int vec_b, int vec_u, int ldp, int pv,
+                       int ldn, long long sld) {
   constexpr int RT = P / 16, WPR = kWarps / RT, MT = 16 / WPR, PS = P + 8;
   const int NT = (N + 7) / 8, NK = round16(N), NS = NK + 8;
   // grid (B H (chunks - 1)): chunk after chunk of head h of batch row b,
@@ -283,10 +313,20 @@ __global__ void __launch_bounds__(kThreads)
   for (int s0 = 0; s0 < Q; s0 += kKeys) {
     const int kn = min(kKeys, Q - s0);
     __syncthreads();  // the last key tile's readers are done
-    stage(sb, NS, bm + (pos0 + s0) * N, N, kKeys, kn, N, NK, vec_b, One{});
-    stage(su, PS, u + (pos0 + s0) * H * P + static_cast<long long>(h) * P,
-          static_cast<long long>(H) * P, kKeys, kn, P, P, vec_u,
-          [&](int r) { return expf(a_end - sa[s0 + r]); });
+    if constexpr (WIDE) {
+      stage(sb, NS, bm + (pos0 + s0) * ldn, ldn, kKeys, kn, N, NK, vec_b,
+            One{});
+      stage(su, PS,
+            u + (pos0 + s0) * H * ldp + static_cast<long long>(h) * ldp,
+            static_cast<long long>(H) * ldp, kKeys, kn, pv, P, vec_u,
+            [&](int r) { return expf(a_end - sa[s0 + r]); });
+    } else {
+      stage(sb, NS, bm + (pos0 + s0) * N, N, kKeys, kn, N, NK, vec_b,
+            One{});
+      stage(su, PS, u + (pos0 + s0) * H * P + static_cast<long long>(h) * P,
+            static_cast<long long>(H) * P, kKeys, kn, P, P, vec_u,
+            [&](int r) { return expf(a_end - sa[s0 + r]); });
+    }
     __syncthreads();
     for (int ks = 0; ks < kn; ks += 16) {
       const T* ua = su + (ks + 2 * t) * PS + 16 * rt + g;
@@ -306,7 +346,8 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  float* out = states + slot * P * N;
+  const int ld = WIDE ? ldn : N;  // the state's row stride
+  float* out = states + (WIDE ? slot * sld : slot * P * N);
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
     const int nt = n0 + WPR * i;
@@ -315,8 +356,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       if (n + e < N) {
-        out[p * N + n + e] = acc[i][e];
-        out[(p + 8) * N + n + e] = acc[i][2 + e];
+        out[p * ld + n + e] = acc[i][e];
+        out[(p + 8) * ld + n + e] = acc[i][2 + e];
       }
     }
   }
@@ -365,13 +406,19 @@ size_t out_smem(int P, int N, int Q, int QT, int HW, bool inter,
                   (inter ? static_cast<size_t>(HT) * P * NS : 0));
 }
 
-template <typename T, int P, int QT, int HW>
+// WIDE: P, pv, ldp, N, ldn and sld as in phase 1 (u, y, yacc and states
+// start at the slice, bm, cm and states at the chunk); ``first``: this is
+// N's first chunk; ``last``: its last, which stores y in T; the others
+// store the sum so far in yacc (f32, y's layout), which the next one adds
+// to its own.  Otherwise those are unread.
+template <typename T, int P, int QT, int HW, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
     chunk_out_kernel(const T* __restrict__ u, const float* __restrict__ dlog,
                      const T* __restrict__ bm, const T* __restrict__ cm,
                      const float* __restrict__ states, T* __restrict__ y,
-                     int S, int H, int N, int Q, int qblocks, int chunks,
-                     int vec_b, int vec_u) {
+                     float* __restrict__ yacc, int S, int H, int N, int Q,
+                     int qblocks, int chunks, int vec_b, int vec_u, int ldp,
+                     int pv, int ldn, long long sld, int first, int last) {
   constexpr int QB = 16 * QT, HT = (4 / QT) * HW, NTP = P / 8;
   constexpr int US = HT * P + 8;
   const int NK = round16(N), NS = NK + 8;
@@ -398,11 +445,26 @@ __global__ void __launch_bounds__(kThreads)
   T* ss = su + QB * US;                                        // [HT][P][NS]
 
   cumsum<HT>(sa, dlog + pos0 * H, H, h0, rows);
-  stage(sc, NS, cm + (pos0 + q0) * N, N, QB, rows - q0, N, NK, vec_b, One{});
-  if (inter) {
-    const float* st = states +
-        ((static_cast<long long>(b) * (chunks - 1) + c - 1) * H + h0) * P * N;
-    stage(ss, NS, st, N, HT * P, heads * P, N, NK, N % 4 == 0, One{});
+  if constexpr (WIDE) {
+    stage(sc, NS, cm + (pos0 + q0) * ldn, ldn, QB, rows - q0, N, NK, vec_b,
+          One{});
+    if (inter) {  // a head's rows of a state sld apart, its rows ldn
+      const float* st = states +
+          ((static_cast<long long>(b) * (chunks - 1) + c - 1) * H + h0) * sld;
+      for (int hh = 0; hh < HT; ++hh) {
+        stage(ss + hh * P * NS, NS, st + hh * sld, ldn, P,
+              hh < heads ? P : 0, N, NK, ldn % 4 == 0, One{});
+      }
+    }
+  } else {
+    stage(sc, NS, cm + (pos0 + q0) * N, N, QB, rows - q0, N, NK, vec_b,
+          One{});
+    if (inter) {
+      const float* st = states +
+          ((static_cast<long long>(b) * (chunks - 1) + c - 1) * H + h0) * P *
+              N;
+      stage(ss, NS, st, N, HT * P, heads * P, N, NK, N % 4 == 0, One{});
+    }
   }
   __syncthreads();
 
@@ -445,11 +507,23 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = 0; kt <= qb; ++kt) {  // key tiles up to the diagonal
     const int s0 = kt * QB;
     __syncthreads();  // the last key tile's readers are done
-    stage(sb, NS, bm + (pos0 + s0) * N, N, QB, rows - s0, N, NK, vec_b,
-          One{});
-    stage(su, US, u + (pos0 + s0) * H * P + static_cast<long long>(h0) * P,
-          static_cast<long long>(H) * P, QB, rows - s0, heads * P, HT * P,
-          vec_u, One{});
+    if constexpr (WIDE) {  // a head's pv columns of u ldp apart
+      stage(sb, NS, bm + (pos0 + s0) * ldn, ldn, QB, rows - s0, N, NK,
+            vec_b, One{});
+      const T* us =
+          u + (pos0 + s0) * H * ldp + static_cast<long long>(h0) * ldp;
+      for (int hh = 0; hh < HT; ++hh) {
+        stage(su + hh * P, US, us + hh * ldp,
+              static_cast<long long>(H) * ldp, QB,
+              hh < heads ? rows - s0 : 0, pv, P, vec_u, One{});
+      }
+    } else {
+      stage(sb, NS, bm + (pos0 + s0) * N, N, QB, rows - s0, N, NK, vec_b,
+            One{});
+      stage(su, US, u + (pos0 + s0) * H * P + static_cast<long long>(h0) * P,
+            static_cast<long long>(H) * P, QB, rows - s0, heads * P, HT * P,
+            vec_u, One{});
+    }
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < QT; ++j) {
@@ -502,6 +576,27 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
+  if constexpr (!WIDE) {
+#pragma unroll
+    for (int i = 0; i < HW; ++i) {
+      const int h = h0 + hw0 + i;
+      if (h >= H) continue;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int q = qr + g + 8 * r;
+        if (q >= rows) continue;
+        T* yr = y + ((pos0 + q) * H + h) * P + 2 * t;
+#pragma unroll
+        for (int nt = 0; nt < NTP; ++nt) {
+          store2(yr + 8 * nt, acc[i][nt][2 * r], acc[i][nt][2 * r + 1]);
+        }
+      }
+    }
+    return;
+  }
+  // WIDE: pairs of columns in one store where every pair is aligned (an
+  // even head stride) and whole; else column by column up to pv
+  const bool pairs = ldp % 2 == 0;
 #pragma unroll
   for (int i = 0; i < HW; ++i) {
     const int h = h0 + hw0 + i;
@@ -510,10 +605,24 @@ __global__ void __launch_bounds__(kThreads)
     for (int r = 0; r < 2; ++r) {
       const int q = qr + g + 8 * r;
       if (q >= rows) continue;
-      T* yr = y + ((pos0 + q) * H + h) * P + 2 * t;
+      const long long at = ((pos0 + q) * H + h) * ldp + 2 * t;
 #pragma unroll
       for (int nt = 0; nt < NTP; ++nt) {
-        store2(yr + 8 * nt, acc[i][nt][2 * r], acc[i][nt][2 * r + 1]);
+        const int col = 2 * t + 8 * nt;
+        float lo = acc[i][nt][2 * r], hi = acc[i][nt][2 * r + 1];
+        if (!first) {  // the earlier chunks' sum
+          if (col < pv) lo += yacc[at + 8 * nt];
+          if (col + 1 < pv) hi += yacc[at + 8 * nt + 1];
+        }
+        if (!last) {
+          if (col < pv) yacc[at + 8 * nt] = lo;
+          if (col + 1 < pv) yacc[at + 8 * nt + 1] = hi;
+        } else if (pairs && col + 1 < pv) {
+          store2(y + at + 8 * nt, lo, hi);
+        } else {
+          if (col < pv) y[at + 8 * nt] = repro::from_f32<T>(lo);
+          if (col + 1 < pv) y[at + 8 * nt + 1] = repro::from_f32<T>(hi);
+        }
       }
     }
   }
@@ -530,112 +639,221 @@ int allow_smem(K kernel, size_t bytes) {
       static_cast<int>(bytes)));
 }
 
-template <typename T, int P, int QT, int HW>
+// The shapes of one launch: the slice's width, valid columns and head
+// stride, the N chunk's width and row stride, the state's (slot, head)
+// stride, the vector flags, and which chunk of N it is.
+struct Part {
+  int pv, ldp, N, ldn;
+  long long sld;
+  int vec_b, vec_u, first, last;
+};
+
+template <typename T, int P, int QT, int HW, bool WIDE>
 int launch_out(const T* u, const float* dlog, const T* bm, const T* cm,
-               const float* states, T* y, int B, int S, int H, int N, int Q,
-               int chunks, int vec_b, int vec_u, cudaStream_t stream) {
+               const float* states, T* y, float* yacc, int B, int S, int H,
+               int Q, int chunks, const Part& pt, cudaStream_t stream) {
+  const int N = pt.N;
   constexpr int QB = 16 * QT, HT = (4 / QT) * HW;
   const size_t smem = out_smem(P, N, Q, QT, HW, chunks > 1, sizeof(T));
-  int err = allow_smem(chunk_out_kernel<T, P, QT, HW>, smem);
+  int err = allow_smem(chunk_out_kernel<T, P, QT, HW, WIDE>, smem);
   if (err != 0) return err;
   const int qblocks = (Q + QB - 1) / QB;
   const long long blocks = static_cast<long long>(chunks) * qblocks *
                            ((H + HT - 1) / HT) * B;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(blocks));
-  chunk_out_kernel<T, P, QT, HW><<<grid, kThreads, smem, stream>>>(
-      u, dlog, bm, cm, states, y, S, H, N, Q, qblocks, chunks, vec_b, vec_u);
+  chunk_out_kernel<T, P, QT, HW, WIDE><<<grid, kThreads, smem, stream>>>(
+      u, dlog, bm, cm, states, y, yacc, S, H, N, Q, qblocks, chunks, pt.vec_b,
+      pt.vec_u, pt.ldp, pt.pv, pt.ldn, pt.sld, pt.first, pt.last);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Phase 1 of one slice and N chunk (more than one chunk of Q).
+template <typename T, int P, bool WIDE>
+int launch_state(const T* u, const float* dlog, const T* bm, float* states,
+                 float* keep, int B, int S, int H, int Q, int chunks,
+                 const Part& pt, cudaStream_t stream) {
+  const size_t smem = state_smem(P, pt.N, Q, sizeof(T));
+  int err = allow_smem(chunk_state_kernel<T, P, WIDE>, smem);
+  if (err != 0) return err;
+  const long long blocks = static_cast<long long>(chunks - 1) * H * B;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  chunk_state_kernel<T, P, WIDE><<<static_cast<unsigned>(blocks), kThreads,
+                                   smem, stream>>>(
+      u, dlog, bm, states, keep, S, H, pt.N, Q, chunks, pt.vec_b, pt.vec_u,
+      pt.ldp, pt.pv, pt.ldn, pt.sld);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Phase 3 of one slice and N chunk: query blocks of the chunk's own size.
 template <typename T, int P>
-int launch_p(const T* u, const float* dlog, const T* bm, const T* cm, T* y,
-             float* states, float* keep, int B, int S, int H, int N, int Q,
-             int vec_b, int vec_u, cudaStream_t stream) {
-  const int chunks = (S + Q - 1) / Q;
-  if (chunks > 1) {
-    const size_t smem = state_smem(P, N, Q, sizeof(T));
-    int err = allow_smem(chunk_state_kernel<T, P>, smem);
-    if (err != 0) return err;
-    const long long blocks = static_cast<long long>(chunks - 1) * H * B;
-    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-    chunk_state_kernel<T, P><<<static_cast<unsigned>(blocks), kThreads, smem,
-                               stream>>>(u, dlog, bm, states, keep, S, H, N,
-                                         Q, chunks, vec_b, vec_u);
-    err = static_cast<int>(cudaGetLastError());
-    if (err != 0) return err;
-  }
-  if (chunks > 2) {
-    const long long threads = static_cast<long long>(B) * H * P * N / 4;
-    state_pass_kernel<<<static_cast<unsigned>((threads + 255) / 256), 256, 0,
-                        stream>>>(states, keep, B, H, P * N, chunks);
-    const int err = static_cast<int>(cudaGetLastError());
-    if (err != 0) return err;
-  }
+int launch_chunk_out(const T* u, const float* dlog, const T* bm, const T* cm,
+                     const float* states, T* y, float* yacc, int B, int S,
+                     int H, int Q, int chunks, const Part& pt,
+                     cudaStream_t stream) {
   if (Q <= 16) {
-    return launch_out<T, P, 1, 1>(u, dlog, bm, cm, states, y, B, S, H, N, Q,
-                                  chunks, vec_b, vec_u, stream);
+    return launch_out<T, P, 1, 1, false>(u, dlog, bm, cm, states, y, yacc, B,
+                                         S, H, Q, chunks, pt, stream);
   }
   if (Q <= 32) {
-    return launch_out<T, P, 2, 1>(u, dlog, bm, cm, states, y, B, S, H, N, Q,
-                                  chunks, vec_b, vec_u, stream);
+    return launch_out<T, P, 2, 1, false>(u, dlog, bm, cm, states, y, yacc, B,
+                                         S, H, Q, chunks, pt, stream);
   }
-  return launch_out<T, P, 4, 2>(u, dlog, bm, cm, states, y, B, S, H, N, Q,
-                                chunks, vec_b, vec_u, stream);
+  return launch_out<T, P, 4, 2, false>(u, dlog, bm, cm, states, y, yacc, B, S,
+                                       H, Q, chunks, pt, stream);
+}
+
+// One phase (``state``: 1, else 3) of a whole P of 16, 32 or 64 with N <=
+// 128 (``w`` = P), or (``w`` 0) of a 64-wide slice and an N chunk on the
+// WIDE forms.
+template <typename T>
+int launch_phase(int w, bool state, const T* u, const float* dlog,
+                 const T* bm, const T* cm, float* states, float* keep, T* y,
+                 float* yacc, int B, int S, int H, int Q, int chunks,
+                 const Part& pt, cudaStream_t stream) {
+  switch (w) {
+    case 16:
+      return state ? launch_state<T, 16, false>(u, dlog, bm, states, keep, B,
+                                                S, H, Q, chunks, pt, stream)
+                   : launch_chunk_out<T, 16>(u, dlog, bm, cm, states, y, yacc,
+                                             B, S, H, Q, chunks, pt, stream);
+    case 32:
+      return state ? launch_state<T, 32, false>(u, dlog, bm, states, keep, B,
+                                                S, H, Q, chunks, pt, stream)
+                   : launch_chunk_out<T, 32>(u, dlog, bm, cm, states, y, yacc,
+                                             B, S, H, Q, chunks, pt, stream);
+    case 64:
+      return state ? launch_state<T, 64, false>(u, dlog, bm, states, keep, B,
+                                                S, H, Q, chunks, pt, stream)
+                   : launch_chunk_out<T, 64>(u, dlog, bm, cm, states, y, yacc,
+                                             B, S, H, Q, chunks, pt, stream);
+    case 0:
+      return state ? launch_state<T, 64, true>(u, dlog, bm, states, keep, B,
+                                               S, H, Q, chunks, pt, stream)
+                   : launch_out<T, 64, 4, 2, true>(u, dlog, bm, cm, states, y,
+                                                   yacc, B, S, H, Q, chunks,
+                                                   pt, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// The shapes the kernels above take as they were: P one of 16, 32, 64 and
+// N up to 128 (kernels/ssd/kernel.py ``is_whole``).
+bool whole(int P, int N) {
+  return (P == 16 || P == 32 || P == 64) && N <= kMaxN;
+}
+
+// The rows of the state scratch: P, or P rounded up to 64-wide slices.
+int state_rows(int P, int N) { return whole(P, N) ? P : (P + 63) / 64 * 64; }
+
 template <typename T>
 int launch(const void* u, const float* dlog, const void* bm, const void* cm,
-           void* y, float* states, float* keep, int B, int S, int H, int P,
-           int N, int Q, void* stream_ptr) {
+           void* y, float* states, float* keep, float* yacc, int B, int S,
+           int H, int P, int N, int Q, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const T* ut = static_cast<const T*>(u);
   const T* bt = static_cast<const T*>(bm);
   const T* ct = static_cast<const T*>(cm);
   T* yt = static_cast<T*>(y);
-  const int vec_b = N * sizeof(T) % 16 == 0 && aligned16(bm) && aligned16(cm);
-  const int vec_u = aligned16(u);
-  switch (P) {
-    case 16:
-      return launch_p<T, 16>(ut, dlog, bt, ct, yt, states, keep, B, S, H, N,
-                             Q, vec_b, vec_u, stream);
-    case 32:
-      return launch_p<T, 32>(ut, dlog, bt, ct, yt, states, keep, B, S, H, N,
-                             Q, vec_b, vec_u, stream);
-    case 64:
-      return launch_p<T, 64>(ut, dlog, bt, ct, yt, states, keep, B, S, H, N,
-                             Q, vec_b, vec_u, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks = (S + Q - 1) / Q;
+  const int rows = state_rows(P, N);  // scratch (B, chunks - 1, H, rows, N)
+  const long long sld = static_cast<long long>(rows) * N;
+  const bool vec_b = N * sizeof(T) % 16 == 0 && aligned16(bm) &&
+                     aligned16(cm);
+  const bool vec_u = P * sizeof(T) % 16 == 0 && aligned16(u);
+  if (whole(P, N)) {  // one launch a phase, the kernels as they were
+    const Part pt{P, P, N, N, sld, vec_b, vec_u, 1, 1};
+    int err = 0;
+    if (chunks > 1) {
+      err = launch_phase<T>(P, true, ut, dlog, bt, ct, states, keep, yt, yacc,
+                            B, S, H, Q, chunks, pt, stream);
+      if (err != 0) return err;
+    }
+    if (chunks > 2) {
+      const long long threads = static_cast<long long>(B) * H * sld / 4;
+      state_pass_kernel<<<static_cast<unsigned>((threads + 255) / 256), 256,
+                          0, stream>>>(states, keep, B, H,
+                                       static_cast<int>(sld), chunks);
+      err = static_cast<int>(cudaGetLastError());
+      if (err != 0) return err;
+    }
+    return launch_phase<T>(P, false, ut, dlog, bt, ct, states, keep, yt, yacc,
+                           B, S, H, Q, chunks, pt, stream);
   }
+  // WIDE: 64-wide slices of P, 128-column chunks of N.  Phase 1 for every
+  // slice and chunk, into its rows and columns of the scratch
+  const int n_chunks = (N + kMaxN - 1) / kMaxN;
+  if (chunks > 1) {
+    for (int nc = 0; nc < n_chunks; ++nc) {
+      const int n0 = nc * kMaxN;
+      for (int p0 = 0; p0 < P; p0 += 64) {
+        const Part pt{std::min(64, P - p0), P, std::min(kMaxN, N - n0), N,
+                      sld, vec_b, vec_u, 1, 1};
+        const int err = launch_phase<T>(
+            0, true, ut + p0, dlog, bt + n0, ct, states + p0 * N + n0, keep,
+            yt, yacc, B, S, H, Q, chunks, pt, stream);
+        if (err != 0) return err;
+      }
+    }
+  }
+  if (chunks > 2) {
+    const long long threads = static_cast<long long>(B) * H * sld / 4;
+    state_pass_kernel<<<static_cast<unsigned>((threads + 255) / 256), 256, 0,
+                        stream>>>(states, keep, B, H, static_cast<int>(sld),
+                                  chunks);
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+  }
+  // phase 3 for every slice, N's chunks in order
+  for (int p0 = 0; p0 < P; p0 += 64) {
+    for (int nc = 0; nc < n_chunks; ++nc) {
+      const int n0 = nc * kMaxN;
+      const Part pt{std::min(64, P - p0), P, std::min(kMaxN, N - n0), N,
+                    sld, vec_b, vec_u, nc == 0, nc == n_chunks - 1};
+      const int err = launch_phase<T>(
+          0, false, ut + p0, dlog, bt + n0, ct + n0, states + p0 * N + n0,
+          keep, yt + p0, yacc + p0, B, S, H, Q, chunks, pt, stream);
+      if (err != 0) return err;
+    }
+  }
+  return 0;
 }
 
 }  // namespace
 
 // u (B, S, H, P), dlog (B, S, H) f32, bm and cm (B, S, N), y like u, all
-// contiguous; P one of 16, 32, 64; N at most 128; chunks of Q positions.
-// states (B, chunks - 1, H, P, N) and keep (B, chunks - 1, H) are f32
-// scratch (unused, may be null, with one chunk).  dtype 0 = f32, 1 = bf16
-// (of u, bm, cm and y).  Returns the CUDA error of the launches
-// (cudaErrorInvalidValue for a shape it does not take).
+// contiguous; any P and N; chunks of Q positions.  f32 scratch: states
+// (B, chunks - 1, H, R, N) with R = P for the whole shapes and P rounded
+// up to 64 otherwise (kernels/ssd/kernel.py ``state_rows``) and keep
+// (B, chunks - 1, H),
+// unused with one chunk; yacc like y, unused with N <= 128 (either may be
+// null where unused).  dtype 0 = f32, 1 = bf16, 2 = fp16 (of u, bm, cm and
+// y).  Returns the CUDA error of the launches (cudaErrorInvalidValue for a
+// shape it does not take).
 extern "C" int repro_ssd_scan(const void* u, const float* dlog,
                               const void* bm, const void* cm, void* y,
-                              float* states, float* keep, int B, int S, int H,
-                              int P, int N, int Q, int dtype, void* stream) {
-  if (N < 1 || N > kMaxN || Q < 1) {
+                              float* states, float* keep, float* yacc, int B,
+                              int S, int H, int P, int N, int Q, int dtype,
+                              void* stream) {
+  if (N < 1 || P < 1 || Q < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == 0) {
-    return launch<float>(u, dlog, bm, cm, y, states, keep, B, S, H, P, N, Q,
-                         stream);
+    return launch<float>(u, dlog, bm, cm, y, states, keep, yacc, B, S, H, P,
+                         N, Q, stream);
   }
   if (dtype == 1) {
-    return launch<bf16>(u, dlog, bm, cm, y, states, keep, B, S, H, P, N, Q,
-                        stream);
+    return launch<bf16>(u, dlog, bm, cm, y, states, keep, yacc, B, S, H, P,
+                        N, Q, stream);
+  }
+  if (dtype == 2) {
+    return launch<f16>(u, dlog, bm, cm, y, states, keep, yacc, B, S, H, P, N,
+                       Q, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -9,7 +9,8 @@ tensors to ``ref.py``), check what the kernel accepts, allocate the output
 and the kernel's scratch, launch on the current stream and raise on a
 launch error.  ``launches``, ``mixed_launches`` and ``single_launches``
 count each wrapper's launches, so a run can show that its Grams went
-through the kernels.
+through the kernels; ``launches_by_dtype`` splits ``launches`` by the
+operand's dtype.
 """
 from __future__ import annotations
 
@@ -19,12 +20,13 @@ import torch
 
 from repro_torch.kernels import build, split_d
 
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 SINGLE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_GRID_X = 2**31 - 1  # a grid's x dimension, which takes every block
 TILE = 128              # csrc/gram.cu kTile: output tiles of 128 x 128
 ROWS_MAX_K = 16         # csrc/gram_tall.cu kRowsMaxK: whole rows per thread
 launches = 0
+launches_by_dtype: dict = {}   # batched_gram's, by a's dtype
 mixed_launches = 0
 single_launches = 0
 
@@ -52,12 +54,13 @@ def gram_grid(N: int, k: int) -> int:
 
 
 def batched_gram(a: torch.Tensor) -> torch.Tensor:
-    """C[n] = A[n]^T A[n] for a contiguous CUDA (N, d, k) f32/bf16 stack;
-    the result is (N, k, k) f32.  N = 0 returns an empty result unlaunched."""
+    """C[n] = A[n]^T A[n] for a contiguous CUDA (N, d, k) f32, bf16 or fp16
+    stack (fp16 and bf16 are exact in tf32: one product); the result is
+    (N, k, k) f32.  N = 0 returns an empty result unlaunched."""
     global launches
     if a.dtype not in DTYPES:
-        raise TypeError(f"batched_gram kernel takes float32 or bfloat16, got "
-                        f"{a.dtype}")
+        raise TypeError(f"batched_gram kernel takes float32, bfloat16 or "
+                        f"float16, got {a.dtype}")
     _check_stack("batched_gram kernel", a, a.device)
     N, d, k = a.shape
     gram_grid(N, k)
@@ -70,6 +73,7 @@ def batched_gram(a: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"batched_gram kernel launch failed: CUDA error "
                            f"{err} at shape {tuple(a.shape)}")
     launches += 1
+    launches_by_dtype[a.dtype] = launches_by_dtype.get(a.dtype, 0) + 1
     return out
 
 

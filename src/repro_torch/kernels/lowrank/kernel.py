@@ -14,7 +14,8 @@ is one pass and needs none), launch on the current stream and raise on a
 launch error.  Each counts the calls that launched (one per call):
 ``launches`` the apply with an f32 U, ``int8_launches`` the apply with an
 int8 U (the fused int8 path), ``single_launches`` the single-block apply,
-and ``project_quantize_launches`` the write-back.
+and ``project_quantize_launches`` the write-back;
+``apply_launches_by_dtype`` counts both batched applies by U's dtype.
 
 G must be contiguous.  The right-side apply of Sketchy sees a transposed
 view; its caller makes the copy (core/fd.py fd_apply_inverse_root_batched).
@@ -33,11 +34,14 @@ U_DTYPES = {torch.float32: 0, torch.int8: 2}
 G_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_GRID_X = 2**31 - 1  # a grid's x dimension
 MAX_GRID_YZ = 65535     # a grid's y and z dimensions
-MAX_ELL = 1024          # the single-block expand pass holds P's tile in
-                        # shared memory: ell * 8 f32
+MAX_ELL = 7264          # the single-block expand pass holds P's tile in
+                        # shared memory, ell * 8 f32 (the card's 227 KB);
+                        # a wider U takes that pass in chunks of it
 BATCHED_MAX_ELL = 1984  # the batched apply's P (ell x 8 at its narrowest
                         # column tile, split in two) fits shared memory
-                        # beside its stages (csrc/lowrank.cu smem_bytes)
+                        # beside its stages (csrc/lowrank.cu smem_bytes);
+APPLY_CHUNK = 256       # a wider U runs in chunks of 256 of its columns,
+                        # whose P fits beside the widest column tile
 # the write-back's pass 1 (csrc/project_quantize.cu project_kernel)
 PROJECT_ROWS, PROJECT_COLS, PROJECT_DEPTH = 128, 64, 32
 PROJECT_THREADS = 128
@@ -49,6 +53,7 @@ SMEM_LIMIT = 232_448    # dynamic shared memory a Hopper block can use
 APPLY_COL_TILES = (64, 32, 16, 8)   # the batched apply's column tiles
 launches = 0
 int8_launches = 0
+apply_launches_by_dtype: dict = {}    # both batched applies', by U's dtype
 single_launches = 0
 project_quantize_launches = 0
 
@@ -75,12 +80,30 @@ def apply_smem_bytes(ell: int, col_tile: int, usize: int) -> int:
     return 2 * stage + 2 * 4 * cols * (col_tile + 4)
 
 
+def apply_chunks(ell: int) -> list:
+    """(first column, columns) of each launch of the batched apply over a
+    U of ell columns (csrc/lowrank.cu ``chunk_cols``): one chunk (0, ell)
+    at ell <= BATCHED_MAX_ELL, else chunks of APPLY_CHUNK, the rest
+    last.  Each block reads all of its chunk of U, so the chunks keep the
+    widest column tile (64): a tile of 8 reads U n / 8 times."""
+    cols = ell if ell <= BATCHED_MAX_ELL else APPLY_CHUNK
+    return [(e0, min(cols, ell - e0)) for e0 in range(0, ell, cols)]
+
+
+def tall_chunks(ell: int) -> list:
+    """(first column, columns) of each launch of the single-block apply's
+    expand pass (csrc/lowrank_tall.cu): chunks of MAX_ELL, the rest last."""
+    return [(e0, min(MAX_ELL, ell - e0)) for e0 in range(0, ell, MAX_ELL)]
+
+
 @functools.lru_cache(maxsize=1024)
 def apply_col_tiles(ell: int, usize: int) -> tuple:
     """The column tiles the batched apply can launch at ``ell`` (those whose
-    shared memory fits), widest first; the first is its default."""
+    shared memory fits each of its chunks), widest first; the first is its
+    default."""
+    widest = max(cols for _, cols in apply_chunks(ell)) if ell > 0 else ell
     return tuple(t for t in APPLY_COL_TILES
-                 if apply_smem_bytes(ell, t, usize) <= SMEM_LIMIT)
+                 if apply_smem_bytes(widest, t, usize) <= SMEM_LIMIT)
 
 
 def apply_grid(N: int, ell: int, m: int, usize: int,
@@ -108,9 +131,12 @@ def batched_lowrank_apply(u: torch.Tensor, coeffs: torch.Tensor,
     u (N, d, ell) is f32, or int8 for the fused int8 path (the registry's
     ``batched_lowrank_apply_quantized`` folds the block scale^2 into
     coeffs); coeffs (N, ell), base (N,) and g (N, d, n) are f32.  All are
-    contiguous CUDA tensors on one device.  ``col_tile`` is the columns of
-    G a block takes (``apply_col_tiles``; kernels/autotune.py tunes it), 0
-    the widest that fits.  N = 0 returns an empty result unlaunched."""
+    contiguous CUDA tensors on one device.  Any ell: above BATCHED_MAX_ELL
+    the kernel runs on chunks of APPLY_CHUNK of U's columns, one launch
+    each in order (``apply_chunks``), the later ones adding to Y.
+    ``col_tile`` is the columns of G a block takes (``apply_col_tiles``;
+    kernels/autotune.py tunes it), 0 the widest that fits each chunk.  N =
+    0 returns an empty result unlaunched."""
     global launches, int8_launches
     _check("batched_lowrank_apply",
            {"u": u, "coeffs": coeffs, "base": base, "g": g}, g.device)
@@ -131,9 +157,9 @@ def batched_lowrank_apply(u: torch.Tensor, coeffs: torch.Tensor,
         raise ValueError(f"shape mismatch: u {tuple(u.shape)}, coeffs "
                          f"{tuple(coeffs.shape)}, base {tuple(base.shape)}, "
                          f"g {tuple(g.shape)}")
-    if not 0 < ell <= BATCHED_MAX_ELL:
-        raise ValueError(f"batched_lowrank_apply kernel takes 0 < ell <= "
-                         f"{BATCHED_MAX_ELL}, got N={N}, ell={ell}")
+    if ell <= 0:
+        raise ValueError(f"batched_lowrank_apply kernel takes ell > 0, got "
+                         f"N={N}, ell={ell}")
     apply_grid(N, ell, m, u.element_size(), col_tile)
     if col_tile and col_tile not in apply_col_tiles(ell, u.element_size()):
         raise ValueError(f"batched_lowrank_apply kernel: column tile "
@@ -155,6 +181,8 @@ def batched_lowrank_apply(u: torch.Tensor, coeffs: torch.Tensor,
         int8_launches += 1
     else:
         launches += 1
+    apply_launches_by_dtype[u.dtype] = \
+        apply_launches_by_dtype.get(u.dtype, 0) + 1
     return out
 
 
@@ -164,7 +192,9 @@ def lowrank_apply(u: torch.Tensor, coeffs: torch.Tensor, base,
     u (d, ell) and coeffs (ell,) f32, base an f32 scalar (a tensor on the
     card or a number), g (d, n) f32, bf16 or fp16 -> (d, n) in g's dtype.
     The projection is summed over slabs of d in a fixed order (the same
-    bits on every run).  An empty result returns unlaunched."""
+    bits on every run).  Any ell: above MAX_ELL the expand pass runs on
+    chunks of U's columns (``tall_chunks``), summed in order in an f32
+    scratch (d, n).  An empty result returns unlaunched."""
     global single_launches
     base = torch.as_tensor(base, dtype=torch.float32,
                            device=g.device).reshape(())
@@ -184,9 +214,8 @@ def lowrank_apply(u: torch.Tensor, coeffs: torch.Tensor, base,
     if g.shape[0] != d or coeffs.shape != (ell,):
         raise ValueError(f"shape mismatch: u {tuple(u.shape)}, coeffs "
                          f"{tuple(coeffs.shape)}, g {tuple(g.shape)}")
-    if not 0 < ell <= MAX_ELL:
-        raise ValueError(f"lowrank_apply kernel takes 0 < ell <= {MAX_ELL}, "
-                         f"got {ell}")
+    if ell <= 0:
+        raise ValueError(f"lowrank_apply kernel takes ell > 0, got {ell}")
     out = torch.empty_like(g)
     if out.numel() == 0:
         return out
@@ -196,11 +225,13 @@ def lowrank_apply(u: torch.Tensor, coeffs: torch.Tensor, base,
     partial = torch.empty((slabs, ell, n), dtype=torch.float32,
                           device=g.device)
     p = torch.empty((ell, n), dtype=torch.float32, device=g.device)
+    yacc = torch.empty((d, n) if ell > MAX_ELL else (0,),
+                       dtype=torch.float32, device=g.device)
     err = build.launch(build.library("lowrank_tall").repro_lowrank_tall,
                        g.device, u.data_ptr(), coeffs.data_ptr(),
                        base.data_ptr(), g.data_ptr(), G_DTYPES[g.dtype],
-                       partial.data_ptr(), p.data_ptr(), out.data_ptr(), d,
-                       ell, n, slabs, slab_rows)
+                       partial.data_ptr(), p.data_ptr(), out.data_ptr(),
+                       yacc.data_ptr(), d, ell, n, slabs, slab_rows)
     if err != 0:
         raise RuntimeError(f"lowrank_apply kernel launch failed: CUDA error "
                            f"{err} at u {tuple(u.shape)}, g {tuple(g.shape)} "

@@ -203,15 +203,35 @@ LAUNCH_COUNTERS = {
 }
 
 
+# the wrappers that also count their launches by operand dtype: name ->
+# (wrapper module, attribute of its {torch.dtype: launches} dict)
+DTYPE_COUNTERS = {
+    "batched_gram": (gram_kernel, "launches_by_dtype"),
+    "batched_lowrank_apply": (lowrank_kernel, "apply_launches_by_dtype"),
+    "flash_attention": (flash_kernel, "launches_by_dtype"),
+    "ssd_scan": (ssd_kernel, "launches_by_dtype"),
+}
+
+
 def launch_counts() -> dict:
     """Every kernel wrapper's launches so far, by name."""
     return {name: getattr(module, attr)
             for name, (module, attr) in LAUNCH_COUNTERS.items()}
 
 
+def launch_counts_by_dtype() -> dict:
+    """The DTYPE_COUNTERS wrappers' launches so far, by name and dtype:
+    {"flash_attention float16": launches, ...}."""
+    return {f"{name} {str(dt).removeprefix('torch.')}": n
+            for name, (module, attr) in DTYPE_COUNTERS.items()
+            for dt, n in getattr(module, attr).items()}
+
+
 def zero_launch_counts() -> None:
     for module, attr in LAUNCH_COUNTERS.values():
         setattr(module, attr, 0)
+    for module, attr in DTYPE_COUNTERS.values():
+        getattr(module, attr).clear()
 
 
 KERNELS = KernelSet(

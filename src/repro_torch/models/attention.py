@@ -7,14 +7,27 @@ never repeated in memory.  ``qkv_bias`` (qwen2.5) adds a bias to q, k and v
 before the head reshape; ``qk_norm`` (qwen3) RMS-normalizes q and k over
 the head dim before RoPE; decode projects through the same code.
 Positions are (B, S), or (3, B, S) with ``mrope`` (qwen2-vl), as
-``layers.apply_rope`` takes them."""
+``layers.apply_rope`` takes them.
+
+``attn_logits_dtype`` other than f32 (the reference's ``_attend_math``
+:84-120) rounds the softmax as the reference's XLA path does: the f32
+logits less their f32 row max, cast to that dtype, ``exp`` in it, divided
+by the f32 sum cast back.  The decode path and the whole-sequence path on
+the CPU do exactly that.  On the card the whole-sequence path stays on
+kernel 7, whose statistics are f32 whatever the setting: a decision, and
+a departure from the reference model, whose ``causal_attention``
+(:167-194) rounds through ``_attend_math`` on every path (its Pallas flash
+kernel, which keeps f32, is not called by the model).  A one-pass kernel
+cannot round so: the reference centres each row on its final maximum
+before the cast.  Rounding inside kernel 7 is an open item (ROADMAP queue
+3).  The card is held against the CPU at the bf16 tolerance."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, rms_norm
+from repro_torch.models.layers import DTYPES, apply_rope, rms_norm
 
 NEG_INF = -1e30
 
@@ -49,18 +62,47 @@ def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions):
     return q, k, v
 
 
+def softmax(s: torch.Tensor, logits_dtype: torch.dtype) -> torch.Tensor:
+    """The softmax over the last dim of f32 logits ``s``: in f32, or with
+    another ``logits_dtype`` the reference's rounding (``_attend_math``
+    :112-117): the row max (no gradient) subtracted in f32, the result cast,
+    exp in that dtype, divided by its f32 sum cast back."""
+    if logits_dtype == torch.float32:
+        return torch.softmax(s, dim=-1)
+    m = torch.amax(s, dim=-1, keepdim=True).detach()
+    p = torch.exp((s - m).to(logits_dtype))
+    return p / torch.sum(p.float(), dim=-1, keepdim=True).to(logits_dtype)
+
+
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            pos: torch.Tensor) -> torch.Tensor:
+            pos: torch.Tensor, logits_dtype=torch.float32) -> torch.Tensor:
     """One token's queries (B, 1, KV, G, hd) against the cache k, v
     (B, Smax, KV, hd) up to each lane's position ``pos`` ((B,) long), with
-    an f32 softmax."""
+    the softmax of ``logits_dtype``."""
     hd = q.shape[-1]
     s = torch.einsum("bqkgd,bskd->bkgqs", q.float() * hd ** -0.5, k.float())
     k_pos = torch.arange(k.shape[1], device=k.device)
     mask = (pos[:, None] >= k_pos)[:, None, None, None]    # (B,1,1,1,Smax)
     s = torch.where(mask, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    p = softmax(s, logits_dtype)
     return torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
+
+
+def _causal_rounded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    logits_dtype: torch.dtype) -> torch.Tensor:
+    """The whole-sequence causal attention of ``_attend_math`` with logits
+    rounded to ``logits_dtype``, in plain tensor ops (its gradient is
+    autograd's): q (B, S, H, hd), k, v (B, S, KV, hd) -> (B, S, H, hd)."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float() * hd ** -0.5,
+                     k.float())
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    s = torch.where(mask, s, NEG_INF)
+    p = softmax(s, logits_dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
+    return out.reshape(B, S, H, hd)
 
 
 def causal_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
@@ -70,7 +112,11 @@ def causal_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     ``kernels/flash/ops.flash_attention`` (the flash kernel on the card, its
     plain version on the CPU, with a gradient) reads the (B, S, H, hd)
     tensors in place as (B, H, S, hd) views; its output is stored
-    (B, S, H, hd), so the transpose back is a view too."""
+    (B, S, H, hd), so the transpose back is a view too.  On the CPU with
+    logits other than f32, ``_causal_rounded`` (the module's note)."""
+    ldt = DTYPES[cfg.attn_logits_dtype]
+    if ldt != torch.float32 and q.device.type == "cpu":
+        return _causal_rounded(q, k, v, ldt)
     out = flash_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                     v.transpose(1, 2), causal=True)
     return out.transpose(1, 2)
@@ -106,5 +152,6 @@ def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
     cache_k[lanes, pos] = k[:, 0].to(cache_k.dtype)
     cache_v[lanes, pos] = v[:, 0].to(cache_v.dtype)
     qg = q.reshape(B, 1, KV, H // KV, hd)
-    out = _attend(qg, cache_k, cache_v, pos)
+    out = _attend(qg, cache_k, cache_v, pos,
+                  DTYPES[cfg.attn_logits_dtype])
     return torch.matmul(out.reshape(B, 1, H * hd), p["wo"])

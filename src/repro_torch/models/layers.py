@@ -16,6 +16,10 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 
+# the model dtypes (``cfg.dtype``, ``cfg.attn_logits_dtype``) by name
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     x32 = x.float()

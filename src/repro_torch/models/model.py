@@ -9,7 +9,11 @@ Parameters are a nested dict of tensors in the reference's layout, layer
 weights stacked on a leading (L, ...) dim, so blocking and pooling see the
 reference's shapes.  The layer loop is a Python loop over slices of the
 stacks; with ``cfg.remat`` each layer is recomputed in the backward pass
-(``torch.utils.checkpoint``), the reference's ``jax.checkpoint``.  The
+(``torch.utils.checkpoint``), the reference's ``jax.checkpoint`` (``_remat``
+:36-43): with ``remat_policy="full"`` nothing of the layer is kept, with
+``"dots"`` the outputs of its matrix products with no batch dimension
+(the projections: ``aten.mm`` and ``aten.addmm``) are kept and the rest
+recomputed, the reference's ``dots_with_no_batch_dims_saveable``.  The
 hybrid family (zamba2) has ONE shared attention+MLP block, unstacked,
 applied before the mamba mixer of every ``attn_every``-th layer.  With tied
 embeddings there is no ``lm_head``: the logits are ``x @ embed.T``.  The
@@ -24,18 +28,27 @@ tokens and labels (B, S, K) and logits (B, S, K, V).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.utils.checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import tree
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import gated_mlp, rms_norm
+from repro_torch.models.layers import DTYPES, gated_mlp, rms_norm
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+REMAT_POLICIES = ("full", "dots")
+# the matrix products ``remat_policy="dots"`` keeps: those with no batch
+# dimension, as the dispatcher sees a 2-D (or folded N-D by 2-D) matmul;
+# the batched ones (aten.bmm: attention's plain version, the experts'
+# einsums) are recomputed, as the reference's are
+DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 # the families whose layers are dense attention + MLP blocks, and those
 # whose every layer attends (one k/v cache a layer)
 DENSE_STACKS = ("dense", "vlm", "audio")
@@ -43,22 +56,23 @@ ATTENTION_STACKS = DENSE_STACKS + ("moe",)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for configuration values the port's model does not run: an
-    unknown family or dtype, and the reference's ``remat_policy="dots"``
-    and ``attn_logits_dtype`` other than f32, which no config or caller in
-    either package sets."""
+    """Raise for configuration values no model of either package runs: a
+    family other than FAMILIES, a dtype other than DTYPES (float64, which
+    the reference turns into f32 unless x64 is on, included), a remat
+    policy other than REMAT_POLICIES, or attention logits in a type other
+    than f32, bf16 and fp16."""
     unsupported = {
         "family": cfg.family not in FAMILIES,
-        "remat_policy": cfg.remat_policy != "full",
-        "attn_logits_dtype": cfg.attn_logits_dtype != "float32",
         "dtype": cfg.dtype not in DTYPES,
+        "remat_policy": cfg.remat_policy not in REMAT_POLICIES,
+        "attn_logits_dtype": cfg.attn_logits_dtype not in DTYPES,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: {bad} not ported: the port runs the "
-            f"{', '.join(FAMILIES)} families with full remat and f32 "
-            f"attention logits")
+            f"{cfg.name}: {bad} not supported: the port runs the "
+            f"{', '.join(FAMILIES)} families in {', '.join(DTYPES)} with "
+            f"remat policy {' or '.join(REMAT_POLICIES)}")
 
 
 def _dense_layer_shapes(cfg: ModelConfig, d_ff: int = 0) -> dict:
@@ -184,6 +198,24 @@ def _hybrid_block(cfg: ModelConfig, shared: dict, p: dict, site: bool,
     return _mamba_layer(cfg, p, x)
 
 
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``remat_policy="dots"``: keep the outputs of DOTS_SAVED, recompute
+    everything else (the kernels' launches too: they are ctypes calls the
+    dispatcher never sees, so their Functions run again in the backward,
+    as under full remat)."""
+    return CheckpointPolicy.MUST_SAVE if op in DOTS_SAVED \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_kwargs(cfg: ModelConfig) -> dict:
+    """The ``torch.utils.checkpoint.checkpoint`` arguments of a layer under
+    ``cfg.remat_policy``."""
+    if cfg.remat_policy == "dots":
+        return dict(use_reentrant=False, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy))
+    return dict(use_reentrant=False)
+
+
 def layer(stacked: dict, i: int) -> dict:
     """Layer ``i``'s parameters out of the stacked (L, ...) layer tree."""
     return {k: layer(v, i) if isinstance(v, dict) else v[i]
@@ -252,7 +284,7 @@ def forward(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
                                            i in sites, x, positions)
             if cfg.remat and torch.is_grad_enabled():
                 x = torch.utils.checkpoint.checkpoint(fn, *args,
-                                                      use_reentrant=False)
+                                                      **remat_kwargs(cfg))
             else:
                 x = fn(*args)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -43,6 +43,21 @@ tolerances above; kernel 7 causal with S != Sk (aligned at the end as
 ``attention_ref``; rows that see no key are the mean of V) and at head dims
 8, 40, 72, 100, 144, 200 and 240 (GQA and MHA), both dtypes.
 
+Past the old capacity limits (every shape and dtype the reference takes),
+each call one launch of its wrapper and the same bits twice: kernel 8 at
+P 8, 48, 128 and 192 (slices of P) with N 1, 96, 256 and 384 (chunks of
+N) over three chunks of 16 in f32, bf16 and fp16, and in fp16 at the
+sweep's shapes; kernel 7 past hd 256 (the wide kernel: 264, 320, 512, GQA
+and MHA, causal and not, in f32, bf16 and fp16) and in fp16 at every
+FLASH_CASES shape and head dim 8 to 240 (atol 0.05 and 1e-2 in norm, as
+bf16); kernels 2 and 2' at ell 1,985, 2,100 and 4,000 (chunks of U's
+columns, U scaled by 1 / sqrt(ell)); kernel 4 at ell 1,025, 4,096 and
+8,192 (227 KB of shared memory, then chunks) in f32, bf16 and fp16; kernel
+1 in fp16 at GRAM_CASES (bf16's tolerance).  The reduced paper-lm-100m,
+zamba2-7b, mamba2-370m and deepseek-moe-16b at float16 with the "dots"
+remat policy and bf16 attention logits on the card against the CPU,
+through chip_smoke.py's phase 8d (its kernels 7 and 8 launched in fp16).
+
 The sharded statistics: kernel 1 at the butterfly merge's Gram shapes (k
 126 and 22) and the shrink merge's (k 128 and 24) against its plain
 version, and the FD merge and ``merge_sketches_on_shrink`` on the card
@@ -98,6 +113,7 @@ from repro_torch.kernels.gram import ref as gram_ref
 from repro_torch.kernels.lowrank import ref as lowrank_ref
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+ALL_DTYPES = dict(DTYPES, float16=torch.float16)
 
 
 def _tol(d: int, dtype: str) -> dict:
@@ -125,12 +141,12 @@ GRAM_CASES = [(1, 16, 4), (3, 20, 6), (5, 100, 30), (7, 33, 9), (2, 12, 780),
     # entries of mean 3: without the promotion of the tensor core's
     # accumulator every 32-row chunk, 3xTF32 misses the tolerance here
     (8, 1024, 832, 3.0)])
-@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("dtype", list(ALL_DTYPES))
 def test_gram_kernel_matches_plain_on_card(card, N, d, k, mean, dtype):
     from repro_torch.kernels.gram import kernel
     gen = torch.Generator(device=card).manual_seed(d)
     a = (torch.randn(N, d, k, generator=gen, device=card)
-         + mean).to(DTYPES[dtype])
+         + mean).to(ALL_DTYPES[dtype])
     before = kernel.launches
     got = kernel.batched_gram(a)
     torch.cuda.synchronize()
@@ -179,7 +195,7 @@ def test_kernel_wrappers_reject_what_they_do_not_take(card):
     from repro_torch.kernels.lowrank import kernel as lowrank_kernel
     a = torch.zeros(2, 8, 4, device=card)
     with pytest.raises(TypeError):
-        gram_kernel.batched_gram(a.half())
+        gram_kernel.batched_gram(a.double())
     with pytest.raises(ValueError, match="contiguous"):
         gram_kernel.batched_gram(a.mT)
     with pytest.raises(ValueError, match="CUDA"):
@@ -191,11 +207,10 @@ def test_kernel_wrappers_reject_what_they_do_not_take(card):
     with pytest.raises(TypeError, match="float32"):
         lowrank_kernel.batched_lowrank_apply(u.bfloat16(), c, b,
                                              g.bfloat16())
-    wide = lowrank_kernel.BATCHED_MAX_ELL + 1
     with pytest.raises(ValueError, match="ell"):
         lowrank_kernel.batched_lowrank_apply(
-            torch.zeros(2, 8, wide, device=card),
-            torch.zeros(2, wide, device=card), b, g)
+            torch.zeros(2, 8, 0, device=card),
+            torch.zeros(2, 0, device=card), b, g)
 
 
 # (N, d, ell, r): ragged, then the main path's shapes (left and right side
@@ -498,12 +513,12 @@ def _flash_inputs(card, B, Hq, Hkv, S, hd, dtype, seed):
     over: transposed views of (B, S, H, hd) tensors."""
     gen = torch.Generator(device=card).manual_seed(seed)
     return [torch.randn(B, S, h, hd, generator=gen, device=card)
-            .to(DTYPES[dtype]).transpose(1, 2) for h in (Hq, Hkv, Hkv)]
+            .to(ALL_DTYPES[dtype]).transpose(1, 2) for h in (Hq, Hkv, Hkv)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,Hq,Hkv,S,hd,causal", FLASH_CASES)
-@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("dtype", list(ALL_DTYPES))
 def test_flash_kernel_matches_plain_on_card(card, B, Hq, Hkv, S, hd, causal,
                                             dtype):
     from repro_torch.kernels.flash import kernel
@@ -517,8 +532,12 @@ def test_flash_kernel_matches_plain_on_card(card, B, Hq, Hkv, S, hd, causal,
     assert got.dtype == q.dtype and got.shape == q.shape
     assert torch.equal(got, again)
     want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal)
-    atol = 2e-5 if dtype == "float32" else 0.05
-    torch.testing.assert_close(got.float(), want, atol=atol, rtol=0)
+    torch.testing.assert_close(got.float(), want, atol=HALF_ATOL[dtype],
+                               rtol=0)
+    if dtype == "float16":   # the wgmma kernel's .f16 form
+        assert kernel.plan(q.dtype, B, Hq, S, hd).kernel in (
+            "wgmma_f16", "wide")
+        assert float((got.float() - want).norm() / want.norm()) <= 1e-2
 
 
 # bf16 only, the edges of the wgmma kernel (B, Hq, Hkv, S, Sk, hd, causal):
@@ -617,13 +636,13 @@ def _ssd_inputs(card, B, S, H, P, N, dtype, seed):
     dlog = -torch.randn(B, S, H, generator=gen, device=card).abs() * 0.1
     Bm = torch.randn(B, S, N, generator=gen, device=card) * 0.3
     Cm = torch.randn(B, S, N, generator=gen, device=card) * 0.3
-    dt = DTYPES[dtype]
+    dt = ALL_DTYPES[dtype]
     return u.to(dt), dlog, Bm.to(dt), Cm.to(dt)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_CASES)
-@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("dtype", list(ALL_DTYPES))
 def test_ssd_kernel_matches_plain_on_card(card, B, S, H, P, N, chunk, dtype):
     from repro_torch.kernels.ssd import kernel
     from repro_torch.kernels.ssd import ref
@@ -677,14 +696,16 @@ def test_flash_and_ssd_wrappers_reject_what_they_do_not_take(card):
     from repro_torch.kernels.ssd import kernel as ssd_kernel
     q = torch.zeros(1, 2, 8, 32, device=card)
     with pytest.raises(TypeError):
-        flash_kernel.flash_attention(q.half(), q.half(), q.half())
+        flash_kernel.flash_attention(q.double(), q.double(), q.double())
+    with pytest.raises(TypeError):
+        flash_kernel.flash_attention(q.half(), q, q)
     with pytest.raises(ValueError, match="CUDA"):
         flash_kernel.flash_attention(q.cpu(), q, q)
     with pytest.raises(ValueError, match="contiguous last dim"):
         flash_kernel.flash_attention(q.mT, q.mT, q.mT)
-    wide = torch.zeros(1, 2, 8, 264, device=card)
+    empty = torch.zeros(1, 2, 8, 0, device=card)
     with pytest.raises(ValueError, match="head dim"):
-        flash_kernel.flash_attention(wide, wide, wide)
+        flash_kernel.flash_attention(empty, empty, empty)
     with pytest.raises(ValueError, match="shape"):
         flash_kernel.flash_attention(q, q[:, :1].expand(1, 3, 8, 32),
                                      q[:, :1].expand(1, 3, 8, 32))
@@ -699,9 +720,10 @@ def test_flash_and_ssd_wrappers_reject_what_they_do_not_take(card):
         ssd_kernel.ssd_scan(u, dlog.cpu(), bc, bc, 4)
     with pytest.raises(ValueError, match="contiguous"):
         ssd_kernel.ssd_scan(u, dlog, bc.mT.contiguous().mT, bc, 4)
-    with pytest.raises(ValueError, match="P in"):
-        ssd_kernel.ssd_scan(torch.zeros(1, 8, 2, 24, device=card), dlog, bc,
-                            bc, 4)
+    with pytest.raises(TypeError):
+        ssd_kernel.ssd_scan(u.double(), dlog, bc.double(), bc.double(), 4)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_kernel.ssd_scan(u, dlog, bc, bc, 0)
     with pytest.raises(ValueError, match="shape"):
         ssd_kernel.ssd_scan(u, dlog[:, :4], bc, bc, 4)
 
@@ -1302,7 +1324,7 @@ def _flash_pair(card, B, Hq, Hkv, S, Sk, hd, dtype, seed):
     q = torch.randn(B, S, Hq, hd, generator=gen, device=card)
     k, v = (torch.randn(B, Sk, Hkv, hd, generator=gen, device=card)
             for _ in "kv")
-    return [t.to(DTYPES[dtype]).transpose(1, 2) for t in (q, k, v)]
+    return [t.to(ALL_DTYPES[dtype]).transpose(1, 2) for t in (q, k, v)]
 
 
 @pytest.mark.cuda
@@ -1333,14 +1355,14 @@ def test_flash_kernel_causal_with_s_not_sk(card, B, Hq, Hkv, S, Sk, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", FLASH_ANY_HD)
 @pytest.mark.parametrize("Hkv", [2, 8])
-@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("dtype", list(ALL_DTYPES))
 def test_flash_kernel_at_any_head_dim(card, hd, Hkv, dtype):
     """GQA (8 query heads on 2 KV heads) and MHA, causal at S 130 and not
-    causal at Sk 70; bf16 also within 1e-2 of the plain version in norm,
-    as test_flash_bf16_kernel_edges_on_card."""
+    causal at Sk 70; bf16 and fp16 also within 1e-2 of the plain version in
+    norm, as test_flash_bf16_kernel_edges_on_card."""
     from repro_torch.kernels.flash import kernel
     from repro_torch.kernels.flash import ref
-    atol = 2e-5 if dtype == "float32" else 0.05
+    atol = HALF_ATOL[dtype]
     for S, Sk, causal in ((130, 130, True), (130, 70, False)):
         q, k, v = _flash_pair(card, 2, 8, Hkv, S, Sk, hd, dtype, hd + Sk)
         before = kernel.launches
@@ -1351,5 +1373,198 @@ def test_flash_kernel_at_any_head_dim(card, hd, Hkv, dtype):
         want = ref.attention_ref(q.float(), k.float(), v.float(),
                                  causal=causal)
         torch.testing.assert_close(got.float(), want, atol=atol, rtol=0)
-        if dtype == "bfloat16":
+        if dtype != "float32":
             assert float((got.float() - want).norm() / want.norm()) <= 1e-2
+
+
+# Every shape and dtype the reference takes: kernel 8 at any P (slices of
+# 64) and any N (chunks of 128 summed in f32), kernel 7 past hd 256 (the
+# wide kernel) and in fp16 (the wgmma kernel's .f16 form), kernels 2 and
+# 2' past ell 1,984 (chunks of 256 of U's columns), kernel 4 past ell
+# 1,024 (227 KB of shared memory, then chunks past 7,264) and kernel 1 in
+# fp16.  Each call one launch of its wrapper.
+HALF_ATOL = {"float32": 2e-5, "bfloat16": 0.05, "float16": 0.05}
+
+
+def _ssd_any(card, B, S, H, P, N, dtype, seed):
+    """_ssd_inputs with B and C scaled by sqrt(64 / N) past N 64, so that C
+    B^T stays within the sizes it has in the sweep (N <= 128) at any N;
+    below N 64 they are the sweep's, unscaled."""
+    u, dlog, Bm, Cm = _ssd_inputs(card, B, S, H, P, N, "float32", seed)
+    s = min(1.0, (64 / N) ** 0.5)
+    dt = ALL_DTYPES[dtype]
+    return u.to(dt), dlog, (Bm * s).to(dt), (Cm * s).to(dt)
+
+
+@pytest.mark.cuda
+def test_wrappers_count_their_launches_by_dtype(card):
+    """Each call that launches adds one under its operand's dtype beside
+    its total, a call that returns unlaunched adds nothing, and
+    zero_launch_counts clears both."""
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.flash import kernel as flash
+    from repro_torch.kernels.gram import kernel as gram
+    from repro_torch.kernels.lowrank import kernel as lowrank
+    from repro_torch.kernels.ssd import kernel as ssd
+    gen = torch.Generator(device=card).manual_seed(0)
+    a = torch.randn(2, 32, 16, generator=gen, device=card)
+    q = torch.randn(1, 2, 16, 64, generator=gen, device=card).half()
+    u = torch.randn(2, 32, 8, generator=gen, device=card)
+    u8 = (u * 40).round().to(torch.int8)
+    coeffs = torch.rand(2, 8, generator=gen, device=card)
+    base = torch.rand(2, generator=gen, device=card)
+    g = torch.randn(2, 32, 4, generator=gen, device=card)
+    scan = _ssd_inputs(card, 1, 32, 2, 16, 16, "float16", 0)
+    registry.zero_launch_counts()
+    gram.batched_gram(a)
+    gram.batched_gram(a.half())
+    gram.batched_gram(a[:0])
+    flash.flash_attention(q, q, q, causal=True)
+    ssd.ssd_scan(*scan, 16)
+    lowrank.batched_lowrank_apply(u, coeffs, base, g)
+    lowrank.batched_lowrank_apply(u8, coeffs, base, g)
+    torch.cuda.synchronize()
+    assert registry.launch_counts_by_dtype() == {
+        "batched_gram float32": 1, "batched_gram float16": 1,
+        "flash_attention float16": 1, "ssd_scan float16": 1,
+        "batched_lowrank_apply float32": 1,
+        "batched_lowrank_apply int8": 1}
+    counts = registry.launch_counts()
+    assert (counts["batched_gram"], counts["flash_attention"],
+            counts["ssd_scan"], counts["batched_lowrank_apply"],
+            counts["batched_lowrank_apply_int8"]) == (2, 1, 1, 1, 1)
+    registry.zero_launch_counts()
+    assert registry.launch_counts_by_dtype() == {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [8, 48, 128, 192])
+@pytest.mark.parametrize("N", [1, 96, 256, 384])
+@pytest.mark.parametrize("dtype", list(ALL_DTYPES))
+def test_ssd_kernel_at_any_p_and_n(card, P, N, dtype):
+    """Three chunks of 16 (all three phases) at S 40, 3 heads (no multiple
+    of the head tile), against the plain version at the sweep's
+    tolerances (fp16 at bf16's), the same bits twice."""
+    from repro_torch.kernels.ssd import kernel
+    from repro_torch.kernels.ssd import ref
+    B, S, H, chunk = 2, 40, 3, 16
+    u, dlog, Bm, Cm = _ssd_any(card, B, S, H, P, N, dtype, P + N)
+    before = kernel.launches
+    got = kernel.ssd_scan(u, dlog, Bm, Cm, chunk)
+    again = kernel.ssd_scan(u, dlog, Bm, Cm, chunk)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert got.dtype == u.dtype and got.shape == u.shape
+    assert torch.equal(got, again)
+    want = ref.ssd_ref(u.float(), dlog, Bm.float(), Cm.float(), chunk)
+    atol = 5e-6 * S if dtype == "float32" else 0.15
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [264, 320, 512])
+@pytest.mark.parametrize("Hkv", [2, 8])
+@pytest.mark.parametrize("dtype", list(ALL_DTYPES))
+def test_flash_kernel_past_head_dim_256(card, hd, Hkv, dtype):
+    """The wide kernel, GQA and MHA, causal at S 130 and not causal at Sk
+    70; bf16 and fp16 also within 1e-2 of the plain version in norm."""
+    from repro_torch.kernels.flash import kernel
+    from repro_torch.kernels.flash import ref
+    assert kernel.plan(ALL_DTYPES[dtype], 2, 8, 130, hd).kernel == "wide"
+    for S, Sk, causal in ((130, 130, True), (130, 70, False)):
+        gen = torch.Generator(device=card).manual_seed(hd + Sk)
+        q = torch.randn(2, S, 8, hd, generator=gen, device=card)
+        k, v = (torch.randn(2, Sk, Hkv, hd, generator=gen, device=card)
+                for _ in "kv")
+        q, k, v = (t.to(ALL_DTYPES[dtype]).transpose(1, 2) for t in (q, k, v))
+        before = kernel.launches
+        got = kernel.flash_attention(q, k, v, causal=causal)
+        again = kernel.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 2
+        assert got.shape == q.shape and got.dtype == q.dtype
+        assert torch.equal(got, again)
+        want = ref.attention_ref(q.float(), k.float(), v.float(),
+                                 causal=causal)
+        torch.testing.assert_close(got.float(), want, atol=HALF_ATOL[dtype],
+                                   rtol=0)
+        if dtype != "float32":
+            assert float((got.float() - want).norm() / want.norm()) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ell", [1985, 2100, 4000])
+@pytest.mark.parametrize("u_dtype", ["float32", "int8"])
+def test_batched_apply_past_ell_1984(card, ell, u_dtype):
+    """U's columns in chunks (lowrank.apply_chunks), one wrapper launch, at
+    the f32 tolerance and the same bits twice; U scaled by 1 / sqrt(ell),
+    as orthonormal columns would keep Y's size."""
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.lowrank import kernel
+    assert len(kernel.apply_chunks(ell)) > 1
+    gen = torch.Generator(device=card).manual_seed(ell)
+    N, d, n = 3, 96, 40
+    g = torch.randn(N, d, n, generator=gen, device=card)
+    coeffs = torch.rand(N, ell, generator=gen, device=card)
+    base = torch.rand(N, generator=gen, device=card)
+    if u_dtype == "float32":
+        u = torch.randn(N, d, ell, generator=gen, device=card) / ell ** 0.5
+        count = "launches"
+        run = lambda: kernel.batched_lowrank_apply(u, coeffs, base, g)
+        want = lowrank_ref.batched_lowrank_apply_ref(u, coeffs, base, g)
+    else:
+        vq = _int8(N, d, ell, gen, card)
+        scale = torch.rand(N, 1, 1, generator=gen, device=card) / 127 \
+            / ell ** 0.5
+        count = "int8_launches"
+        run = lambda: registry.batched_lowrank_apply_quantized(
+            vq, scale, coeffs, base, g)
+        want = lowrank_ref.batched_lowrank_apply_quantized_ref(
+            vq, scale, coeffs, base, g)
+    before = getattr(kernel, count)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert getattr(kernel, count) == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, **_tol(d, "float32"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ell", [1025, 4096, 8192])
+@pytest.mark.parametrize("dtype", list(SINGLE))
+def test_single_apply_past_ell_1024(card, ell, dtype):
+    """The expand pass with 227 KB of shared memory (ell 1,025 and 4,096)
+    and in chunks past 7,264 (8,192), one wrapper launch, the same bits
+    twice, at the single apply's tolerances."""
+    from repro_torch.kernels.lowrank import kernel
+    gen = torch.Generator(device=card).manual_seed(ell)
+    d, n = 3000, 9
+    u = torch.randn(d, ell, generator=gen, device=card) / ell ** 0.5
+    g = torch.randn(d, n, generator=gen, device=card).to(SINGLE[dtype])
+    coeffs = torch.rand(ell, generator=gen, device=card)
+    base = torch.rand((), generator=gen, device=card)
+    before = kernel.single_launches
+    got = kernel.lowrank_apply(u, coeffs, base, g)
+    again = kernel.lowrank_apply(u, coeffs, base, g)
+    torch.cuda.synchronize()
+    assert kernel.single_launches == before + 2
+    assert got.dtype == g.dtype and torch.equal(got, again)
+    tol = _single_tol(d, dtype)
+    if dtype != "float32":
+        tol["rtol"] = max(tol["rtol"], torch.finfo(g.dtype).eps)
+    torch.testing.assert_close(
+        got.float(),
+        lowrank_ref.lowrank_apply_ref(u, coeffs, base, g).float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["paper-lm-100m", "zamba2-7b",
+                                  "mamba2-370m", "deepseek-moe-16b"])
+def test_fp16_dots_models_on_card_match_cpu(card, arch):
+    """The reduced family at float16 with remat_policy="dots" and bf16
+    attention logits, on the card and on the CPU from the same weights,
+    through chip_smoke.py's phase 8d (``phase_settings_reference``, which
+    raises on a disagreement): the loss and every gradient at the bf16
+    tolerances of the port's CPU tests, and the kernels' launches."""
+    smoke = chip_smoke()
+    smoke.phase_settings_reference(card, arch)

@@ -186,6 +186,25 @@ def test_registry_dispatches_on_device():
         registry.gram(elsewhere)
 
 
+def test_launch_counts_by_dtype(monkeypatch):
+    """The wrappers' launches by operand dtype as the registry names them,
+    and zero_launch_counts clearing them with the totals."""
+    for module, attr in registry.LAUNCH_COUNTERS.values():
+        monkeypatch.setattr(module, attr, 1)
+    for module, attr in registry.DTYPE_COUNTERS.values():
+        monkeypatch.setattr(module, attr, {})
+    module, attr = registry.DTYPE_COUNTERS["flash_attention"]
+    getattr(module, attr)[torch.float16] = 3
+    module, attr = registry.DTYPE_COUNTERS["batched_lowrank_apply"]
+    getattr(module, attr).update({torch.float32: 2, torch.int8: 1})
+    assert registry.launch_counts_by_dtype() == {
+        "flash_attention float16": 3, "batched_lowrank_apply float32": 2,
+        "batched_lowrank_apply int8": 1}
+    registry.zero_launch_counts()
+    assert registry.launch_counts_by_dtype() == {}
+    assert set(registry.launch_counts().values()) == {0}
+
+
 # (N, d, ell, r): ell = 12 straddles the int8/f32 boundary inside one tile
 MIXED_CASES = [(1, 16, 4, 1), (3, 20, 12, 5), (2, 12, 12, 30),
                (5, 100, 30, 2), (4, 70, 12, 1), (2, 130, 64, 12)]
